@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's uint8 read path on one NVIDIA GPU and hold
+every Hopper kernel against its plain PyTorch version.
+
+    python3 chip_smoke.py                    # needs one GPU and nvcc
+
+Phases, each printing one JSON line (any failure exits non-zero):
+
+1. device       card name and power limit, torch/CUDA versions, the
+                kernels' build from ``src/repro_torch/kernels/csrc``;
+2. kernels      each kernel against its plain version on the card at the
+                shapes one 512x512 decode of the SD3.5-width decoder gives
+                it: max error and tolerance, median ms (CUDA events), the
+                plain version's ms, a library call's ms, FLOPs, bytes and
+                the bound;
+3. invariance   a bucket-8 decode bit-identical to eight batch-1 decodes;
+4. slice        ``LatentBox.engine(device="cuda")`` at SD3.5-VAE width
+                serving seeded Zipf requests: hit classes, decodes,
+                batches, per-image decode ms per bucket, and each kernel's
+                launches while serving (all must be > 0);
+5. crossdevice  the same decoder at a 16x16 latent on the GPU and on the
+                CPU (the plain path): uint8 within +-1 LSB, float trunk
+                within a relative tolerance.
+
+Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
+power-limit line, and as the last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Full lines also go to ``chiprun_out/chip_smoke.jsonl``.  The script imports
+no JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+from collections import Counter
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+REPS = 10                 # timed runs per kernel measurement
+LATENT_HW = 64            # 64x64x16 latent -> 512x512 image
+SLICE_OBJECTS = 48
+SLICE_REQUESTS = 160
+SLICE_WINDOW = 8
+
+#: kernel -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "conv3x3": ("src/repro_torch/kernels/csrc/conv3x3.cu",
+                "src/repro/kernels/conv3x3.py:76"),
+    "gn_silu_conv3x3": ("src/repro_torch/kernels/csrc/conv3x3.cu",
+                        "src/repro/kernels/gn_silu_conv.py:84"),
+    "upsample_conv3x3": ("src/repro_torch/kernels/csrc/upsample_conv.cu",
+                         "src/repro/kernels/upsample_conv.py:102"),
+    "output_epilogue": ("src/repro_torch/kernels/csrc/conv3x3.cu",
+                        "src/repro/kernels/output_epilogue.py:82"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:78"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(log, phase: str, **fields) -> None:
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    log.write(line + "\n")
+    log.flush()
+
+
+def need(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_peaks(name: str):
+    """(fp32 FLOP/s outside the tensor cores, HBM bytes/s) of the part,
+    from NVIDIA's data sheets, read off the device name."""
+    if "PCIe" in name:
+        return 51e12, 2.0e12, "H100 PCIe: 51 TFLOP/s fp32, 2.0 TB/s"
+    if "NVL" in name:
+        return 60e12, 3.9e12, "H100 NVL: 60 TFLOP/s fp32, 3.9 TB/s"
+    return 67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s"
+
+
+# ---------------------------------------------------------------------------
+# the decode's kernel calls, derived from the config like _decode_trunk
+# ---------------------------------------------------------------------------
+
+def decode_calls(cfg, latent_hw: int):
+    """[(kernel, shape args)] of one decode of one image, in order."""
+    chs = cfg.block_out_channels
+    top, s = chs[-1], latent_hw
+    calls = [("conv3x3", (s, s, cfg.latent_channels, top))]
+    calls += [("gn_silu_conv3x3", (s, s, top, top))] * 2
+    calls += [("flash_attention", (s * s, top))]
+    calls += [("gn_silu_conv3x3", (s, s, top, top))] * 2
+    cin = top
+    for i, cout in enumerate(reversed(chs)):
+        for _ in range(cfg.layers_per_block + 1):
+            calls += [("gn_silu_conv3x3", (s, s, cin, cout)),
+                      ("gn_silu_conv3x3", (s, s, cout, cout))]
+            cin = cout
+        if i < len(chs) - 1:
+            calls.append(("upsample_conv3x3", (s, s, cout, cout)))
+            s *= 2
+    calls.append(("output_epilogue", (s, s, chs[0], cfg.image_channels)))
+    return calls
+
+
+def work(kernel: str, args):
+    """(FLOPs, bytes) one image's call needs: each input read once, each
+    output written once; the upsampler counted in its phase form (16 taps
+    over H*W, the least work known for the function)."""
+    if kernel == "flash_attention":
+        s, d = args
+        return 4.0 * s * s * d, 4.0 * 4 * s * d
+    h, w, cin, cout = args
+    px = h * w
+    if kernel == "upsample_conv3x3":
+        return (2.0 * px * 16 * cin * cout,
+                4.0 * (px * cin + 9 * cin * cout + cout + 4 * px * cout))
+    flops = 2.0 * px * 9 * cin * cout
+    out_bytes = (1 if kernel == "output_epilogue" else 4) * px * cout
+    if kernel != "conv3x3":
+        flops += 10.0 * px * cin          # statistics, normalise, SiLU
+    in_bytes = 4.0 * (px * cin + 9 * cin * cout + cout + 2 * cin)
+    return flops, in_bytes + out_bytes
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Median ms of ``fn`` over ``reps`` runs, each between CUDA events,
+    after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(torch, log, state):
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    wall = time.perf_counter() - t0
+    report = {n: build.ptxas_report(n) for n in build.SOURCES}
+    (OUT_DIR / "ptxas.json").write_text(json.dumps(report, indent=1))
+    name = torch.cuda.get_device_name(0)
+    state["smi"] = nvidia_smi("name,power.limit")
+    state["peaks"] = card_peaks(name)
+    emit(log, "device", nvidia_smi=state["smi"], name=name,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, build_wall_s=wall, build_s=secs,
+         peaks=state["peaks"][2],
+         ptxas={n: [ln for ln in v if "Used" in ln]
+                for n, v in report.items()})
+
+
+def kernel_inputs(torch, kernel, args, gen):
+    """Seeded inputs of one image's call on the card."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    if kernel == "flash_attention":
+        s, d = args
+        return [randn(1, 1, s, d) for _ in range(3)]
+    h, w, cin, cout = args
+    x = randn(1, h, w, cin)
+    wt = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    b = randn(cout, scale=0.1)
+    if kernel in ("conv3x3", "upsample_conv3x3"):
+        return [x, wt, b]
+    gamma = 1.0 + randn(cin, scale=0.1)
+    beta = randn(cin, scale=0.1)
+    if kernel == "output_epilogue":
+        wt = wt * 0.35                 # keep most pixels off the clamp
+    return [x, gamma, beta, wt, b]
+
+
+def phase_kernels(torch, log, state):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.vae.model import SD35_VAE
+    groups = SD35_VAE.groups
+    wrappers = {
+        "conv3x3": lambda a: ops.conv3x3(*a),
+        "gn_silu_conv3x3": lambda a: ops.gn_silu_conv3x3(*a, groups=groups),
+        "upsample_conv3x3": lambda a: ops.upsample_conv3x3(*a),
+        "output_epilogue": lambda a: ops.output_epilogue(*a, groups=groups),
+        "flash_attention": lambda a: ops.flash_attention(*a),
+    }
+    plains = {
+        "conv3x3": lambda a: ref.conv3x3_ref(*a),
+        "gn_silu_conv3x3": lambda a: ref.gn_silu_conv3x3_ref(*a, groups),
+        "upsample_conv3x3": lambda a: ref.upsample_conv3x3_ref(*a),
+        "output_epilogue": lambda a: ref.output_epilogue_ref(*a, groups),
+        "flash_attention": lambda a: ref.flash_attention_ref(*a),
+    }
+
+    def library(kernel, a):
+        """One PyTorch call for the same work: F.conv2d (TF32 off) on the
+        conv's own input (normalised, or upsampled, outside the timing)
+        for the convs, scaled_dot_product_attention for attention."""
+        if kernel == "flash_attention":
+            return lambda: F.scaled_dot_product_attention(*a)
+        x, wt, b = a[0], a[-2], a[-1]
+        if kernel in ("gn_silu_conv3x3", "output_epilogue"):
+            x = ref.group_norm_silu_ref(x, a[1], a[2], groups)
+        if kernel == "upsample_conv3x3":
+            x = x.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        xc = x.permute(0, 3, 1, 2)                    # NHWC as channels_last
+        wc = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return lambda: F.conv2d(xc, wc, b, padding=1)
+
+    checks = list(Counter(decode_calls(SD35_VAE, LATENT_HW)).items())
+    # attention also at a 1024x1024 image's 16,384 tokens (checked, not
+    # part of the 512x512 decode's totals)
+    top = SD35_VAE.block_out_channels[-1]
+    checks.append((("flash_attention", (16384, top)), 0))
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    flop_peak, byte_peak, _ = state["peaks"]
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0,
+                  "calls_per_decode": 0} for k in KERNELS}
+    for (kernel, args), per_decode in checks:
+        a = kernel_inputs(torch, kernel, args, gen)
+        got = wrappers[kernel](a)
+        want = plains[kernel](a)
+        torch.cuda.synchronize()
+        need(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+             f"{kernel}{args}: kernel gives {tuple(got.shape)} {got.dtype}, "
+             f"plain {tuple(want.shape)} {want.dtype}")
+        need(bool(torch.isfinite(got.float()).all()), f"{kernel}{args}: "
+             "non-finite output")
+        if kernel == "output_epilogue":
+            err = float((got.int() - want.int()).abs().max())
+            tol, why = 1.0, ("uint8 +-1 LSB: only the fp32 sum order differs, "
+                             "which can move a value across a rounding edge")
+        else:
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            tol = 1e-4 * max(1.0, scale)
+            why = ("fp32 with another summation order (up to 9*Cin or d "
+                   "terms): 1e-4 relative to the output's max")
+        need(err <= tol, f"{kernel}{args}: max error {err} > {tol}")
+        ms = cuda_ms(torch, lambda: wrappers[kernel](a), REPS)
+        plain_ms = cuda_ms(torch, lambda: plains[kernel](a), REPS)
+        lib_ms = cuda_ms(torch, library(kernel, a), REPS)
+        flops, nbytes = work(kernel, args)
+        bound = max(flops / flop_peak, nbytes / byte_peak) * 1e3
+        emit(log, "kernel", name=kernel, shape=list(args), calls_per_decode=
+             per_decode, max_abs_err=err, tol=tol, tol_reason=why, ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
+             bound_ms=bound, tflops=flops / ms / 1e9)
+        t = totals[kernel]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        if per_decode:
+            t["ms"] += per_decode * ms
+            t["plain_ms"] += per_decode * plain_ms
+            t["library_ms"] += per_decode * lib_ms
+            t["flops"] += per_decode * flops
+            t["bytes"] += per_decode * nbytes
+            t["calls_per_decode"] += per_decode
+        del a, got, want
+        torch.cuda.empty_cache()
+    for k, t in totals.items():
+        t_ops, t_bytes = t["flops"] / flop_peak, t["bytes"] / byte_peak
+        t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    state["kernel_totals"] = totals
+    emit(log, "kernels_per_decode", image=[8 * LATENT_HW] * 2,
+         total_flops=sum(t["flops"] for t in totals.values()),
+         totals=totals)
+
+
+def sd35_vae(torch, device):
+    from repro_torch.vae.model import SD35_VAE, VAE, calibrate_output_range
+    vae = VAE(SD35_VAE, seed=0, device=device)
+    gain = calibrate_output_range(vae)
+    return vae, gain
+
+
+def phase_invariance(torch, log, state):
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    rng = state["np"].random.default_rng(5)
+    z = rng.standard_normal((8, LATENT_HW, LATENT_HW, 16)).astype("float32")
+    batch = vae.decode_u8(z).cpu()
+    singles = [vae.decode_u8(z[i:i + 1]).cpu() for i in range(8)]
+    same = [bool(torch.equal(batch[i:i + 1], singles[i])) for i in range(8)]
+    need(all(same), f"bucket 8 differs from batch-1 decodes: {same}")
+    need(tuple(batch.shape) == (8, 8 * LATENT_HW, 8 * LATENT_HW, 3),
+         f"decode shape {tuple(batch.shape)}")
+    emit(log, "invariance", bucket=8, bit_identical=same,
+         image_std=float(batch.float().std()))
+
+
+def phase_slice(torch, log, state):
+    np = state["np"]
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.store import LatentBox, StoreConfig
+    vae, gain = state.setdefault("vae", sd35_vae(torch, "cuda"))
+    side = 8 * LATENT_HW
+    image_bytes = float(side * side * 3)
+    rng = np.random.default_rng(11)
+    latents = [rng.standard_normal((LATENT_HW, LATENT_HW, 16))
+               .astype(np.float16) for _ in range(SLICE_OBJECTS)]
+    ranks = np.arange(1, SLICE_OBJECTS + 1, dtype=np.float64)
+    p = ranks ** -1.1
+    trace = [int(t) for t in rng.choice(SLICE_OBJECTS, SLICE_REQUESTS,
+                                        p=p / p.sum())]
+    # two nodes of 6 MB: a few decoded images and a dozen latents each, so
+    # both tiers evict; the tuner window never fires (deterministic classes)
+    cfg = StoreConfig(n_nodes=2, cache_bytes_per_node=6e6,
+                      image_bytes=image_bytes, latent_bytes=1.2e5,
+                      promote_threshold=2, tuner=TunerConfig(window=10**9),
+                      decode_buckets=(1, 2, 4, 8))
+    box = LatentBox.engine(vae=vae, config=cfg, device="cuda")
+    t0 = time.perf_counter()
+    box.backend.engine.prewarm_decode((LATENT_HW, LATENT_HW, 16))
+    prewarm_s = time.perf_counter() - t0
+    for oid, z in enumerate(latents):
+        box.put(oid, latent=z)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    for s in range(0, len(trace), SLICE_WINDOW):
+        results += box.get_many(trace[s:s + SLICE_WINDOW])
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    state["launches"] = launches
+    need(all(v > 0 for v in launches.values()),
+         f"a kernel of the path was never launched: {launches}")
+    for r in results:
+        need(r.payload is not None and r.payload.shape == (side, side, 3)
+             and r.payload.dtype == np.uint8, f"bad payload for {r.oid}")
+    # served pixels are the direct batch-1 decode's, bit for bit
+    for oid in sorted(set(trace))[:3]:
+        direct = vae.decode_u8(latents[oid][None].astype(np.float32))[0].cpu()
+        served = next(r.payload for r in results if r.oid == oid)
+        need(bool(np.array_equal(direct.numpy(), served)),
+             f"served pixels of {oid} differ from a direct decode")
+    summ = box.summary()
+    eng = box.backend.engine
+    hits = {}
+    for r in results:
+        hits[r.hit_class] = hits.get(r.hit_class, 0) + 1
+    # host wall clock of each served batch (dispatch to pixels on the host),
+    # per real image, as the engine feeds its tuner
+    served_ms = {str(b): {
+        "batches": len(v), "real_images": sum(n for _, n in v),
+        "median_batch_ms": statistics.median(ms for ms, _ in v),
+        "median_per_image_ms": statistics.median(ms / n for ms, n in v)}
+        for b, v in sorted(eng.batcher.bucket_ms.items())}
+    # device time of a full bucket, CUDA events around decode_u8
+    zero = np.zeros((LATENT_HW, LATENT_HW, 16), np.float32)
+    device_ms = {}
+    for b in cfg.decode_buckets:
+        zb = torch.from_numpy(np.stack([zero] * b)).cuda()
+        ms = cuda_ms(torch, lambda: vae.decode_u8(zb), 3)
+        device_ms[str(b)] = {"batch_ms": ms, "per_image_ms": ms / b}
+    emit(log, "slice", image=[side, side], objects=SLICE_OBJECTS,
+         requests=SLICE_REQUESTS, window=SLICE_WINDOW,
+         decoder_params=vae.decoder_params, calibration_gain=gain,
+         prewarm_s=prewarm_s, serve_s=serve_s, hit_classes=hits,
+         distinct_objects=len(set(trace)),
+         pixel_cached_objects=summ["pixel_cached_objects"],
+         decodes=summ["decodes"], batches=summ["decode_batches"],
+         coalesced=summ["coalesced_decodes"],
+         padded_slots=eng.batcher.stats["padded_slots"],
+         served_decode_ms=served_ms, device_decode_ms=device_ms,
+         launches=launches,
+         image_mean=float(np.mean([r.payload.mean() for r in results])))
+
+
+def phase_crossdevice(torch, log, state):
+    from repro_torch.vae.model import VAE, map_params
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    cpu = VAE(vae.cfg, device="cpu",
+              params=map_params(vae.decoder, lambda t: t.cpu()))
+    rng = state["np"].random.default_rng(13)
+    z = rng.standard_normal((1, 16, 16, 16)).astype("float32")
+    t_gpu = vae.decode_trunk(z).cpu()
+    t_cpu = cpu.decode_trunk(z)
+    rel = float((t_gpu - t_cpu).abs().max() / t_cpu.abs().max())
+    u_gpu = vae.decode_u8(z).cpu()
+    u_cpu = cpu.decode_u8(z)
+    lsb = int((u_gpu.int() - u_cpu.int()).abs().max())
+    need(tuple(u_gpu.shape) == (1, 128, 128, 3), f"shape {tuple(u_gpu.shape)}")
+    need(rel <= 1e-4, f"float trunk differs by {rel} (relative) > 1e-4")
+    need(lsb <= 1, f"uint8 decode differs by {lsb} LSB > 1")
+    emit(log, "crossdevice", latent=[16, 16, 16], image=[128, 128],
+         trunk_rel_err=rel, trunk_tol=1e-4,
+         trunk_tol_reason="fp32 through 30 convs, GN and attention with other "
+                          "summation orders on the two devices",
+         u8_max_lsb=lsb, u8_tol=1)
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; this script measures the card "
+              "and does not fall back to the CPU", file=sys.stderr)
+        return 3
+    OUT_DIR.mkdir(exist_ok=True)
+    state = {"np": np}
+    with open(OUT_DIR / "chip_smoke.jsonl", "w") as log:
+        phase_device(torch, log, state)
+        phase_kernels(torch, log, state)
+        phase_invariance(torch, log, state)
+        phase_slice(torch, log, state)
+        phase_crossdevice(torch, log, state)
+        totals, launches = state["kernel_totals"], state["launches"]
+        line = json.dumps({"kernels": [
+            {"name": k, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[k],
+             "max_abs_err": totals[k]["max_abs_err"],
+             "ms": totals[k]["ms"], "plain_ms": totals[k]["plain_ms"],
+             "bound_ms": totals[k]["bound_ms"],
+             "bound_by": totals[k]["bound_by"],
+             "library_ms": totals[k]["library_ms"]}
+            for k, (src, rep) in KERNELS.items()]})
+        print(line, flush=True)
+        log.write(line + "\n")
+    print(state["smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,154 @@
+"""Build and load the Hopper kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with :mod:`ctypes`.
+Libraries are cached under ``build/repro_torch/`` at the repository root
+(listed in ``.gitignore``), named by a hash of the source files and the
+flags, so an unchanged source is compiled once per checkout.
+
+Nothing is built at import time: :func:`lib` builds on first use, and
+:func:`build_all` compiles every source at once, one ``nvcc`` process per
+source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("gn_stats", "conv3x3", "upsample_conv", "flash_attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+#: seconds each library took to build in this process (0.0: cached)
+build_seconds: Dict[str, float] = {}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+#: source -> (its launch function, the C argument types); every launch
+#: function returns cudaGetLastError()
+SIGNATURES = {
+    "gn_stats": ("gn_stats_launch", [P, P, P, I, I, I, I, I, F, P]),
+    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, P, P,
+                                   I, I, I, I, I, I, I, I, P]),
+    "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P,
+                                                   I, I, I, I, I, P]),
+    "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
+                                                    F, P]),
+}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):       # headers are shared
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(name.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp, out
+
+
+def _finish(name: str, job, t0: float) -> None:
+    if job is None:
+        build_seconds.setdefault(name, 0.0)
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    build_seconds[name] = time.perf_counter() - t0
+
+
+def build_all(names=SOURCES) -> Dict[str, float]:
+    """Compile every listed source in parallel; returns build seconds."""
+    t0 = time.perf_counter()
+    jobs = {n: _start(n) for n in names if n not in _libs}
+    for n, job in jobs.items():
+        _finish(n, job, t0)
+    for n in names:
+        lib(n)
+    return {n: build_seconds.get(n, 0.0) for n in names}
+
+
+def ptxas_report(name: str) -> List[str]:
+    """The ``ptxas -v`` lines (registers, shared memory, spills) of the
+    last build of ``name`` in this checkout."""
+    log = BUILD_DIR / f"{name}.log"
+    if not log.exists():
+        return []
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _libs:
+        _finish(name, _start(name), time.perf_counter())
+        so = ctypes.CDLL(str(_lib_path(name)))
+        fn, argtypes = SIGNATURES[name]
+        getattr(so, fn).argtypes = argtypes
+        getattr(so, fn).restype = ctypes.c_int
+        _libs[name] = so
+    return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+# ---------------------------------------------------------------------------
+# launch helpers shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def require(what: str, **tensors) -> None:
+    """Raise unless every tensor is a contiguous fp32 CUDA tensor."""
+    import torch
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor (a CPU "
+                             f"tensor runs the plain version), got "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a C pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,224 @@
+// The direct 3x3 convolution tile shared by conv3x3.cu and
+// upsample_conv.cu: NHWC fp32 activations, HWIO fp32 weights, fp32
+// accumulation on the CUDA cores.
+//
+// One block computes an output tile of TH x TW pixels of ONE image by BN
+// output channels.  For every chunk of BK input channels it stages the
+// tile's input halo, (TH+2) x (TW+2) x BK, in shared memory together with
+// the chunk's weights for every tap, then each thread accumulates a
+// TPM-pixel x TPN-channel register tile.  A halo element outside the image
+// is stored as zero after the prologue, which is the SAME padding ring of
+// the TPU kernels (gn_silu_conv.py:59-65: silu(gn(0)) != 0, so the ring
+// must be zeroed after the activation); it falls out of the bounds test of
+// the halo load.  The TPU kernels' materialize_bands (conv3x3.py:42-51)
+// existed only because BlockSpecs cannot overlap and has no counterpart.
+//
+// Prologue (PRO): none, or GroupNorm + affine + SiLU from per-(n, group)
+// statistics, applied once per halo element as it is loaded.
+// Epilogue (EPI): bias -> fp32, or bias -> clamp to [-1, 1] ->
+// rint((y + 1) * 127.5) -> uint8 (round half to even, as jnp.round).
+// UPS: the nearest-2x-upsample phase form (upsample_conv.py): blockIdx.y
+// also selects the output phase (pi, pj); the block runs the phase's 2x2
+// collapsed taps on the pre-upsample halo and writes the strided output
+// pixels (2y + pi, 2x + pj) of the [2H, 2W] result.
+//
+// Every output element is summed in one fixed order (channel chunk, tap
+// row, channel, tap column) by one thread, with no split over images or
+// blocks, so a decode of N images gives each image bit-identical results
+// to a decode of that image alone.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+template <int TH_, int TW_, int BN_, int TPM_, int TPN_>
+struct ConvCfg {
+  static constexpr int TH = TH_, TW = TW_, BN = BN_, TPM = TPM_, TPN = TPN_;
+  static constexpr int BK = 8;
+  static constexpr int BM = TH * TW;
+  static constexpr int NTN = BN / TPN;     // threads along output channels
+  static constexpr int NTM = BM / TPM;     // threads along pixels
+  static constexpr int THREADS = NTN * NTM;
+  static constexpr int NG = TPN / 4;       // float4 channel groups a thread owns
+  static_assert(TW % TPM == 0, "a thread's pixels stay in one row");
+  static_assert(TPN % 4 == 0, "channel groups are float4");
+};
+
+// Cout >= 8: 128 pixels (4 rows x 32) x 128 channels, 8x8 per thread.
+using WideCfg = ConvCfg<4, 32, 128, 8, 8>;
+// Cout <= 4 (the decoder's conv_out): 512 pixels x 4 channels, 4x4 per
+// thread; too narrow for a matrix unit, so CUDA-core FMAs as everywhere.
+using NarrowCfg = ConvCfg<16, 32, 4, 4, 4>;
+
+struct ConvArgs {
+  const float* x;      // [N, H, W, Cin]
+  const float* stats;  // [N, G, 2] (mean, rstd) for PRO == 1
+  const float* gamma;  // [Cin] for PRO == 1
+  const float* beta;   // [Cin] for PRO == 1
+  const float* w;      // [3, 3, Cin, Cout], or [2, 2, 2, 2, Cin, Cout] (UPS)
+  const float* bias;   // [Cout]
+  void* out;           // [N, H, W, Cout] f32/u8, or [N, 2H, 2W, Cout] (UPS)
+  int N, H, W, Cin, Cout, G;
+};
+
+template <class Cfg, int PRO, int EPI, int UPS>
+__global__ void __launch_bounds__(Cfg::THREADS, Cfg::THREADS >= 256 ? 2 : 4)
+conv_tile_kernel(ConvArgs a) {
+  constexpr int TH = Cfg::TH, TW = Cfg::TW, BN = Cfg::BN, BK = Cfg::BK;
+  constexpr int TPM = Cfg::TPM, TPN = Cfg::TPN, NG = Cfg::NG;
+  constexpr int THREADS = Cfg::THREADS;
+  constexpr int RT = UPS ? 2 : 3;          // tap rows
+  constexpr int CT = UPS ? 2 : 3;          // tap columns
+  constexpr int NT = RT * CT;
+  constexpr int HH = TH + 2, HWD = TW + 2;
+  constexpr int AV = TPM + CT - 1;         // halo columns a thread reads
+
+  __shared__ float As[BK][HH][HWD];
+  __shared__ __align__(16) float Ws[NT][BK][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % Cfg::NTN, ty = tid / Cfg::NTN;
+  const int tiles_w = (a.W + TW - 1) / TW;
+  const int y0 = (blockIdx.x / tiles_w) * TH;
+  const int x0 = (blockIdx.x % tiles_w) * TW;
+  const int phase = UPS ? (int)(blockIdx.y & 3) : 0;
+  const int pi = phase >> 1, pj = phase & 1;
+  const int n0 = (UPS ? (int)(blockIdx.y >> 2) : (int)blockIdx.y) * BN;
+  const int img = blockIdx.z;
+  const int p0 = ty * TPM;
+  const int r = p0 / TW, c0 = p0 % TW;
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
+  const float* __restrict__ x = a.x + (size_t)img * H * W * Cin;
+  const float* __restrict__ w = a.w + (size_t)phase * NT * Cin * Cout;
+  const int cpg = PRO ? Cin / a.G : 1;
+
+  float acc[TPM][TPN];
+#pragma unroll
+  for (int i = 0; i < TPM; ++i)
+#pragma unroll
+    for (int j = 0; j < TPN; ++j) acc[i][j] = 0.f;
+
+  for (int ck = 0; ck < Cin; ck += BK) {
+    // -- input halo of this channel chunk (prologue applied once) ---------
+    for (int e = tid; e < BK * HH * HWD; e += THREADS) {
+      const int k = e % BK, pix = e / BK;
+      const int hr = pix / HWD, hc = pix % HWD;
+      const int gy = y0 + hr - 1, gx = x0 + hc - 1, c = ck + k;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin) {
+        v = __ldg(x + ((size_t)gy * W + gx) * Cin + c);
+        if (PRO) {
+          const int gi = img * a.G + c / cpg;
+          const float t = (v - __ldg(a.stats + 2 * gi)) *
+                              __ldg(a.stats + 2 * gi + 1) * __ldg(a.gamma + c) +
+                          __ldg(a.beta + c);
+          v = t / (1.f + expf(-t));
+        }
+      }
+      As[k][hr][hc] = v;
+    }
+    // -- this chunk's weights for every tap --------------------------------
+    for (int e = tid; e < NT * BK * BN; e += THREADS) {
+      const int nn = e % BN, kk = (e / BN) % BK, t = e / (BN * BK);
+      const int c = ck + kk, co = n0 + nn;
+      Ws[t][kk][nn] = (c < Cin && co < Cout)
+                          ? __ldg(w + ((size_t)t * Cin + c) * Cout + co)
+                          : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int ry = 0; ry < RT; ++ry) {
+      const int hr = r + (UPS ? pi : 0) + ry;
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        float av[AV];
+#pragma unroll
+        for (int i = 0; i < AV; ++i) av[i] = As[k][hr][c0 + (UPS ? pj : 0) + i];
+#pragma unroll
+        for (int cx = 0; cx < CT; ++cx) {
+          float bv[TPN];
+#pragma unroll
+          for (int g = 0; g < NG; ++g) {
+            const float4 q = *reinterpret_cast<const float4*>(
+                &Ws[ry * CT + cx][k][g * (BN / NG) + tx * 4]);
+            bv[4 * g + 0] = q.x;
+            bv[4 * g + 1] = q.y;
+            bv[4 * g + 2] = q.z;
+            bv[4 * g + 3] = q.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TPM; ++i)
+#pragma unroll
+            for (int j = 0; j < TPN; ++j)
+              acc[i][j] = fmaf(av[i + cx], bv[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // -- epilogue -------------------------------------------------------------
+  const int y = y0 + r;
+  if (y >= H) return;
+  const int OH = UPS ? 2 * H : H, OW = UPS ? 2 * W : W;
+#pragma unroll
+  for (int i = 0; i < TPM; ++i) {
+    const int xx = x0 + c0 + i;
+    if (xx >= W) continue;
+    const int oy = UPS ? 2 * y + pi : y, ox = UPS ? 2 * xx + pj : xx;
+    const size_t opix = ((size_t)img * OH + oy) * OW + ox;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int cb = n0 + g * (BN / NG) + tx * 4;
+      float v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        v[jj] = acc[i][4 * g + jj] + (cb + jj < Cout ? __ldg(a.bias + cb + jj) : 0.f);
+      if (EPI == 0) {
+        float* o = static_cast<float*>(a.out) + opix * Cout + cb;
+        if ((Cout & 3) == 0 && cb + 3 < Cout) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (cb + jj < Cout) o[jj] = v[jj];
+        }
+      } else {
+        uint8_t* o = static_cast<uint8_t*>(a.out) + opix * Cout + cb;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (cb + jj < Cout) {
+            const float yc = fminf(fmaxf(v[jj], -1.f), 1.f);
+            o[jj] = (uint8_t)rintf((yc + 1.f) * 127.5f);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <class Cfg, int PRO, int EPI, int UPS>
+int launch_conv_tile(const ConvArgs& a, cudaStream_t stream) {
+  const int tiles = ((a.H + Cfg::TH - 1) / Cfg::TH) *
+                    ((a.W + Cfg::TW - 1) / Cfg::TW);
+  const int ntiles = (a.Cout + Cfg::BN - 1) / Cfg::BN;
+  const dim3 grid(tiles, ntiles * (UPS ? 4 : 1), a.N);
+  conv_tile_kernel<Cfg, PRO, EPI, UPS><<<grid, Cfg::THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Wide tiles for real channel counts, narrow ones for conv_out's 3.
+template <int PRO, int EPI, int UPS>
+int launch_conv(const ConvArgs& a, cudaStream_t stream) {
+  if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.Cin <= 0 || a.Cout <= 0 ||
+      a.N > 65535 || (PRO && (a.G <= 0 || a.Cin % a.G != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (a.Cout <= 4) return launch_conv_tile<NarrowCfg, PRO, EPI, UPS>(a, stream);
+  return launch_conv_tile<WideCfg, PRO, EPI, UPS>(a, stream);
+}
+
+}  // namespace rt

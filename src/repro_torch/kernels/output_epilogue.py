@@ -1,0 +1,41 @@
+"""Fused decode epilogue: GroupNorm + SiLU + conv_out + clamp + uint8
+(counterpart of the JAX package's ``kernels/output_epilogue.py``).
+
+On CUDA: ``csrc/gn_stats.cu`` then ``csrc/conv3x3.cu`` with the uint8
+epilogue, so the decode's last write is the displayable image itself.
+On the CPU: the plain version, ``ref.output_epilogue_ref``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.gn_silu_conv import check_gn_conv, gn_stats
+
+#: kernel launches of :func:`output_epilogue` in this process
+launches = 0
+
+
+def output_epilogue(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                    groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """``quantize_u8(conv3x3(silu(group_norm(x))))``.  x [N, H, W, Cin]
+    NHWC, scale/bias [Cin], w [3, 3, Cin, Cout], b [Cout] -> uint8
+    [N, H, W, Cout]."""
+    global launches
+    if x.device.type == "cpu":
+        return ref.output_epilogue_ref(x, scale, bias, w, b, groups, eps)
+    b = check_gn_conv("output_epilogue", x, scale, bias, w, b, groups)
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    stats = gn_stats(x, groups, eps)
+    out = torch.empty((n, h, wd, cout), dtype=torch.uint8, device=x.device)
+    build.check(build.lib("conv3x3").conv3x3_launch(
+        x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+        groups, 1, 1, build.stream_of(x)), "output_epilogue")
+    launches += 1
+    return out

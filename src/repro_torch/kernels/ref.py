@@ -1,0 +1,133 @@
+"""Plain PyTorch versions of every kernel of the read path (the
+counterparts of the JAX package's ``kernels/ref.py``).
+
+They compute the same functions as the Hopper kernels, in full fp32,
+with ordinary tensor operations: the CPU path runs them, the CPU tests
+hold them against the JAX package, and ``chip_smoke.py`` holds each
+kernel against them on the card.  The convolutions are written as nine
+shifted channel matmuls (the kernels' own arithmetic) rather than a
+library convolution, and attention as an explicit softmax.  Layouts are
+the JAX package's: NHWC activations, HWIO weights, ``[n, h, s, d]``
+attention.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def gn_stats_ref(x: torch.Tensor, groups: int, eps: float = 1e-6
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(n, group) mean and ``rsqrt(var + eps)`` over (H, W, C/G)."""
+    n, h, w, c = x.shape
+    xf = x.float().reshape(n, h * w, groups, c // groups)
+    mean = xf.mean(dim=(1, 3))
+    var = xf.var(dim=(1, 3), correction=0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_silu_ref(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, groups: int = 32,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm (fp32 stats) + SiLU, NHWC."""
+    n, h, w, c = x.shape
+    mean, rstd = gn_stats_ref(x, groups, eps)
+    xf = x.float().reshape(n, h * w, groups, c // groups)
+    xf = (xf - mean[:, None, :, None]) * rstd[:, None, :, None]
+    xf = xf.reshape(n, h, w, c) * scale.float() + bias.float()
+    return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+
+def conv3x3_ref(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 SAME conv, NHWC x HWIO -> NHWC, as nine shifted matmuls."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc = acc + torch.matmul(xp[:, dy:dy + h, dx:dx + wd, :],
+                                     w[dy, dx].to(x.dtype))
+    if b is not None:
+        acc = acc + b.to(x.dtype)
+    return acc
+
+
+def gn_silu_conv3x3_ref(x, scale, bias, w, b=None, groups: int = 32,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """``conv3x3(silu(group_norm(x)))``."""
+    return conv3x3_ref(group_norm_silu_ref(x, scale, bias, groups, eps), w, b)
+
+
+_PHASE_TAPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}
+
+
+def phase_weights(w: torch.Tensor) -> torch.Tensor:
+    """Collapse a ``[3, 3, Cin, Cout]`` filter into the ``[2, 2, 2, 2,
+    Cin, Cout]`` per-phase 2x2 filters (index order ``[pi, pj, a, b]``):
+    output pixel ``(2i+pi, 2j+pj)`` of ``conv3x3(upsample2x(x))`` is
+    ``sum_ab x[i+pi+a-1, j+pj+b-1] @ out[pi, pj, a, b]``."""
+    rows = []
+    for pi in (0, 1):
+        cols = []
+        for pj in (0, 1):
+            taps_a = []
+            for dys in _PHASE_TAPS[pi]:
+                taps_a.append(torch.stack([
+                    sum(w[dy, dx] for dy in dys for dx in dxs)
+                    for dxs in _PHASE_TAPS[pj]]))
+            cols.append(torch.stack(taps_a))
+        rows.append(torch.stack(cols))
+    return torch.stack(rows)
+
+
+def upsample_conv3x3_ref(x: torch.Tensor, w: torch.Tensor,
+                         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv3x3(nearest_upsample_2x(x))``."""
+    x2 = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    return conv3x3_ref(x2, w, b)
+
+
+def quantize_u8_ref(y: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float image -> uint8 display bytes.  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    yf = torch.clamp(y.float(), -1.0, 1.0)
+    return torch.round((yf + 1.0) * 127.5).to(torch.uint8)
+
+
+def output_epilogue_ref(x, scale, bias, w, b=None, groups: int = 32,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """``quantize_u8(conv3x3(silu(group_norm(x))))``."""
+    return quantize_u8_ref(gn_silu_conv3x3_ref(x, scale, bias, w, b,
+                                               groups, eps))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False, scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention.  q: [n, hq, sq, d]; k, v: [n, hkv, skv, d];
+    hq a multiple of hkv (GQA broadcast); causal/window masks align q and
+    k at the sequence end."""
+    n, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = (d ** -0.5) if scale is None else scale
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal or window is not None:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)

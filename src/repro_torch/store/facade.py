@@ -1,0 +1,103 @@
+"""``LatentBox`` — the client-facing facade of the object store
+(counterpart of the JAX package's ``store/facade.py``).
+
+    box = LatentBox.engine(device="cuda")         # real decode on the card
+    box.put(42, latent=z)                         # z: [h, w, C] float16
+    r = box.get(42)                               # GetResult: uint8 pixels
+    #                                               + hit class + latency
+    box.stat(42), box.delete(42), box.summary()
+
+This slice ports the single-box engine constructor.  Sharding,
+replication, ``open()`` (persistent boxes) and ``simulated()`` wait for
+later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core.regen_tier import Recipe
+from repro_torch.store.api import GetResult, ObjectStat, PutResult, StoreConfig
+
+
+class LatentBox:
+    """Unified object-store facade over a pluggable tier backend."""
+
+    def __init__(self, backend):
+        self._backend = backend
+        self._meta: Dict[int, Dict[str, Any]] = {}
+
+    @classmethod
+    def engine(cls, vae=None, config: Optional[StoreConfig] = None,
+               seed: int = 0, device=None) -> "LatentBox":
+        """Real-decode box on ``device`` (default ``"cuda"``; raises where
+        CUDA is absent).  Without an explicit ``vae`` the calibrated demo
+        VAE is built on that device; a given ``vae`` must live there."""
+        from repro_torch.store.backends import EngineBackend
+        if vae is None:
+            from repro_torch.vae.model import demo_vae
+            vae = demo_vae(seed=seed, device=device)
+        return cls(EngineBackend(vae, config, device=device))
+
+    @property
+    def backend(self):
+        return self._backend
+
+    # -- writes --------------------------------------------------------------
+    def put(self, oid: int, image: Optional[np.ndarray] = None,
+            latent: Optional[np.ndarray] = None,
+            recipe: Optional[Recipe] = None,
+            nbytes: Optional[float] = None,
+            meta: Optional[Dict[str, Any]] = None,
+            prewarm: bool = False) -> PutResult:
+        """Durable write: compress the latent -> latent store.  ``prewarm``
+        pins decoded pixels at the hash owner so the first read is an
+        image hit."""
+        res = self._backend.put(int(oid), image=image, latent=latent,
+                                recipe=recipe, nbytes=nbytes, prewarm=prewarm)
+        if meta is not None:
+            self._meta[int(oid)] = dict(meta)
+        return res
+
+    # -- reads ---------------------------------------------------------------
+    def get(self, oid: int) -> GetResult:
+        return self.get_many([oid])[0]
+
+    def get_many(self, oids: Sequence[int],
+                 timestamps_ms: Optional[Sequence[float]] = None
+                 ) -> List[GetResult]:
+        """Serve a request window through the tier walk."""
+        return self._backend.get_many(oids, timestamps_ms=timestamps_ms)
+
+    def pixels_resident(self, oid: int) -> bool:
+        """Pure peek: is ``oid`` pixel-cache resident at its hash owner?"""
+        return bool(self._backend.pixels_resident(int(oid)))
+
+    # -- lifecycle -----------------------------------------------------------
+    def delete(self, oid: int) -> bool:
+        """Remove the object from every tier and forget its metadata."""
+        found = self._backend.delete(int(oid))
+        self._meta.pop(int(oid), None)
+        return found
+
+    def stat(self, oid: int) -> Optional[ObjectStat]:
+        st = self._backend.stat(int(oid))
+        if st is not None:
+            st.meta = self._meta.get(int(oid))
+        return st
+
+    def demote(self, oid: int, rung=None) -> bool:
+        """Demote the object down the rate-distortion ladder."""
+        return self._backend.demote(int(oid), rung)
+
+    def promote(self, oid: int) -> bool:
+        return self._backend.promote(int(oid))
+
+    # -- introspection -------------------------------------------------------
+    def summary(self) -> Dict[str, Any]:
+        return self._backend.summary()
+
+    def __contains__(self, oid: int) -> bool:
+        return self._backend.stat(int(oid)) is not None

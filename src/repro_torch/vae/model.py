@@ -1,0 +1,226 @@
+"""Config-driven VAE decoder (SD/FLUX family) in PyTorch: the uint8 read
+path of the latent-first store (counterpart of the JAX package's
+``vae/model.py``).
+
+The decoder has the SD 3.5 / FLUX.1 shape: 16 latent channels at 1/8
+spatial resolution, block_out_channels (128, 256, 512, 512), 3 res
+blocks per decoder level and one single-head attention mid-block, ~49.5 M
+parameters.  This slice ports the decoder's uint8 path (``decode_u8``);
+the float ``decode`` and the encoder come with the write path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.vae import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    name: str = "sd35_vae"
+    latent_channels: int = 16
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2            # decoder uses layers_per_block + 1
+    groups: int = 32
+    scaling_factor: float = 1.5305       # SD3 latent scaling
+    shift_factor: float = 0.0609
+    image_channels: int = 3
+    dtype: Any = torch.float32
+
+    @property
+    def spatial_factor(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
+
+    def latent_shape(self, image_hw: int) -> Tuple[int, int, int]:
+        s = image_hw // self.spatial_factor
+        return (s, s, self.latent_channels)
+
+
+SD35_VAE = VAEConfig(name="sd35_vae", latent_channels=16)
+FLUX_VAE = VAEConfig(name="flux_vae", latent_channels=16,
+                     scaling_factor=0.3611, shift_factor=0.1159)
+SD15_VAE = VAEConfig(name="sd15_vae", latent_channels=4,
+                     scaling_factor=0.18215, shift_factor=0.0)
+#: The facade/bench demo stack: tiny but architecturally complete.
+DEMO_VAE = VAEConfig(name="demo", latent_channels=4,
+                     block_out_channels=(16, 32), layers_per_block=1,
+                     groups=4)
+
+
+# ---------------------------------------------------------------------------
+# parameter construction
+# ---------------------------------------------------------------------------
+
+def init_decoder(gen: torch.Generator, cfg: VAEConfig) -> Dict[str, Any]:
+    """Random decoder parameters (on the CPU, from ``gen``), with the JAX
+    package's tree structure and ``normal / sqrt(fan_in)`` scale."""
+    dtype = cfg.dtype
+    chs = cfg.block_out_channels
+    top = chs[-1]
+    params: Dict[str, Any] = {
+        "conv_in": L.conv_init(gen, 3, 3, cfg.latent_channels, top, dtype),
+        "mid": {
+            "res1": L.resnet_block_init(gen, top, top, dtype),
+            "attn": L.attn_block_init(gen, top, dtype),
+            "res2": L.resnet_block_init(gen, top, top, dtype),
+        },
+        "up": [],
+        "norm_out": L.gn_init(chs[0], dtype),
+        "conv_out": L.conv_init(gen, 3, 3, chs[0], cfg.image_channels, dtype),
+    }
+    cin = top
+    for i, cout in enumerate(reversed(chs)):        # top -> bottom
+        blocks = []
+        for _ in range(cfg.layers_per_block + 1):
+            blocks.append(L.resnet_block_init(gen, cin, cout, dtype))
+            cin = cout
+        level: Dict[str, Any] = {"blocks": blocks}
+        if i < len(chs) - 1:
+            level["upsample"] = L.upsample_init(gen, cout, dtype)
+        params["up"].append(level)
+    return params
+
+
+def map_params(tree, fn):
+    """Apply ``fn`` to every leaf of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return {k: map_params(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_params(v, fn) for v in tree]
+    return fn(tree)
+
+
+def param_count(params) -> int:
+    leaves = []
+    map_params(params, leaves.append)
+    return sum(int(p.numel()) for p in leaves)
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _decode_trunk(params: Dict[str, Any], z: torch.Tensor,
+                  cfg: VAEConfig) -> torch.Tensor:
+    """Shared decode trunk: latent -> pre-epilogue activation [N, 8h, 8w,
+    C0] (everything up to, excluding, norm_out + conv_out)."""
+    z = z / cfg.scaling_factor + cfg.shift_factor
+    x = L.conv2d(z, params["conv_in"])
+    x = L.resnet_block(x, params["mid"]["res1"], cfg.groups)
+    x = L.attn_block(x, params["mid"]["attn"], cfg.groups)
+    x = L.resnet_block(x, params["mid"]["res2"], cfg.groups)
+    for level in params["up"]:
+        for blk in level["blocks"]:
+            x = L.resnet_block(x, blk, cfg.groups)
+        if "upsample" in level:
+            x = L.upsample(x, level["upsample"])
+    return x
+
+
+def decode_u8(params: Dict[str, Any], z: torch.Tensor,
+              cfg: VAEConfig) -> torch.Tensor:
+    """The uint8 read path: latent [N, h, w, C_lat] -> displayable uint8
+    image [N, 8h, 8w, 3]; the final GN + SiLU + conv_out + clamp +
+    quantize is one fused epilogue."""
+    x = _decode_trunk(params, z, cfg)
+    return ops.output_epilogue(
+        x, params["norm_out"]["scale"], params["norm_out"]["bias"],
+        params["conv_out"]["w"], params["conv_out"]["b"], groups=cfg.groups)
+
+
+def decode_float(params: Dict[str, Any], z: torch.Tensor,
+                 cfg: VAEConfig) -> torch.Tensor:
+    """The unquantized image in [-1, 1]-ish floats: the same trunk, then
+    ``conv_out(silu(gn(x)))`` through the fused GN+SiLU+conv kernel.  Used
+    to calibrate the output range; the JAX package's float ``decode``
+    (standalone ``group_norm_silu`` kernel, then ``conv3x3``) is ported
+    with the write path."""
+    x = _decode_trunk(params, z, cfg)
+    return ops.gn_silu_conv3x3(
+        x, params["norm_out"]["scale"], params["norm_out"]["bias"],
+        params["conv_out"]["w"], params["conv_out"]["b"], groups=cfg.groups)
+
+
+class VAE:
+    """Config + decoder parameters on one device, with the uint8 decode.
+
+    ``params`` (a nested dict/list tree of tensors, e.g. from
+    :func:`repro_torch.vae.bridge.params_from_numpy`) replaces the
+    seeded random initialisation.  ``device`` defaults to ``"cuda"`` and
+    raises where CUDA is absent; pass ``device="cpu"`` for the plain path.
+    """
+
+    def __init__(self, cfg: VAEConfig = SD35_VAE, seed: int = 0,
+                 device=None, params: Optional[Dict[str, Any]] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device="cpu").manual_seed(int(seed))
+            params = init_decoder(gen, cfg)
+        self.decoder = map_params(params, self._leaf)
+
+    def _leaf(self, p: torch.Tensor) -> torch.Tensor:
+        return p.to(device=self.device, dtype=self.cfg.dtype).contiguous()
+
+    def _latents(self, z) -> torch.Tensor:
+        return torch.as_tensor(z, dtype=torch.float32, device=self.device)
+
+    def decode_u8(self, z) -> torch.Tensor:
+        """latents [N, h, w, C] -> uint8 [N, 8h, 8w, 3] on this device
+        (asynchronous on CUDA: the caller synchronises)."""
+        with torch.no_grad():
+            return decode_u8(self.decoder, self._latents(z), self.cfg)
+
+    def decode_float(self, z) -> torch.Tensor:
+        with torch.no_grad():
+            return decode_float(self.decoder, self._latents(z), self.cfg)
+
+    def decode_trunk(self, z) -> torch.Tensor:
+        with torch.no_grad():
+            return _decode_trunk(self.decoder, self._latents(z), self.cfg)
+
+    @property
+    def decoder_params(self) -> int:
+        return param_count(self.decoder)
+
+
+def probe_latents(latent_hwc: Tuple[int, int, int], bucket: int,
+                  seed: int = 0) -> np.ndarray:
+    """Deterministic unit-normal probe latents (copy of the JAX package's
+    ``vae/quantize.py:probe_latents``)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((bucket,) + tuple(latent_hwc)
+                               ).astype(np.float32)
+
+
+def calibrate_output_range(vae: VAE, target_std: float = 0.35,
+                           probe_hw: int = 8, seed: int = 0) -> float:
+    """Rescale ``conv_out`` in place so probe decodes land inside the
+    display range (std ``target_std`` on [-1, 1]); returns the gain.
+
+    Random-init decoders emit images that saturate the uint8 clamp, which
+    no trained decoder does.  Port of the JAX package's
+    ``vae/quantize.py:calibrate_output_range``."""
+    cfg = vae.cfg
+    z = probe_latents((probe_hw, probe_hw, cfg.latent_channels), 2, seed)
+    y = vae.decode_float(z).cpu().numpy()
+    gain = float(target_std / max(float(y.std()), 1e-6))
+    co = vae.decoder["conv_out"]
+    co["w"] = (co["w"] * gain).contiguous()
+    co["b"] = (co["b"] * gain).contiguous()
+    return gain
+
+
+def demo_vae(seed: int = 0, device=None) -> VAE:
+    """The demo :class:`VAE` with its output range calibrated into the
+    display domain; deterministic per seed."""
+    vae = VAE(DEMO_VAE, seed=seed, device=device)
+    calibrate_output_range(vae)
+    return vae

@@ -13,6 +13,10 @@ def pytest_configure(config):
         "markers",
         "slow: full differential matrices (shard x backend x scenario); "
         "run by the scheduled CI job, excluded from push CI via -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's Hopper "
+        "kernels); skipped elsewhere")
 
 
 @pytest.fixture

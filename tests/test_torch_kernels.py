@@ -1,0 +1,180 @@
+"""The port's kernel layer on the CPU against the JAX package's Pallas
+kernels run in interpret mode (as ``tests/test_kernels.py`` runs them).
+
+On a CPU tensor every wrapper of ``repro_torch.kernels.ops`` runs its
+plain PyTorch version, so these tests hold the plain versions — which
+``chip_smoke.py`` holds the Hopper kernels against on the card — to the
+JAX kernels.  Tolerances: 2e-5 for fp32 (1e-4 for the fused GN+conv, as
+``tests/test_kernels.py``), +-1 LSB for uint8.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.conv3x3 import conv3x3 as jconv3x3
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.gn_silu_conv import gn_silu_conv3x3 as jgn_conv
+from repro.kernels.output_epilogue import output_epilogue as jepilogue
+from repro.kernels.upsample_conv import phase_weights as jphase_weights
+from repro.kernels.upsample_conv import upsample_conv3x3 as jupsample
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(2)
+
+
+def arrs(seed, *shapes, scale=1.0):
+    r = np.random.default_rng(seed)
+    return [(r.standard_normal(s) * scale).astype(np.float32) for s in shapes]
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def close(port, want, atol):
+    np.testing.assert_allclose(port.numpy(), np.asarray(want), atol=atol,
+                               rtol=atol)
+
+
+# the ragged and odd-H cases of tests/test_kernels.py:47-50
+CONV_SHAPES = [(1, 8, 8, 16, 32, 4), (2, 16, 12, 8, 8, 2),
+               (1, 5, 7, 4, 4, 2), (3, 4, 4, 32, 16, 8), (1, 9, 6, 8, 3, 2)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", CONV_SHAPES)
+def test_conv3x3(n, h, w, cin, cout, groups):
+    x, wt, b = arrs(1, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wt *= 0.1
+    want = jconv3x3(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), rows=8,
+                    interpret=True)
+    close(ops.conv3x3(t(x), t(wt), t(b)), want, 2e-5)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", CONV_SHAPES)
+def test_gn_silu_conv3x3(n, h, w, cin, cout, groups):
+    x, s, gb, wt, b = arrs(2, (n, h, w, cin), (cin,), (cin,),
+                           (3, 3, cin, cout), (cout,))
+    wt *= 0.1
+    want = jgn_conv(*map(jnp.asarray, (x, s, gb, wt, b)), groups=groups,
+                    rows=8, interpret=True)
+    close(ops.gn_silu_conv3x3(t(x), t(s), t(gb), t(wt), t(b), groups=groups),
+          want, 1e-4)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", CONV_SHAPES)
+def test_output_epilogue_within_one_lsb(n, h, w, cin, cout, groups):
+    x, s, gb, wt, b = arrs(3, (n, h, w, cin), (cin,), (cin,),
+                           (3, 3, cin, cout), (cout,))
+    wt *= 0.1
+    want = np.asarray(jepilogue(*map(jnp.asarray, (x, s, gb, wt, b)),
+                                groups=groups, rows=8, interpret=True))
+    got = ops.output_epilogue(t(x), t(s), t(gb), t(wt), t(b),
+                              groups=groups).numpy()
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+    assert 0 < got.mean() < 255                  # not all clamped
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 4, 4, 8, 8), (2, 5, 3, 4, 16), (1, 8, 6, 16, 8)])
+def test_upsample_conv3x3(n, h, w, cin, cout):
+    x, wt, b = arrs(4, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wt *= 0.1
+    want = jupsample(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b),
+                     rows=4, interpret=True)
+    got = ops.upsample_conv3x3(t(x), t(wt), t(b))
+    assert tuple(got.shape) == (n, 2 * h, 2 * w, cout)
+    close(got, want, 2e-5)
+
+
+def test_phase_weights_match_reference():
+    (wt,) = arrs(5, (3, 3, 6, 5))
+    close(ref.phase_weights(t(wt)), jphase_weights(jnp.asarray(wt)), 1e-6)
+
+
+@pytest.mark.parametrize("n,h,sq,skv,d", [
+    (1, 1, 64, 64, 32), (2, 1, 96, 80, 16), (1, 2, 40, 130, 8)])
+def test_flash_attention_non_causal(n, h, sq, skv, d):
+    q, k, v = arrs(6, (n, h, sq, d), (n, h, skv, d), (n, h, skv, d))
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=False, block_q=32, block_kv=32, interpret=True)
+    close(ops.flash_attention(t(q), t(k), t(v)), want, 2e-5)
+
+
+@pytest.mark.parametrize("kw,hkv", [(dict(causal=True), 2),
+                                    (dict(window=8), 2), ({}, 1)])
+def test_flash_attention_refuses_lm_cases(kw, hkv):
+    q, k, v = arrs(7, (1, 2, 16, 8), (1, hkv, 16, 8), (1, hkv, 16, 8))
+    with pytest.raises(NotImplementedError, match="LM"):
+        ops.flash_attention(t(q), t(k), t(v), **kw)
+
+
+@pytest.mark.parametrize("causal,window,hkv", [(True, None, 1),
+                                               (False, 8, 2),
+                                               (True, 8, 1)])
+def test_plain_attention_covers_lm_cases(causal, window, hkv):
+    """The plain version keeps the reference's causal/window/GQA
+    semantics for the LM slice."""
+    q, k, v = arrs(8, (1, 2, 24, 8), (1, hkv, 24, 8), (1, hkv, 24, 8))
+    want = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                    causal=causal, window=window)
+    close(ref.flash_attention_ref(t(q), t(k), t(v), causal=causal,
+                                  window=window), want, 2e-5)
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 6, 5, 32), 8),
+                                          ((1, 16, 16, 64), 32)])
+def test_gn_stats_two_pass_accuracy(shape, groups):
+    """Statistics that the fused kernels share: mean and rstd match a
+    float64 computation, also with a large common offset where
+    E[x^2] - E[x]^2 in fp32 would cancel."""
+    (x,) = arrs(9, shape)
+    x += 300.0
+    mean, rstd = ref.gn_stats_ref(t(x), groups, 1e-6)
+    n, h, w, c = shape
+    x64 = x.astype(np.float64).reshape(n, h * w, groups, c // groups)
+    np.testing.assert_allclose(mean.numpy(), x64.mean(axis=(1, 3)),
+                               rtol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(),
+                               1 / np.sqrt(x64.var(axis=(1, 3)) + 1e-6),
+                               rtol=1e-3)
+
+
+def test_quantize_rounds_half_to_even():
+    # (y + 1) * 127.5 lands on .5 exactly for these y
+    y = torch.tensor([-1.0, 1.0, 0.0, 2 / 255 - 1, 4 / 255 - 1, 7.0, -3.0])
+    want = np.asarray(jref.quantize_u8_ref(jnp.asarray(y.numpy())))
+    got = ref.quantize_u8_ref(y).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[2] == 128          # 127.5 -> 128 (even)
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNEL_MODULES))
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
+    ops.reset_launch_counts()
+    x, s, gb, wt, b = arrs(10, (1, 4, 4, 8), (8,), (8,), (3, 3, 8, 8), (8,))
+    q = t(x).reshape(1, 1, 16, 8)
+    calls = {
+        "conv3x3": lambda: ops.conv3x3(t(x), t(wt), t(b)),
+        "gn_silu_conv3x3": lambda: ops.gn_silu_conv3x3(
+            t(x), t(s), t(gb), t(wt), t(b), groups=2),
+        "upsample_conv3x3": lambda: ops.upsample_conv3x3(t(x), t(wt), t(b)),
+        "output_epilogue": lambda: ops.output_epilogue(
+            t(x), t(s), t(gb), t(wt), t(b), groups=2),
+        "flash_attention": lambda: ops.flash_attention(q, q, q),
+    }
+    calls[name]()
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
+
+
+def test_other_devices_are_refused():
+    """A tensor that is neither on the CPU nor on CUDA never reaches the
+    plain version."""
+    x = torch.zeros((1, 4, 4, 8), device="meta")
+    w = torch.zeros((3, 3, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.conv3x3(x, w)
