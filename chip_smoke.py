@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's uint8 read path on one NVIDIA GPU and hold
-every Hopper kernel against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's read path and its write and regeneration
+path on one NVIDIA GPU and hold every Hopper kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -9,20 +10,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device       card name and power limit, torch/CUDA versions, the
                 kernels' build from ``src/repro_torch/kernels/csrc``;
 2. kernels      each kernel against its plain version on the card at the
-                shapes one 512x512 decode of the SD3.5-width decoder gives
-                it: max error and tolerance, median ms (CUDA events), the
-                plain version's ms, a library call's ms, FLOPs, bytes and
-                the bound;
+                shapes that one 512x512 uint8 decode, one encode and one
+                float decode of the SD3.5-width VAE give it: max error and
+                tolerance, median ms (CUDA events), the plain version's ms,
+                a library call's ms, FLOPs, bytes and the bound; then the
+                totals of each pass, and the plain ``downsample``'s ms per
+                encode;
 3. invariance   a bucket-8 decode bit-identical to eight batch-1 decodes;
-4. slice        ``LatentBox.engine(device="cuda")`` at SD3.5-VAE width
-                serving seeded Zipf requests: hit classes, decodes,
-                batches, per-image decode ms per bucket, and each kernel's
-                launches while serving (all must be > 0);
-5. crossdevice  the same decoder at a 16x16 latent on the GPU and on the
-                CPU (the plain path): uint8 within +-1 LSB, float trunk
-                within a relative tolerance.
+4. slice        the read path: ``LatentBox.engine(device="cuda")`` at
+                SD3.5-VAE width serving seeded Zipf requests of latent
+                puts: hit classes, decodes, batches, per-image decode ms
+                per bucket, and each of its kernels' launches (all > 0);
+5. write        the write and regeneration path: recipe and uint8-image
+                puts at 512x512, demotions, seeded Zipf requests; the
+                regenerated reads, their blobs byte-identical to the first
+                puts, their pixels equal to a direct decode, each kernel's
+                launches (all > 0), encode device ms, median regen ms, and
+                one read through a float32-pixel box against ``decode``;
+6. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
+                GPU and on the CPU (the plain path): uint8 within +-1 LSB,
+                float trunk, float decode and encoder mean within a
+                relative tolerance.
 
-Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
+Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
+decode, one encode and one float decode of a 512x512 image; launches
+summed over the slice and write phases), the ``nvidia-smi`` name and
 power-limit line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Full lines also go to ``chiprun_out/chip_smoke.jsonl``.  The script imports
@@ -46,6 +58,11 @@ LATENT_HW = 64            # 64x64x16 latent -> 512x512 image
 SLICE_OBJECTS = 48
 SLICE_REQUESTS = 160
 SLICE_WINDOW = 8
+WRITE_RECIPES = 24        # objects put by recipe (oids 0-23)
+WRITE_IMAGES = 8          # objects put as uint8 pixels (oids 24-31)
+WRITE_DEMOTED = tuple(range(0, 16, 2))    # recipe objects left recipe-only
+WRITE_REQUESTS = 96
+PASSES = ("decode", "encode", "float_decode")
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -59,6 +76,8 @@ KERNELS = {
                         "src/repro/kernels/output_epilogue.py:82"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
+    "group_norm_silu": ("src/repro_torch/kernels/csrc/gn_silu.cu",
+                        "src/repro/kernels/gn_silu.py:63"),
 }
 
 
@@ -120,15 +139,55 @@ def decode_calls(cfg, latent_hw: int):
     return calls
 
 
+def float_decode_calls(cfg, latent_hw: int):
+    """The float ``decode``: the same trunk, then the standalone GroupNorm
+    + SiLU and ``conv_out`` in place of the fused epilogue."""
+    calls = decode_calls(cfg, latent_hw)
+    _, (s, _, c0, cout) = calls.pop()
+    return calls + [("group_norm_silu", (s, s, c0, c0)),
+                    ("conv3x3", (s, s, c0, cout))]
+
+
+def encode_calls(cfg, image_hw: int):
+    """[(kernel or "downsample", shape args)] of one encode of one image,
+    in order, derived from the config like ``vae.model.encode``."""
+    chs = cfg.block_out_channels
+    s = image_hw
+    calls = [("conv3x3", (s, s, cfg.image_channels, chs[0]))]
+    cin = chs[0]
+    for i, cout in enumerate(chs):
+        for _ in range(cfg.layers_per_block):
+            calls += [("gn_silu_conv3x3", (s, s, cin, cout)),
+                      ("gn_silu_conv3x3", (s, s, cout, cout))]
+            cin = cout
+        if i < len(chs) - 1:
+            calls.append(("downsample", (s, s, cout, cout)))
+            s //= 2
+    top = chs[-1]
+    calls += [("gn_silu_conv3x3", (s, s, top, top))] * 2
+    calls += [("flash_attention", (s * s, top))]
+    calls += [("gn_silu_conv3x3", (s, s, top, top))] * 2
+    calls += [("group_norm_silu", (s, s, top, top)),
+              ("conv3x3", (s, s, top, 2 * cfg.latent_channels))]
+    return calls
+
+
 def work(kernel: str, args):
     """(FLOPs, bytes) one image's call needs: each input read once, each
     output written once; the upsampler counted in its phase form (16 taps
-    over H*W, the least work known for the function)."""
+    over H*W, the least work known for the function), the downsampler as
+    a stride-2 conv (9 taps over its H*W/4 outputs)."""
     if kernel == "flash_attention":
         s, d = args
         return 4.0 * s * s * d, 4.0 * 4 * s * d
     h, w, cin, cout = args
     px = h * w
+    if kernel == "group_norm_silu":
+        return 10.0 * px * cin, 4.0 * (2 * px * cin + 2 * cin)
+    if kernel == "downsample":
+        opx = ((h - 2) // 2 + 1) * ((w - 2) // 2 + 1)
+        return (2.0 * opx * 9 * cin * cout,
+                4.0 * (px * cin + 9 * cin * cout + cout + opx * cout))
     if kernel == "upsample_conv3x3":
         return (2.0 * px * 16 * cin * cout,
                 4.0 * (px * cin + 9 * cin * cout + cout + 4 * px * cout))
@@ -193,6 +252,8 @@ def kernel_inputs(torch, kernel, args, gen):
         return [randn(1, 1, s, d) for _ in range(3)]
     h, w, cin, cout = args
     x = randn(1, h, w, cin)
+    if kernel == "group_norm_silu":
+        return [x, 1.0 + randn(cin, scale=0.1), randn(cin, scale=0.1)]
     wt = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     b = randn(cout, scale=0.1)
     if kernel in ("conv3x3", "upsample_conv3x3"):
@@ -207,6 +268,7 @@ def kernel_inputs(torch, kernel, args, gen):
 def phase_kernels(torch, log, state):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gn_silu_conv import gn_stats
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.vae.model import SD35_VAE
@@ -217,6 +279,7 @@ def phase_kernels(torch, log, state):
         "upsample_conv3x3": lambda a: ops.upsample_conv3x3(*a),
         "output_epilogue": lambda a: ops.output_epilogue(*a, groups=groups),
         "flash_attention": lambda a: ops.flash_attention(*a),
+        "group_norm_silu": lambda a: ops.group_norm_silu(*a, groups=groups),
     }
     plains = {
         "conv3x3": lambda a: ref.conv3x3_ref(*a),
@@ -224,14 +287,20 @@ def phase_kernels(torch, log, state):
         "upsample_conv3x3": lambda a: ref.upsample_conv3x3_ref(*a),
         "output_epilogue": lambda a: ref.output_epilogue_ref(*a, groups),
         "flash_attention": lambda a: ref.flash_attention_ref(*a),
+        "group_norm_silu": lambda a: ref.group_norm_silu_ref(*a, groups),
     }
 
     def library(kernel, a):
-        """One PyTorch call for the same work: F.conv2d (TF32 off) on the
-        conv's own input (normalised, or upsampled, outside the timing)
-        for the convs, scaled_dot_product_attention for attention."""
+        """PyTorch's own calls for the same work: F.conv2d (TF32 off) on
+        the conv's own input (normalised, or upsampled, outside the
+        timing) for the convs, scaled_dot_product_attention for attention,
+        F.group_norm then F.silu on the channels-last view for the
+        standalone GroupNorm + SiLU."""
         if kernel == "flash_attention":
             return lambda: F.scaled_dot_product_attention(*a)
+        if kernel == "group_norm_silu":
+            xc = a[0].permute(0, 3, 1, 2)
+            return lambda: F.silu(F.group_norm(xc, groups, a[1], a[2], 1e-6))
         x, wt, b = a[0], a[-2], a[-1]
         if kernel in ("gn_silu_conv3x3", "output_epilogue"):
             x = ref.group_norm_silu_ref(x, a[1], a[2], groups)
@@ -242,17 +311,27 @@ def phase_kernels(torch, log, state):
             memory_format=torch.channels_last)
         return lambda: F.conv2d(xc, wc, b, padding=1)
 
-    checks = list(Counter(decode_calls(SD35_VAE, LATENT_HW)).items())
+    image_hw = 8 * LATENT_HW
+    passes = {"decode": decode_calls(SD35_VAE, LATENT_HW),
+              "encode": encode_calls(SD35_VAE, image_hw),
+              "float_decode": float_decode_calls(SD35_VAE, LATENT_HW)}
+    # (kernel, shape) -> calls in each pass, in first-seen order
+    checks = {}
+    for name, calls in passes.items():
+        for key, n in Counter(c for c in calls if c[0] in KERNELS).items():
+            checks.setdefault(key, dict.fromkeys(PASSES, 0))[name] = n
     # attention also at a 1024x1024 image's 16,384 tokens (checked, not
-    # part of the 512x512 decode's totals)
+    # part of any pass's totals)
     top = SD35_VAE.block_out_channels[-1]
-    checks.append((("flash_attention", (16384, top)), 0))
+    checks.setdefault(("flash_attention", (16384, top)),
+                      dict.fromkeys(PASSES, 0))
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flop_peak, byte_peak, _ = state["peaks"]
-    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0,
-                  "calls_per_decode": 0} for k in KERNELS}
-    for (kernel, args), per_decode in checks:
+    fields = ("ms", "plain_ms", "library_ms", "flops", "bytes", "calls")
+    totals = {p: {k: dict.fromkeys(fields, 0.0) for k in KERNELS}
+              for p in PASSES}
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    for (kernel, args), per_pass in checks.items():
         a = kernel_inputs(torch, kernel, args, gen)
         got = wrappers[kernel](a)
         want = plains[kernel](a)
@@ -271,36 +350,82 @@ def phase_kernels(torch, log, state):
             scale = float(want.abs().max())
             tol = 1e-4 * max(1.0, scale)
             why = ("fp32 with another summation order (up to 9*Cin or d "
-                   "terms): 1e-4 relative to the output's max")
+                   "terms, or a group's statistics): 1e-4 relative to the "
+                   "output's max")
         need(err <= tol, f"{kernel}{args}: max error {err} > {tol}")
         ms = cuda_ms(torch, lambda: wrappers[kernel](a), REPS)
         plain_ms = cuda_ms(torch, lambda: plains[kernel](a), REPS)
         lib_ms = cuda_ms(torch, library(kernel, a), REPS)
         flops, nbytes = work(kernel, args)
         bound = max(flops / flop_peak, nbytes / byte_peak) * 1e3
-        emit(log, "kernel", name=kernel, shape=list(args), calls_per_decode=
-             per_decode, max_abs_err=err, tol=tol, tol_reason=why, ms=ms,
+        extra = {}
+        if kernel == "group_norm_silu":
+            # its first pass alone: how the time splits between the two
+            extra["stats_pass_ms"] = cuda_ms(
+                torch, lambda: gn_stats(a[0], groups, 1e-6), REPS)
+        emit(log, "kernel", name=kernel, shape=list(args), calls=per_pass,
+             max_abs_err=err, tol=tol, tol_reason=why, ms=ms,
              plain_ms=plain_ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
-             bound_ms=bound, tflops=flops / ms / 1e9)
-        t = totals[kernel]
-        t["max_abs_err"] = max(t["max_abs_err"], err)
-        if per_decode:
-            t["ms"] += per_decode * ms
-            t["plain_ms"] += per_decode * plain_ms
-            t["library_ms"] += per_decode * lib_ms
-            t["flops"] += per_decode * flops
-            t["bytes"] += per_decode * nbytes
-            t["calls_per_decode"] += per_decode
+             bound_ms=bound, tflops=flops / ms / 1e9, **extra)
+        max_err[kernel] = max(max_err[kernel], err)
+        for p, n in per_pass.items():
+            t = totals[p][kernel]
+            for f, v in zip(fields, (ms, plain_ms, lib_ms, flops, nbytes, 1)):
+                t[f] += n * v
         del a, got, want
         torch.cuda.empty_cache()
-    for k, t in totals.items():
-        t_ops, t_bytes = t["flops"] / flop_peak, t["bytes"] / byte_peak
-        t["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    state["kernel_totals"] = totals
-    emit(log, "kernels_per_decode", image=[8 * LATENT_HW] * 2,
-         total_flops=sum(t["flops"] for t in totals.values()),
-         totals=totals)
+    for per_kernel in totals.values():
+        for t in per_kernel.values():
+            with_bound(t, flop_peak, byte_peak)
+    down = time_downsample(torch, log, state, passes["encode"])
+    for p in PASSES:
+        extra = {"plain_downsample": down} if p == "encode" else {}
+        emit(log, f"kernels_per_{p}", image=[image_hw] * 2,
+             total_flops=sum(t["flops"] for t in totals[p].values()),
+             total_ms=sum(t["ms"] for t in totals[p].values()),
+             totals=totals[p], **extra)
+    # the summary line: one uint8 decode + one encode + one float decode
+    summ = {}
+    for k in KERNELS:
+        t = {f: sum(totals[p][k][f] for p in PASSES) for f in fields}
+        summ[k] = with_bound(t, flop_peak, byte_peak)
+        summ[k]["max_abs_err"] = max_err[k]
+    state["kernel_totals"] = summ
+
+
+def with_bound(t, flop_peak, byte_peak):
+    """Add the least time (ms) the card needs for ``t``'s FLOPs and bytes,
+    and which of the two bounds it."""
+    t_ops, t_bytes = t["flops"] / flop_peak, t["bytes"] / byte_peak
+    t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return t
+
+
+def time_downsample(torch, log, state, encode):
+    """The encoder's strided downsamplers, plain tensor code (nine strided
+    fp32 matmuls per image, TF32 off): ms per shape and per encode."""
+    from repro_torch.vae import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    flop_peak, byte_peak, _ = state["peaks"]
+    total = {"ms": 0.0, "flops": 0.0, "bytes": 0.0, "calls": 0}
+    for args, n in Counter(a for k, a in encode if k == "downsample").items():
+        h, w, c, _ = args
+        x = torch.randn((1, h, w, c), generator=gen, device="cuda")
+        p = {"conv": {"w": torch.randn((3, 3, c, c), generator=gen,
+                                       device="cuda") * (9 * c) ** -0.5,
+                      "b": torch.zeros(c, device="cuda")}}
+        ms = cuda_ms(torch, lambda: L.downsample(x, p), REPS)
+        flops, nbytes = work("downsample", args)
+        emit(log, "downsample", shape=list(args), calls_per_encode=n, ms=ms,
+             flops=flops, bytes=nbytes,
+             bound_ms=max(flops / flop_peak, nbytes / byte_peak) * 1e3,
+             tflops=flops / ms / 1e9)
+        total["ms"] += n * ms
+        total["flops"] += n * flops
+        total["bytes"] += n * nbytes
+        total["calls"] += n
+    return with_bound(total, flop_peak, byte_peak)
 
 
 def sd35_vae(torch, device):
@@ -359,9 +484,10 @@ def phase_slice(torch, log, state):
         results += box.get_many(trace[s:s + SLICE_WINDOW])
     serve_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    state["launches"] = launches
-    need(all(v > 0 for v in launches.values()),
-         f"a kernel of the path was never launched: {launches}")
+    state["launches"] = {"slice": launches}
+    path = {k for k, _ in decode_calls(vae.cfg, LATENT_HW)}
+    need(all(launches[k] > 0 for k in path),
+         f"a kernel of the read path was never launched: {launches}")
     for r in results:
         need(r.payload is not None and r.payload.shape == (side, side, 3)
              and r.payload.dtype == np.uint8, f"bad payload for {r.oid}")
@@ -404,11 +530,121 @@ def phase_slice(torch, log, state):
          image_mean=float(np.mean([r.payload.mean() for r in results])))
 
 
+def phase_write(torch, log, state):
+    """The write and regeneration path at SD3.5-VAE width: recipe and
+    uint8-image puts, demotions, then a seeded Zipf trace in windows."""
+    np = state["np"]
+    from repro_torch.compression.latentcodec import decompress_latent
+    from repro_torch.core.regen_tier import Recipe
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.store import LatentBox, StoreConfig
+    from repro_torch.vae.model import param_count
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    side = 8 * LATENT_HW
+    rng = np.random.default_rng(17)
+    n = WRITE_RECIPES + WRITE_IMAGES
+    images = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+              for _ in range(WRITE_IMAGES)]
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+    p = ranks ** -1.1
+    trace = [int(t) for t in rng.choice(n, WRITE_REQUESTS, p=p / p.sum())]
+
+    def cfg(**kw):
+        return StoreConfig(n_nodes=2, cache_bytes_per_node=6e6,
+                           image_bytes=float(side * side * 3),
+                           latent_bytes=1.2e5, promote_threshold=2,
+                           tuner=TunerConfig(window=10**9),
+                           decode_buckets=(1, 2, 4, 8), **kw)
+
+    box = LatentBox.engine(vae=vae, config=cfg(), device="cuda")
+    store = box.backend.store
+    box.backend.engine.prewarm_decode((LATENT_HW, LATENT_HW, 16))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blobs, put_ms = {}, {"recipe": [], "image": []}
+    for oid in range(n):
+        t1 = time.perf_counter()
+        if oid < WRITE_RECIPES:
+            box.put(oid, recipe=Recipe(seed=1000 + oid, height=side,
+                                       width=side, scale=0.5))
+            put_ms["recipe"].append((time.perf_counter() - t1) * 1e3)
+        else:
+            box.put(oid, image=images[oid - WRITE_RECIPES])
+            put_ms["image"].append((time.perf_counter() - t1) * 1e3)
+        blobs[oid] = store.get(oid)
+    put_s = time.perf_counter() - t0
+    for oid in WRITE_DEMOTED:
+        need(box.demote(oid), f"demote({oid}) refused")
+        need(store.get(oid) is None, f"{oid} kept its blob after demote")
+    t0 = time.perf_counter()
+    results = []
+    for s in range(0, len(trace), SLICE_WINDOW):
+        results += box.get_many(trace[s:s + SLICE_WINDOW])
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    state["launches"]["write"] = launches
+    need(all(v > 0 for v in launches.values()),
+         f"a kernel of the write path was never launched: {launches}")
+    for r in results:
+        need(r.payload is not None and r.payload.shape == (side, side, 3)
+             and r.payload.dtype == np.uint8, f"bad payload for {r.oid}")
+    regen = [r for r in results if r.regenerated]
+    need(len(regen) > 0, "no read was regenerated")
+    regen_oids = sorted({r.oid for r in regen})
+    for oid in regen_oids:
+        need(oid in WRITE_DEMOTED, f"{oid} regenerated but never demoted")
+        need(store.get(oid) == blobs[oid],
+             f"regenerated blob of {oid} differs from its first put")
+    # served pixels of a regenerated object equal a direct batch-1 decode
+    for oid in regen_oids[:3]:
+        z = np.asarray(decompress_latent(blobs[oid]), np.float32)[None]
+        direct = vae.decode_u8(z)[0].cpu().numpy()
+        served = next(r.payload for r in regen if r.oid == oid)
+        need(bool(np.array_equal(direct, served)),
+             f"served pixels of regenerated {oid} differ from a direct "
+             "decode")
+    # device time of one encode (batch 1), CUDA events around encode_mean
+    x = torch.from_numpy(images[0].astype(np.float32) / 127.5 - 1.0)[None]
+    x = x.cuda()
+    encode_ms = cuda_ms(torch, lambda: vae.encode_mean(x), 3)
+    # one read through a float32-pixel box, against vae.decode
+    fbox = LatentBox.engine(vae=vae, config=cfg(pixel_format="float32"),
+                            device="cuda")
+    z16 = np.asarray(decompress_latent(blobs[WRITE_RECIPES]))
+    fbox.put(0, latent=z16)
+    fres = fbox.get(0)
+    want = vae.decode(z16.astype(np.float32)[None])[0].cpu().numpy()
+    need(fres.payload.dtype == np.float32 and fres.payload.shape ==
+         (side, side, 3), f"float32 box payload {fres.payload.dtype} "
+         f"{fres.payload.shape}")
+    ferr = float(np.abs(fres.payload - want).max())
+    need(ferr <= 1e-5, f"float32 box pixels differ from decode by {ferr}")
+    hits = Counter(r.hit_class for r in results)
+    emit(log, "write", image=[side, side], recipe_puts=WRITE_RECIPES,
+         image_puts=WRITE_IMAGES, demoted=list(WRITE_DEMOTED),
+         requests=WRITE_REQUESTS, window=SLICE_WINDOW,
+         encoder_params=param_count(vae.encoder),
+         put_s=put_s, serve_s=serve_s,
+         median_put_ms={k: statistics.median(v) for k, v in put_ms.items()},
+         hit_classes=dict(hits), regenerated=len(regen),
+         regenerated_objects=regen_oids, regen_blobs_identical=True,
+         regen_pixels_equal_direct_decode=True,
+         median_regen_ms=statistics.median(r.latency_ms["regen"]
+                                           for r in regen),
+         median_regen_read_decode_ms=statistics.median(
+             r.latency_ms["decode"] for r in regen),
+         encode_device_ms=encode_ms, float32_get_max_abs_err=ferr,
+         float32_get_bit_identical=ferr == 0.0, launches=launches)
+
+
 def phase_crossdevice(torch, log, state):
     from repro_torch.vae.model import VAE, map_params
     vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
     cpu = VAE(vae.cfg, device="cpu",
-              params=map_params(vae.decoder, lambda t: t.cpu()))
+              params=map_params(vae.decoder, lambda t: t.cpu()),
+              encoder_params=map_params(vae.encoder, lambda t: t.cpu()))
     rng = state["np"].random.default_rng(13)
     z = rng.standard_normal((1, 16, 16, 16)).astype("float32")
     t_gpu = vae.decode_trunk(z).cpu()
@@ -417,13 +653,25 @@ def phase_crossdevice(torch, log, state):
     u_gpu = vae.decode_u8(z).cpu()
     u_cpu = cpu.decode_u8(z)
     lsb = int((u_gpu.int() - u_cpu.int()).abs().max())
+    f_gpu = vae.decode(z).cpu()
+    f_cpu = cpu.decode(z)
+    f_rel = float((f_gpu - f_cpu).abs().max() / f_cpu.abs().max())
+    x = rng.uniform(-1, 1, (1, 128, 128, 3)).astype("float32")
+    e_gpu = vae.encode_mean(x).cpu()
+    e_cpu = cpu.encode_mean(x)
+    e_rel = float((e_gpu - e_cpu).abs().max() / e_cpu.abs().max())
     need(tuple(u_gpu.shape) == (1, 128, 128, 3), f"shape {tuple(u_gpu.shape)}")
+    need(tuple(e_gpu.shape) == (1, 16, 16, 16), f"shape {tuple(e_gpu.shape)}")
     need(rel <= 1e-4, f"float trunk differs by {rel} (relative) > 1e-4")
     need(lsb <= 1, f"uint8 decode differs by {lsb} LSB > 1")
+    need(f_rel <= 1e-4, f"float decode differs by {f_rel} (relative) > 1e-4")
+    need(e_rel <= 1e-4, f"encoder mean differs by {e_rel} (relative) > 1e-4")
     emit(log, "crossdevice", latent=[16, 16, 16], image=[128, 128],
-         trunk_rel_err=rel, trunk_tol=1e-4,
-         trunk_tol_reason="fp32 through 30 convs, GN and attention with other "
-                          "summation orders on the two devices",
+         trunk_rel_err=rel, float_decode_rel_err=f_rel,
+         encode_mean_rel_err=e_rel, tol=1e-4,
+         tol_reason="fp32 through 30 convs (decoder) or 22 (encoder), GN "
+                    "and attention with other summation orders on the two "
+                    "devices; relative to the output's max",
          u8_max_lsb=lsb, u8_tol=1)
 
 
@@ -446,8 +694,11 @@ def main() -> int:
         phase_kernels(torch, log, state)
         phase_invariance(torch, log, state)
         phase_slice(torch, log, state)
+        phase_write(torch, log, state)
         phase_crossdevice(torch, log, state)
-        totals, launches = state["kernel_totals"], state["launches"]
+        totals = state["kernel_totals"]
+        launches = {k: sum(run[k] for run in state["launches"].values())
+                    for k in KERNELS}
         line = json.dumps({"kernels": [
             {"name": k, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[k],

@@ -24,7 +24,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gn_stats", "conv3x3", "upsample_conv", "flash_attention")
+SOURCES = ("gn_stats", "conv3x3", "upsample_conv", "flash_attention",
+           "gn_silu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,6 +46,7 @@ SIGNATURES = {
                                                    I, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
                                                     F, P]),
+    "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
 }
 
 

@@ -20,12 +20,14 @@ from typing import Dict
 
 from repro_torch.kernels import conv3x3 as _conv3x3
 from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import gn_silu as _gn_silu
 from repro_torch.kernels import gn_silu_conv as _gn_silu_conv
 from repro_torch.kernels import output_epilogue as _output_epilogue
 from repro_torch.kernels import upsample_conv as _upsample_conv
 
 conv3x3 = _conv3x3.conv3x3
 gn_silu_conv3x3 = _gn_silu_conv.gn_silu_conv3x3
+group_norm_silu = _gn_silu.group_norm_silu
 upsample_conv3x3 = _upsample_conv.upsample_conv3x3
 output_epilogue = _output_epilogue.output_epilogue
 flash_attention = _flash_attention.flash_attention
@@ -37,6 +39,7 @@ KERNEL_MODULES = {
     "upsample_conv3x3": _upsample_conv,
     "output_epilogue": _output_epilogue,
     "flash_attention": _flash_attention,
+    "group_norm_silu": _gn_silu,
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every kernel of the read path (the
+"""Plain PyTorch versions of every kernel of the port (the
 counterparts of the JAX package's ``kernels/ref.py``).
 
 They compute the same functions as the Hopper kernels, in full fp32,

@@ -1,6 +1,6 @@
 """The ENGINE backend of the LatentBox object-store API in PyTorch: real
-decode on the card behind the shared tier-walk read path (counterpart of
-the JAX package's ``serve/engine.py``).
+encode and decode on the card behind the shared tier-walk read path
+(counterpart of the JAX package's ``serve/engine.py``).
 
 The read path is :class:`repro_torch.store.walk.TierWalk` (pixel cache ->
 latent cache -> durable latent -> recipe regeneration), copied from the
@@ -11,10 +11,12 @@ where duplicate in-flight object ids coalesce into one decode
 bucketed batch sizes (default 1/2/4/8).  Per-image wall clock feeds the
 marginal-hit tuner's EWMAs.
 
-This slice serves the uint8 pixel format from float32 weights.  Writes
-take latents; encoding images or recipes, regeneration, quantized
-weights, the kernel autotuner and the float32 pixel format wait for
-later slices (see ROADMAP.md) and raise ``NotImplementedError``.
+Writes take a latent, an image (encoded on the card) or a recipe
+(synthesised, then encoded); a read of an object demoted to its recipe
+regenerates it (recipe -> pixels -> encoder -> latent) bit-exactly.
+Pixels are served as uint8 or float32, from float32 weights.  Quantized
+weights, the kernel autotuner and elastic autoscaling wait for later
+slices (see ROADMAP.md) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,15 +33,13 @@ from repro_torch.compression.latentcodec import (compress_latent,
                                                  decompress_latent)
 from repro_torch.core.dual_cache import IMAGE_HIT, LATENT_HIT
 from repro_torch.core.latent_store import LatentStore
-from repro_torch.core.regen_tier import Recipe, RegenTierStore
+from repro_torch.core.regen_tier import (Recipe, RegenTierStore,
+                                         synthesize_image)
 from repro_torch.core.tuner import MarginalHitTuner
 from repro_torch.device import resolve_device
 from repro_torch.store.api import StoreConfig
 from repro_torch.store.tiers import DurableTier, RecipeTier
 from repro_torch.store.walk import TierWalk
-
-#: the ROADMAP item the encoder-dependent features wait for
-WRITE_PATH = "ROADMAP queue A, write and regeneration path"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -66,7 +66,8 @@ class _Node:
 
 
 class DecodeBatcher:
-    """Microbatching uint8 decode scheduler over one VAE.
+    """Microbatching decode scheduler over one VAE, serving uint8 pixels
+    (``decode_u8``, the fused epilogue) or float32 ones (``decode``).
 
     Pending misses queue up via :meth:`submit`; duplicate in-flight object
     ids coalesce into one decode (single-flight).  :meth:`flush` drains the
@@ -77,18 +78,23 @@ class DecodeBatcher:
     Host DEFLATE decompression is memoised per oid (bounded LRU keyed on
     the exact blob).  The flush is pipelined: chunk k+1's decompression
     and kernel launches happen while chunk k runs on the card; latents go
-    host -> device from pinned memory, each chunk's uint8 result comes back
-    by an asynchronous copy into pinned memory, and a CUDA event per chunk
-    is awaited only after the next chunk has been dispatched.
+    host -> device from pinned memory, each chunk's pixels come back by an
+    asynchronous copy into pinned memory, and a CUDA event per chunk is
+    awaited only after the next chunk has been dispatched.
     """
 
     #: decompressed latents kept (LRU), as the JAX engine's default
     MEMO_ENTRIES = 256
 
-    def __init__(self, vae, buckets: Sequence[int] = (1, 2, 4, 8)):
+    def __init__(self, vae, buckets: Sequence[int] = (1, 2, 4, 8),
+                 pixel_format: str = "uint8"):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive: {buckets!r}")
+        if pixel_format not in ("uint8", "float32"):
+            raise ValueError(f"pixel_format must be uint8|float32: "
+                             f"{pixel_format!r}")
         self.vae = vae
+        self.pixel_format = pixel_format
         self.device = vae.device
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.max_batch = self.buckets[-1]
@@ -135,19 +141,24 @@ class DecodeBatcher:
 
     # -- decode plumbing ------------------------------------------------------
 
+    def _decode_fn(self, z: torch.Tensor) -> torch.Tensor:
+        if self.pixel_format == "uint8":
+            return self.vae.decode_u8(z)
+        return self.vae.decode(z)
+
     def _dispatch(self, zb: np.ndarray):
         """Start the decode of a stacked latent batch; returns a handle for
         :meth:`_wait`.  On CUDA everything here is asynchronous."""
         z = torch.from_numpy(zb)
         if self.device.type == "cuda":
             z = z.pin_memory().to(self.device, non_blocking=True)
-            out = self.vae.decode_u8(z)
+            out = self._decode_fn(z)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
             return host, done
-        return self.vae.decode_u8(z), None
+        return self._decode_fn(z), None
 
     @staticmethod
     def _wait(handle) -> np.ndarray:
@@ -157,8 +168,8 @@ class DecodeBatcher:
         return host.numpy().copy()
 
     def decode_single(self, z: np.ndarray) -> np.ndarray:
-        """One-off decode of a single latent (prewarm / promotion paths
-        outside the batched window)."""
+        """One-off decode of a single latent in the configured pixel
+        format (prewarm / promotion paths outside the batched window)."""
         return self._wait(self._dispatch(
             np.asarray(z, np.float32)[None]))[0]
 
@@ -216,7 +227,7 @@ class DecodeBatcher:
         return out
 
     def flush(self) -> Dict[int, np.ndarray]:
-        """Decode everything pending; returns oid -> uint8 image and feeds
+        """Decode everything pending; returns oid -> image and feeds
         each exec node's tuner the per-image wall clock of its batch."""
         results: Dict[int, np.ndarray] = {}
         items = list(self._pending.items())
@@ -278,8 +289,6 @@ class ServingEngine:
             raise ValueError(f"the VAE lives on {vae.device}, but the "
                              f"engine was asked to run on {dev}")
         self.cfg = cfg or StoreConfig()
-        if self.cfg.pixel_format != "uint8":
-            raise not_ported("pixel_format='float32'", WRITE_PATH)
         if self.cfg.weight_dtype != "float32":
             raise not_ported(f"weight_dtype={self.cfg.weight_dtype!r}",
                              "ROADMAP queue A, quantized weights")
@@ -301,7 +310,8 @@ class ServingEngine:
             # capacity evictions drop the decoded/compressed payload too
             node.tier.evict_cb(node.drop_payloads)
         self.router = self.walk.router
-        self.batcher = DecodeBatcher(vae, self.cfg.decode_buckets)
+        self.batcher = DecodeBatcher(vae, self.cfg.decode_buckets,
+                                     pixel_format=self.cfg.pixel_format)
         self.stats = self.walk.counts           # shared hit/spill accounting
         self._inflight: List[_Ticket] = []      # open microbatch
         # decode fleet accounting (one shared device per node)
@@ -320,20 +330,27 @@ class ServingEngine:
     def put(self, oid: int, image: Optional[np.ndarray] = None,
             latent: Optional[np.ndarray] = None,
             recipe: Optional[Recipe] = None) -> int:
-        """Durable write: compress the latent -> latent store; the recipe
-        (if any) becomes the coldest durability class.  Overwriting an
-        existing object purges its cached copies.  Returns the durable
-        byte count."""
-        if latent is None:
-            if image is None and recipe is None:
-                raise ValueError("put needs an image, latent, or recipe")
-            raise not_ported("put without a latent (encoding pixels)",
-                             WRITE_PATH)
+        """Durable write: encode (if given pixels or a recipe) -> compress
+        -> latent store; the recipe (if any) becomes the coldest
+        durability class.  Overwriting an existing object purges its
+        cached copies.  Returns the durable byte count."""
         if oid in self.store:           # overwrite: drop every cached copy
             for tier in self.walk.caches:
                 tier.evict(oid)
             for node in self.nodes:
                 node.drop_payloads(oid)
+        if latent is None:
+            if image is None:
+                if recipe is None:
+                    raise ValueError("put needs an image, latent, or recipe")
+                image = synthesize_image(recipe)
+            img4 = np.asarray(image)
+            if img4.dtype == np.uint8:      # display bytes -> [-1, 1] floats
+                img4 = img4.astype(np.float32) / 127.5 - 1.0
+            img4 = img4.astype(np.float32)
+            if img4.ndim == 3:
+                img4 = img4[None]
+            latent = self._encode(img4)
         blob = compress_latent(np.asarray(latent))
         self.store.put(oid, blob)
         self.batcher.forget(oid)            # durable blob rewritten
@@ -372,8 +389,24 @@ class ServingEngine:
         owner.images[oid] = img
         return True
 
+    def _encode(self, img4: np.ndarray) -> np.ndarray:
+        """[1, H, W, 3] float32 pixels -> the fp16 latent [h, w, C] that
+        the store keeps.  The copy to the host waits for the card, so a
+        caller's clock around it times the encode."""
+        mean = self.vae.encode_mean(torch.from_numpy(img4))
+        return mean.cpu().numpy()[0].astype(np.float16)
+
     def _regenerate(self, oid: int) -> bytes:
-        raise not_ported("recipe regeneration", WRITE_PATH)
+        """Recipe -> pixels -> latent -> durable re-admission (bit-exact on
+        the same stack, which is what makes recipes a durability class)."""
+        recipe = self.recipes.recipe_of(oid) if self.recipes else None
+        if recipe is None:
+            raise KeyError(f"object {oid} has no recipe to regenerate from")
+        blob = compress_latent(self._encode(synthesize_image(recipe)))
+        self.store.put(oid, blob)
+        self.batcher.forget(oid)            # durable blob rewritten
+        self.recipes.readmit(oid, float(len(blob)), now_mo=0.0)
+        return blob
 
     # -- request admission ---------------------------------------------------
 

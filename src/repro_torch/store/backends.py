@@ -5,9 +5,11 @@ in-memory durable tiers).
 It runs the shared :class:`~repro_torch.store.walk.TierWalk` read path
 with real decode on the card through the microbatching scheduler
 (``serve/engine.py``): measured wall clock in the latency breakdown,
-true uint8 pixels in ``GetResult.payload``.  The segment-log durable
-tiers (``StoreConfig.data_dir``) and the simulator backend wait for
-later slices.
+true uint8 or float32 pixels in ``GetResult.payload``.  Puts take a
+latent, an image or a recipe (images and recipes are encoded on the
+card), and reads of recipe-only objects regenerate them.  The
+segment-log durable tiers (``StoreConfig.data_dir``) and the simulator
+backend wait for later slices.
 """
 
 from __future__ import annotations

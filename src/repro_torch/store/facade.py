@@ -3,8 +3,11 @@
 
     box = LatentBox.engine(device="cuda")         # real decode on the card
     box.put(42, latent=z)                         # z: [h, w, C] float16
+    box.put(43, image=img)                        # uint8 HWC, encoded
+    box.put(44, recipe=Recipe(seed=7, height=512, width=512))
     r = box.get(42)                               # GetResult: uint8 pixels
     #                                               + hit class + latency
+    box.demote(44); box.get(44)                   # regenerated from recipe
     box.stat(42), box.delete(42), box.summary()
 
 This slice ports the single-box engine constructor.  Sharding,
@@ -52,9 +55,10 @@ class LatentBox:
             nbytes: Optional[float] = None,
             meta: Optional[Dict[str, Any]] = None,
             prewarm: bool = False) -> PutResult:
-        """Durable write: compress the latent -> latent store.  ``prewarm``
-        pins decoded pixels at the hash owner so the first read is an
-        image hit."""
+        """Durable write: encode (an image or a recipe's pixels) ->
+        compress the latent -> latent store; a recipe also registers the
+        recipe-only durability class.  ``prewarm`` pins decoded pixels at
+        the hash owner so the first read is an image hit."""
         res = self._backend.put(int(oid), image=image, latent=latent,
                                 recipe=recipe, nbytes=nbytes, prewarm=prewarm)
         if meta is not None:

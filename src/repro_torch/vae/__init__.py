@@ -1,1 +1,1 @@
-"""The VAE decoder (uint8 read path) in PyTorch."""
+"""The VAE (decoder and encoder) in PyTorch."""

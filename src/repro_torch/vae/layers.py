@@ -1,14 +1,16 @@
-"""VAE decoder building blocks in PyTorch (NHWC activations, HWIO conv
-weights, as in the JAX package's ``vae/layers.py``).  Every hot spot
-goes through :mod:`repro_torch.kernels.ops`, whose device dispatch
-picks the Hopper kernel for a CUDA tensor and the plain version for a
-CPU one.
+"""VAE building blocks in PyTorch (NHWC activations, HWIO conv weights,
+as in the JAX package's ``vae/layers.py``).  Every hot spot goes through
+:mod:`repro_torch.kernels.ops`, whose device dispatch picks the Hopper
+kernel for a CUDA tensor and the plain version for a CPU one.
 
-The few operations outside any kernel (the 1x1 shortcut, the attention
-block's GroupNorm and dense projections) are plain tensor code.  They
-run image by image, so each sees the same shapes whatever the batch
-size: a bucket-8 decode then gives each image the same bits as a
-batch-1 decode, since the kernels are batch-invariant too.
+The few operations outside any kernel (the 1x1 shortcut, the encoder's
+strided downsample, the attention block's GroupNorm and dense
+projections) are plain tensor code, as the JAX package leaves them to
+XLA.  They run image by image, so each sees the same shapes whatever the
+batch size: a bucket-8 decode then gives each image the same bits as a
+batch-1 decode, since the kernels are batch-invariant too.  They are
+fp32 matmuls, which PyTorch runs without TF32 unless a caller turns
+``torch.backends.cuda.matmul.allow_tf32`` on.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -72,6 +75,10 @@ def upsample_init(gen, c: int, dtype=torch.float32) -> Params:
     return {"conv": conv_init(gen, 3, 3, c, c, dtype)}
 
 
+def downsample_init(gen, c: int, dtype=torch.float32) -> Params:
+    return {"conv": conv_init(gen, 3, 3, c, c, dtype)}
+
+
 # ---------------------------------------------------------------------------
 # ops
 # ---------------------------------------------------------------------------
@@ -91,7 +98,7 @@ def conv2d(x: torch.Tensor, p: Params) -> torch.Tensor:
         return ops.conv3x3(x, w, p["b"])
     if tuple(w.shape[:2]) != (1, 1):
         raise NotImplementedError(
-            f"conv2d: only 3x3 and 1x1 convs are on the read path, got "
+            f"conv2d: the VAE's unstrided convs are 3x3 and 1x1, got "
             f"{tuple(w.shape[:2])}")
     return per_image(lambda xi: torch.matmul(xi, w[0, 0]) + p["b"], x)
 
@@ -105,6 +112,11 @@ def group_norm(x: torch.Tensor, p: Params, groups: int = 32,
     var = xf.var(dim=(1, 3), keepdim=True, correction=0)
     xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
     return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def gn_silu(x: torch.Tensor, p: Params, groups: int = 32) -> torch.Tensor:
+    """GroupNorm + SiLU, the standalone kernel (``norm_out``)."""
+    return ops.group_norm_silu(x, p["scale"], p["bias"], groups=groups)
 
 
 def resnet_block(x: torch.Tensor, p: Params, groups: int = 32) -> torch.Tensor:
@@ -141,3 +153,24 @@ def attn_block(x: torch.Tensor, p: Params, groups: int = 32) -> torch.Tensor:
 def upsample(x: torch.Tensor, p: Params) -> torch.Tensor:
     """Nearest-neighbour 2x + 3x3 conv via the fused kernel."""
     return ops.upsample_conv3x3(x, p["conv"]["w"], p["conv"]["b"])
+
+
+def downsample(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Strided 3x3 conv with SD's asymmetric (0, 1) padding: pad one row
+    below and one column right, then a VALID stride-2 conv, written as
+    nine strided channel matmuls (plain tensor code, image by image)."""
+    w, b = p["conv"]["w"], p["conv"]["b"]
+
+    def one(xi):
+        _, h, wd, _ = xi.shape
+        xp = F.pad(xi, (0, 0, 0, 1, 0, 1))
+        ho, wo = (h - 2) // 2 + 1, (wd - 2) // 2 + 1
+        acc = None
+        for dy in range(3):
+            for dx in range(3):
+                tap = torch.matmul(xp[:, dy:dy + 2 * ho - 1:2,
+                                      dx:dx + 2 * wo - 1:2, :], w[dy, dx])
+                acc = tap if acc is None else acc + tap
+        return acc + b
+
+    return per_image(one, x)

@@ -1,12 +1,15 @@
-"""Config-driven VAE decoder (SD/FLUX family) in PyTorch: the uint8 read
-path of the latent-first store (counterpart of the JAX package's
+"""Config-driven VAE (SD/FLUX family) in PyTorch: the reconstruction
+engine of the latent-first store (counterpart of the JAX package's
 ``vae/model.py``).
 
 The decoder has the SD 3.5 / FLUX.1 shape: 16 latent channels at 1/8
 spatial resolution, block_out_channels (128, 256, 512, 512), 3 res
 blocks per decoder level and one single-head attention mid-block, ~49.5 M
-parameters.  This slice ports the decoder's uint8 path (``decode_u8``);
-the float ``decode`` and the encoder come with the write path.
+parameters.  The encoder mirrors it with 2 res blocks per level and
+strided downsamplers, and returns the latent (mean, logvar) moments.
+Three forward passes: ``decode_u8`` (the uint8 read path, with the fused
+output epilogue), ``decode`` (float pixels in [-1, 1]) and ``encode``
+(the write and regeneration path).
 """
 
 from __future__ import annotations
@@ -88,6 +91,37 @@ def init_decoder(gen: torch.Generator, cfg: VAEConfig) -> Dict[str, Any]:
     return params
 
 
+def init_encoder(gen: torch.Generator, cfg: VAEConfig) -> Dict[str, Any]:
+    """Random encoder parameters (on the CPU, from ``gen``), with the JAX
+    package's tree structure and ``normal / sqrt(fan_in)`` scale."""
+    dtype = cfg.dtype
+    chs = cfg.block_out_channels
+    params: Dict[str, Any] = {
+        "conv_in": L.conv_init(gen, 3, 3, cfg.image_channels, chs[0], dtype),
+        "down": [],
+    }
+    cin = chs[0]
+    for i, cout in enumerate(chs):
+        blocks = []
+        for _ in range(cfg.layers_per_block):
+            blocks.append(L.resnet_block_init(gen, cin, cout, dtype))
+            cin = cout
+        level: Dict[str, Any] = {"blocks": blocks}
+        if i < len(chs) - 1:
+            level["downsample"] = L.downsample_init(gen, cout, dtype)
+        params["down"].append(level)
+    top = chs[-1]
+    params["mid"] = {
+        "res1": L.resnet_block_init(gen, top, top, dtype),
+        "attn": L.attn_block_init(gen, top, dtype),
+        "res2": L.resnet_block_init(gen, top, top, dtype),
+    }
+    params["norm_out"] = L.gn_init(top, dtype)
+    params["conv_out"] = L.conv_init(gen, 3, 3, top,
+                                     2 * cfg.latent_channels, dtype)
+    return params
+
+
 def map_params(tree, fn):
     """Apply ``fn`` to every leaf of a nested dict/list parameter tree."""
     if isinstance(tree, dict):
@@ -135,56 +169,99 @@ def decode_u8(params: Dict[str, Any], z: torch.Tensor,
         params["conv_out"]["w"], params["conv_out"]["b"], groups=cfg.groups)
 
 
-def decode_float(params: Dict[str, Any], z: torch.Tensor,
-                 cfg: VAEConfig) -> torch.Tensor:
-    """The unquantized image in [-1, 1]-ish floats: the same trunk, then
-    ``conv_out(silu(gn(x)))`` through the fused GN+SiLU+conv kernel.  Used
-    to calibrate the output range; the JAX package's float ``decode``
-    (standalone ``group_norm_silu`` kernel, then ``conv3x3``) is ported
-    with the write path."""
+def decode(params: Dict[str, Any], z: torch.Tensor,
+           cfg: VAEConfig) -> torch.Tensor:
+    """latent [N, h, w, C_lat] -> image [N, 8h, 8w, 3] in [-1, 1]: the
+    trunk, the standalone GroupNorm + SiLU, then ``conv_out``."""
     x = _decode_trunk(params, z, cfg)
-    return ops.gn_silu_conv3x3(
-        x, params["norm_out"]["scale"], params["norm_out"]["bias"],
-        params["conv_out"]["w"], params["conv_out"]["b"], groups=cfg.groups)
+    x = L.gn_silu(x, params["norm_out"], groups=cfg.groups)
+    return L.conv2d(x, params["conv_out"])
+
+
+def encode(params: Dict[str, Any], x: torch.Tensor, cfg: VAEConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """image [N, H, W, 3] -> (mean, logvar) latents [N, H/8, W/8, C_lat];
+    the mean is shifted and scaled into the latent space the decoder
+    reads."""
+    h = L.conv2d(x, params["conv_in"])
+    for level in params["down"]:
+        for blk in level["blocks"]:
+            h = L.resnet_block(h, blk, cfg.groups)
+        if "downsample" in level:
+            h = L.downsample(h, level["downsample"])
+    h = L.resnet_block(h, params["mid"]["res1"], cfg.groups)
+    h = L.attn_block(h, params["mid"]["attn"], cfg.groups)
+    h = L.resnet_block(h, params["mid"]["res2"], cfg.groups)
+    h = L.gn_silu(h, params["norm_out"], groups=cfg.groups)
+    moments = L.conv2d(h, params["conv_out"])
+    mean, logvar = torch.chunk(moments, 2, dim=-1)
+    mean = (mean - cfg.shift_factor) * cfg.scaling_factor
+    return mean, logvar
+
+
+#: offset of the encoder's generator seed from the decoder's, so the two
+#: trees draw from separate streams
+ENCODER_SEED_OFFSET = 1 << 32
 
 
 class VAE:
-    """Config + decoder parameters on one device, with the uint8 decode.
+    """Config + decoder (and encoder) parameters on one device.
 
-    ``params`` (a nested dict/list tree of tensors, e.g. from
-    :func:`repro_torch.vae.bridge.params_from_numpy`) replaces the
-    seeded random initialisation.  ``device`` defaults to ``"cuda"`` and
-    raises where CUDA is absent; pass ``device="cpu"`` for the plain path.
+    ``params`` and ``encoder_params`` (nested dict/list trees of tensors,
+    e.g. from :func:`repro_torch.vae.bridge.params_from_numpy`) replace
+    the seeded random initialisation of the decoder and the encoder;
+    ``with_encoder=False`` builds no encoder.  ``device`` defaults to
+    ``"cuda"`` and raises where CUDA is absent; pass ``device="cpu"`` for
+    the plain path.
     """
 
     def __init__(self, cfg: VAEConfig = SD35_VAE, seed: int = 0,
-                 device=None, params: Optional[Dict[str, Any]] = None):
+                 device=None, params: Optional[Dict[str, Any]] = None,
+                 with_encoder: bool = True,
+                 encoder_params: Optional[Dict[str, Any]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device="cpu").manual_seed(int(seed))
             params = init_decoder(gen, cfg)
         self.decoder = map_params(params, self._leaf)
+        if encoder_params is None and with_encoder:
+            gen = torch.Generator(device="cpu").manual_seed(
+                int(seed) + ENCODER_SEED_OFFSET)
+            encoder_params = init_encoder(gen, cfg)
+        self.encoder = (map_params(encoder_params, self._leaf)
+                        if encoder_params is not None else None)
 
     def _leaf(self, p: torch.Tensor) -> torch.Tensor:
         return p.to(device=self.device, dtype=self.cfg.dtype).contiguous()
 
-    def _latents(self, z) -> torch.Tensor:
+    def _input(self, z) -> torch.Tensor:
         return torch.as_tensor(z, dtype=torch.float32, device=self.device)
+
+    def encode_mean(self, x) -> torch.Tensor:
+        """images [N, H, W, 3] in [-1, 1] -> latent means [N, H/8, W/8,
+        C_lat] on this device (asynchronous on CUDA: the caller
+        synchronises, e.g. by copying to the host)."""
+        if self.encoder is None:
+            raise ValueError("this VAE was built with_encoder=False")
+        with torch.no_grad():
+            return encode(self.encoder, self._input(x), self.cfg)[0]
+
+    def decode(self, z) -> torch.Tensor:
+        """latents [N, h, w, C] -> float pixels [N, 8h, 8w, 3] on this
+        device (asynchronous on CUDA)."""
+        with torch.no_grad():
+            return decode(self.decoder, self._input(z), self.cfg)
 
     def decode_u8(self, z) -> torch.Tensor:
         """latents [N, h, w, C] -> uint8 [N, 8h, 8w, 3] on this device
         (asynchronous on CUDA: the caller synchronises)."""
         with torch.no_grad():
-            return decode_u8(self.decoder, self._latents(z), self.cfg)
-
-    def decode_float(self, z) -> torch.Tensor:
-        with torch.no_grad():
-            return decode_float(self.decoder, self._latents(z), self.cfg)
+            return decode_u8(self.decoder, self._input(z), self.cfg)
 
     def decode_trunk(self, z) -> torch.Tensor:
         with torch.no_grad():
-            return _decode_trunk(self.decoder, self._latents(z), self.cfg)
+            return _decode_trunk(self.decoder, self._input(z), self.cfg)
 
     @property
     def decoder_params(self) -> int:
@@ -210,7 +287,7 @@ def calibrate_output_range(vae: VAE, target_std: float = 0.35,
     ``vae/quantize.py:calibrate_output_range``."""
     cfg = vae.cfg
     z = probe_latents((probe_hw, probe_hw, cfg.latent_channels), 2, seed)
-    y = vae.decode_float(z).cpu().numpy()
+    y = vae.decode(z).cpu().numpy()
     gain = float(target_std / max(float(y.std()), 1e-6))
     co = vae.decoder["conv_out"]
     co["w"] = (co["w"] * gain).contiguous()
@@ -219,8 +296,8 @@ def calibrate_output_range(vae: VAE, target_std: float = 0.35,
 
 
 def demo_vae(seed: int = 0, device=None) -> VAE:
-    """The demo :class:`VAE` with its output range calibrated into the
-    display domain; deterministic per seed."""
+    """The demo :class:`VAE` (decoder and encoder) with its output range
+    calibrated into the display domain; deterministic per seed."""
     vae = VAE(DEMO_VAE, seed=seed, device=device)
     calibrate_output_range(vae)
     return vae

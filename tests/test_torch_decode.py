@@ -14,7 +14,7 @@ import torch
 
 from repro.vae import model as JM
 from repro_torch.vae import model as M
-from repro_torch.vae.bridge import params_from_numpy
+from repro_torch.vae.bridge import vae_from_numpy
 
 torch.set_num_threads(2)
 
@@ -23,8 +23,7 @@ torch.set_num_threads(2)
 def pair():
     jv = JM.demo_vae(seed=0)
     tree = jax.tree_util.tree_map(np.asarray, jv.decoder)
-    return jv, tree, M.VAE(M.DEMO_VAE, params=params_from_numpy(tree),
-                           device="cpu")
+    return jv, tree, vae_from_numpy(M.DEMO_VAE, tree)
 
 
 def latents(b, seed=0):
@@ -99,7 +98,7 @@ def test_sd35_width_parameter_count():
 def test_calibration_lands_in_display_range():
     vae = M.demo_vae(seed=3, device="cpu")
     z = M.probe_latents((8, 8, 4), 2, seed=0)
-    y = vae.decode_float(z).numpy()
+    y = vae.decode(z).numpy()
     assert abs(float(y.std()) - 0.35) < 1e-3
     img = vae.decode_u8(z).numpy()
     assert (img == 0).mean() < 0.05 and (img == 255).mean() < 0.05

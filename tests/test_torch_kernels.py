@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.conv3x3 import conv3x3 as jconv3x3
 from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.gn_silu import group_norm_silu as jgn_silu
 from repro.kernels.gn_silu_conv import gn_silu_conv3x3 as jgn_conv
 from repro.kernels.output_epilogue import output_epilogue as jepilogue
 from repro.kernels.upsample_conv import phase_weights as jphase_weights
@@ -77,6 +78,18 @@ def test_output_epilogue_within_one_lsb(n, h, w, cin, cout, groups):
     assert got.dtype == np.uint8 and got.shape == want.shape
     assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
     assert 0 < got.mean() < 255                  # not all clamped
+
+
+# C = 16 / g = 4, C = 512 / g = 32 (the encoder's norm_out width), and
+# 20 x 30 = 600 pixels, which the reference's 512-pixel tile does not
+# divide (it falls back to 8-pixel tiles)
+@pytest.mark.parametrize("n,h,w,c,groups", [
+    (2, 6, 5, 16, 4), (2, 8, 8, 512, 32), (1, 20, 30, 16, 4)])
+def test_group_norm_silu(n, h, w, c, groups):
+    x, s, gb = arrs(12, (n, h, w, c), (c,), (c,))
+    want = jgn_silu(*map(jnp.asarray, (x, s, gb)), groups=groups,
+                    interpret=True)
+    close(ops.group_norm_silu(t(x), t(s), t(gb), groups=groups), want, 2e-5)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [
@@ -166,6 +179,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
         "output_epilogue": lambda: ops.output_epilogue(
             t(x), t(s), t(gb), t(wt), t(b), groups=2),
         "flash_attention": lambda: ops.flash_attention(q, q, q),
+        "group_norm_silu": lambda: ops.group_norm_silu(t(x), t(s), t(gb),
+                                                       groups=2),
     }
     calls[name]()
     assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
