@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's read path and its write and regeneration
-path on one NVIDIA GPU and hold every Hopper kernel against its plain
-PyTorch version.
+"""Drive the PyTorch/CUDA port's read path, its write and regeneration
+path and its LM serving path on one NVIDIA GPU and hold every Hopper
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -11,11 +11,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
                 kernels' build from ``src/repro_torch/kernels/csrc``;
 2. kernels      each kernel against its plain version on the card at the
                 shapes that one 512x512 uint8 decode, one encode and one
-                float decode of the SD3.5-width VAE give it: max error and
-                tolerance, median ms (CUDA events), the plain version's ms,
-                a library call's ms, FLOPs, bytes and the bound; then the
-                totals of each pass, and the plain ``downsample``'s ms per
-                encode;
+                float decode of the SD3.5-width VAE give it, and at the
+                Qwen2-7B prefill's and decode step's attention shapes (bf16
+                and fp32, with a sliding-window case): max error and
+                tolerance, median ms (CUDA events; for the LM shapes the
+                kernels' device time under ``torch.profiler``), the plain
+                version's ms, a library call's ms, FLOPs, bytes and the
+                bound; then the totals of each pass, and the plain
+                ``downsample``'s ms per encode;
 3. invariance   a bucket-8 decode bit-identical to eight batch-1 decodes;
 4. slice        the read path: ``LatentBox.engine(device="cuda")`` at
                 SD3.5-VAE width serving seeded Zipf requests of latent
@@ -30,19 +33,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
 6. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
-                relative tolerance.
+                relative tolerance; and a small fp32 qwen2-family LM's
+                prefill and decode steps, logits within a relative
+                tolerance;
+7. lm           the LM serving path: ``build_model`` of Qwen2-7B at full
+                width and depth in bf16 (seeded random weights), a prefill
+                of 4 x 2048 seeded tokens, 64 greedy ``decode_step``s:
+                parameters, peak memory, prefill and decode-step ms and
+                tokens/s, each attention kernel's launches (one per layer
+                and pass), and decode-after-prefill logits against a
+                prefill one token longer.
 
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
-decode, one encode and one float decode of a 512x512 image; launches
-summed over the slice and write phases), the ``nvidia-smi`` name and
-power-limit line, and as the last line
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Full lines also go to ``chiprun_out/chip_smoke.jsonl``.  The script imports
-no JAX and nothing of the JAX package.
+decode, one encode and one float decode of a 512x512 image, one Qwen2-7B
+prefill and one decode step; launches summed over the slice, write and lm
+phases), the ``nvidia-smi`` name and power-limit line, and as the last
+line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``.  Full lines also go to ``chiprun_out/chip_smoke.jsonl``.  The
+script imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 from collections import Counter
@@ -62,7 +75,15 @@ WRITE_RECIPES = 24        # objects put by recipe (oids 0-23)
 WRITE_IMAGES = 8          # objects put as uint8 pixels (oids 24-31)
 WRITE_DEMOTED = tuple(range(0, 16, 2))    # recipe objects left recipe-only
 WRITE_REQUESTS = 96
-PASSES = ("decode", "encode", "float_decode")
+LM_ARCH = "qwen2-7b"
+LM_BATCH = 4
+LM_PROMPT = 2048          # prompt tokens per sequence
+LM_MAX_LEN = 2112         # KV-cache slots: prompt + 64 steps
+LM_STEPS = 64             # greedy decode steps
+LM_WINDOW = 512           # the sliding-window kernel case
+DECODE_LENGTHS = (2049, 2080, 1500, 7)    # ragged cache lengths, one step
+VAE_PASSES = ("decode", "encode", "float_decode")
+PASSES = VAE_PASSES + ("lm_prefill", "lm_decode_step")
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -78,6 +99,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:78"),
     "group_norm_silu": ("src/repro_torch/kernels/csrc/gn_silu.cu",
                         "src/repro/kernels/gn_silu.py:63"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:62"),
 }
 
 
@@ -105,13 +128,17 @@ def nvidia_smi(query: str) -> str:
 
 
 def card_peaks(name: str):
-    """(fp32 FLOP/s outside the tensor cores, HBM bytes/s) of the part,
-    from NVIDIA's data sheets, read off the device name."""
+    """(fp32 FLOP/s outside the tensor cores, HBM bytes/s, description,
+    dense bf16 tensor-core FLOP/s) of the part, from NVIDIA's data sheets,
+    read off the device name."""
     if "PCIe" in name:
-        return 51e12, 2.0e12, "H100 PCIe: 51 TFLOP/s fp32, 2.0 TB/s"
+        return (51e12, 2.0e12, "H100 PCIe: 51 TFLOP/s fp32, 756 TFLOP/s "
+                "bf16 dense tensor, 2.0 TB/s", 756e12)
     if "NVL" in name:
-        return 60e12, 3.9e12, "H100 NVL: 60 TFLOP/s fp32, 3.9 TB/s"
-    return 67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s"
+        return (60e12, 3.9e12, "H100 NVL: 60 TFLOP/s fp32, 835 TFLOP/s bf16 "
+                "dense tensor, 3.9 TB/s", 835e12)
+    return (67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 989 TFLOP/s bf16 "
+            "dense tensor, 3.35 TB/s", 989e12)
 
 
 # ---------------------------------------------------------------------------
@@ -319,16 +346,15 @@ def phase_kernels(torch, log, state):
     checks = {}
     for name, calls in passes.items():
         for key, n in Counter(c for c in calls if c[0] in KERNELS).items():
-            checks.setdefault(key, dict.fromkeys(PASSES, 0))[name] = n
+            checks.setdefault(key, dict.fromkeys(VAE_PASSES, 0))[name] = n
     # attention also at a 1024x1024 image's 16,384 tokens (checked, not
     # part of any pass's totals)
     top = SD35_VAE.block_out_channels[-1]
     checks.setdefault(("flash_attention", (16384, top)),
-                      dict.fromkeys(PASSES, 0))
+                      dict.fromkeys(VAE_PASSES, 0))
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    flop_peak, byte_peak, _ = state["peaks"]
-    fields = ("ms", "plain_ms", "library_ms", "flops", "bytes", "calls")
-    totals = {p: {k: dict.fromkeys(fields, 0.0) for k in KERNELS}
+    flop_peak, byte_peak = state["peaks"][:2]
+    totals = {p: {k: dict.fromkeys(TOTAL_FIELDS, 0.0) for k in KERNELS}
               for p in PASSES}
     max_err = dict.fromkeys(KERNELS, 0.0)
     for (kernel, args), per_pass in checks.items():
@@ -357,47 +383,63 @@ def phase_kernels(torch, log, state):
         plain_ms = cuda_ms(torch, lambda: plains[kernel](a), REPS)
         lib_ms = cuda_ms(torch, library(kernel, a), REPS)
         flops, nbytes = work(kernel, args)
-        bound = max(flops / flop_peak, nbytes / byte_peak) * 1e3
         extra = {}
         if kernel == "group_norm_silu":
             # its first pass alone: how the time splits between the two
             extra["stats_pass_ms"] = cuda_ms(
                 torch, lambda: gn_stats(a[0], groups, 1e-6), REPS)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
+                   ops_ms=flops / flop_peak * 1e3, bytes=nbytes)
         emit(log, "kernel", name=kernel, shape=list(args), calls=per_pass,
-             max_abs_err=err, tol=tol, tol_reason=why, ms=ms,
-             plain_ms=plain_ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
-             bound_ms=bound, tflops=flops / ms / 1e9, **extra)
+             max_abs_err=err, tol=tol, tol_reason=why, **row,
+             bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
+             tflops=flops / ms / 1e9, **extra)
         max_err[kernel] = max(max_err[kernel], err)
-        for p, n in per_pass.items():
-            t = totals[p][kernel]
-            for f, v in zip(fields, (ms, plain_ms, lib_ms, flops, nbytes, 1)):
-                t[f] += n * v
+        add_to_totals(totals, kernel, per_pass, row)
         del a, got, want
         torch.cuda.empty_cache()
+    lm_attention_checks(torch, log, state, totals, max_err)
     for per_kernel in totals.values():
         for t in per_kernel.values():
-            with_bound(t, flop_peak, byte_peak)
+            with_bound(t, byte_peak)
     down = time_downsample(torch, log, state, passes["encode"])
     for p in PASSES:
         extra = {"plain_downsample": down} if p == "encode" else {}
-        emit(log, f"kernels_per_{p}", image=[image_hw] * 2,
+        if p in VAE_PASSES:
+            extra["image"] = [image_hw] * 2
+        emit(log, f"kernels_per_{p}",
              total_flops=sum(t["flops"] for t in totals[p].values()),
              total_ms=sum(t["ms"] for t in totals[p].values()),
              totals=totals[p], **extra)
-    # the summary line: one uint8 decode + one encode + one float decode
+    # the summary line: one uint8 decode + one encode + one float decode +
+    # one LM prefill + one LM decode step
     summ = {}
     for k in KERNELS:
-        t = {f: sum(totals[p][k][f] for p in PASSES) for f in fields}
-        summ[k] = with_bound(t, flop_peak, byte_peak)
+        t = {f: sum(totals[p][k][f] for p in PASSES) for f in TOTAL_FIELDS}
+        summ[k] = with_bound(t, byte_peak)
         summ[k]["max_abs_err"] = max_err[k]
     state["kernel_totals"] = summ
 
 
-def with_bound(t, flop_peak, byte_peak):
-    """Add the least time (ms) the card needs for ``t``'s FLOPs and bytes,
-    and which of the two bounds it."""
-    t_ops, t_bytes = t["flops"] / flop_peak, t["bytes"] / byte_peak
-    t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+#: what each pass's per-kernel totals sum (``ops_ms``: FLOPs over the peak
+#: of their type, so bf16 and fp32 work add up)
+TOTAL_FIELDS = ("ms", "plain_ms", "library_ms", "flops", "ops_ms", "bytes",
+                "calls")
+
+
+def add_to_totals(totals, kernel, per_pass, row):
+    for p, n in per_pass.items():
+        t = totals[p][kernel]
+        for f in TOTAL_FIELDS:
+            t[f] += n * (1 if f == "calls" else row[f])
+
+
+def with_bound(t, byte_peak):
+    """Add the least time (ms) the card needs for ``t``'s operations
+    (``ops_ms``, at the peak of their type) and bytes, and which of the
+    two bounds it."""
+    t_ops, t_bytes = t["ops_ms"], t["bytes"] / byte_peak * 1e3
+    t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     return t
 
@@ -407,8 +449,8 @@ def time_downsample(torch, log, state, encode):
     fp32 matmuls per image, TF32 off): ms per shape and per encode."""
     from repro_torch.vae import layers as L
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    flop_peak, byte_peak, _ = state["peaks"]
-    total = {"ms": 0.0, "flops": 0.0, "bytes": 0.0, "calls": 0}
+    flop_peak, byte_peak = state["peaks"][:2]
+    total = {"ms": 0.0, "flops": 0.0, "ops_ms": 0.0, "bytes": 0.0, "calls": 0}
     for args, n in Counter(a for k, a in encode if k == "downsample").items():
         h, w, c, _ = args
         x = torch.randn((1, h, w, c), generator=gen, device="cuda")
@@ -423,9 +465,144 @@ def time_downsample(torch, log, state, encode):
              tflops=flops / ms / 1e9)
         total["ms"] += n * ms
         total["flops"] += n * flops
+        total["ops_ms"] += n * flops / flop_peak * 1e3
         total["bytes"] += n * nbytes
         total["calls"] += n
-    return with_bound(total, flop_peak, byte_peak)
+    return with_bound(total, byte_peak)
+
+
+# ---------------------------------------------------------------------------
+# the LM's attention kernels
+# ---------------------------------------------------------------------------
+
+def lm_attention_cases(cfg):
+    """[(kernel, shape, dtype name, calls per pass)] at the shapes the
+    Qwen2-7B serving run gives the attention kernels: the causal prefill
+    of 4 x 2048 tokens (28 calls per prefill), the same with a 512-token
+    window (checked, in no pass), and one decode step against a cache of
+    2112 slots with ragged lengths (28 calls per step); bf16 (the model's
+    type) and fp32 (checked, in no pass)."""
+    n, hq, hkv, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cases = []
+    for dt in ("bfloat16", "float32"):
+        main = dt == "bfloat16"
+        prefill = dict(n=n, hq=hq, hkv=hkv, sq=LM_PROMPT, skv=LM_PROMPT, d=d,
+                       causal=True)
+        cases.append(("flash_attention", dict(prefill, window=None), dt,
+                      {"lm_prefill": cfg.n_layers} if main else {}))
+        cases.append(("flash_attention", dict(prefill, window=LM_WINDOW), dt,
+                      {}))
+        cases.append(("decode_attention",
+                      dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
+                           lengths=list(DECODE_LENGTHS)), dt,
+                      {"lm_decode_step": cfg.n_layers} if main else {}))
+    return cases
+
+
+def attention_work(kernel, shape, elt):
+    """(FLOPs, bytes) the call needs: 4 d FLOPs per (query, kept key) pair
+    (q k^T and p v), each input read once and the output written once; the
+    decode counts the cache rows below each length only."""
+    d, hq, hkv = shape["d"], shape["hq"], shape["hkv"]
+    if kernel == "decode_attention":
+        rows = sum(shape["lengths"])
+        return (4.0 * d * hq * rows,
+                elt * (2 * shape["n"] * hq * d + 2 * hkv * rows * d)
+                + 4 * shape["n"])
+    sq, skv, w = shape["sq"], shape["skv"], shape["window"]
+    pairs = 0
+    for i in range(sq):
+        qpos = i + skv - sq
+        hi = min(skv, qpos + 1) if shape["causal"] else skv
+        lo = max(0, qpos - w + 1) if w else 0
+        pairs += max(0, hi - lo)
+    n = shape["n"]
+    return (4.0 * d * hq * n * pairs,
+            elt * n * (2 * hq * sq * d + 2 * hkv * skv * d))
+
+
+def lm_attention_checks(torch, log, state, totals, max_err):
+    """Each LM attention case: kernel against its plain version on the
+    same inputs (TF32 off), then median ms of the kernel, the plain
+    version and ``F.scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(LM_ARCH)
+    flop_peak, byte_peak, _, bf16_peak = state["peaks"]
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    for kernel, shape, dt, per_pass in lm_attention_cases(cfg):
+        dtype = getattr(torch, dt)
+        n, hq, hkv, d = shape["n"], shape["hq"], shape["hkv"], shape["d"]
+        if kernel == "flash_attention":
+            dims = [(n, hq, shape["sq"], d)] + [(n, hkv, shape["skv"], d)] * 2
+        else:
+            dims = [(n, hq, d)] + [(n, hkv, shape["s"], d)] * 2
+        q, k, v = (torch.randn(s_, generator=gen, device="cuda").to(dtype)
+                   for s_ in dims)
+        if kernel == "flash_attention":
+            kw = dict(causal=shape["causal"], window=shape["window"])
+            run = lambda: ops.flash_attention(q, k, v, **kw)       # noqa: E731
+            plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
+            if shape["window"] is None:
+                lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
+                    q, k, v, is_causal=True, enable_gqa=True)
+            else:
+                pos = torch.arange(shape["sq"], device="cuda")
+                mask = (pos[None, :] <= pos[:, None]) & \
+                    (pos[None, :] > pos[:, None] - shape["window"])
+                lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lens = torch.tensor(shape["lengths"], device="cuda")
+            run = lambda: ops.decode_attention(q, k, v, lens)      # noqa: E731
+            plain = lambda: ref.decode_attention_ref(q, k, v, lens)  # noqa: E731
+            mask = (torch.arange(shape["s"], device="cuda")[None, :]
+                    < lens[:, None])[:, None, None, :]
+            lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        label = f"{kernel}[{dt}]{shape}"
+        need(got.shape == want.shape and got.dtype == want.dtype == dtype,
+             f"{label}: kernel gives {tuple(got.shape)} {got.dtype}")
+        need(bool(torch.isfinite(got.float()).all()),
+             f"{label}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        rel = 1e-4 if dtype == torch.float32 else 1e-2
+        tol = rel * float(want.float().abs().max())
+        need(err <= tol, f"{label}: max error {err} > {tol}")
+        # a decode call's kernels take tens of microseconds, less than the
+        # host needs to issue the wrapper, so CUDA events around one call
+        # time the host; the profiler's device time is the kernels' own
+        times, event = {}, {}
+        for key, fn in (("ms", run), ("plain_ms", plain), ("library_ms", lib)):
+            try:
+                event[key] = cuda_ms(torch, fn, REPS)
+                times[key] = device_ms(torch, fn, REPS) or event[key]
+            except RuntimeError as exc:  # no SDPA backend for this case
+                if key != "library_ms":
+                    raise
+                times[key] = event[key] = None
+                event["library_note"] = str(exc).splitlines()[0][:200]
+        flops, nbytes = attention_work(kernel, shape, q.element_size())
+        peak = bf16_peak if dtype == torch.bfloat16 else flop_peak
+        row = dict(times, flops=flops, ops_ms=flops / peak * 1e3,
+                   bytes=nbytes)
+        emit(log, "kernel", name=kernel, dtype=dt, shape=shape,
+             calls=per_pass, max_abs_err=err, tol=tol,
+             tol_reason=(f"{rel:g} relative to the output's max: fp32 "
+                         "softmax and sums in another order"
+                         + ("; bf16 output rounding" if rel > 1e-4 else "")),
+             **row, timing="device time (torch.profiler), per call",
+             event_times=event,
+             bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
+             peak_tflops=peak / 1e12, tflops=flops / row["ms"] / 1e9)
+        row["library_ms"] = row["library_ms"] or 0.0
+        max_err[kernel] = max(max_err[kernel], err)
+        add_to_totals(totals, kernel, per_pass, row)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
 
 
 def sd35_vae(torch, device):
@@ -585,7 +762,9 @@ def phase_write(torch, log, state):
     serve_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     state["launches"]["write"] = launches
-    need(all(v > 0 for v in launches.values()),
+    path = {k for k, _ in decode_calls(vae.cfg, LATENT_HW)
+            + encode_calls(vae.cfg, side)} & set(KERNELS)
+    need(all(launches[k] > 0 for k in path),
          f"a kernel of the write path was never launched: {launches}")
     for r in results:
         need(r.payload is not None and r.payload.shape == (side, side, 3)
@@ -666,13 +845,200 @@ def phase_crossdevice(torch, log, state):
     need(lsb <= 1, f"uint8 decode differs by {lsb} LSB > 1")
     need(f_rel <= 1e-4, f"float decode differs by {f_rel} (relative) > 1e-4")
     need(e_rel <= 1e-4, f"encoder mean differs by {e_rel} (relative) > 1e-4")
+    lm = crossdevice_lm(torch, state)
     emit(log, "crossdevice", latent=[16, 16, 16], image=[128, 128],
          trunk_rel_err=rel, float_decode_rel_err=f_rel,
          encode_mean_rel_err=e_rel, tol=1e-4,
          tol_reason="fp32 through 30 convs (decoder) or 22 (encoder), GN "
                     "and attention with other summation orders on the two "
                     "devices; relative to the output's max",
-         u8_max_lsb=lsb, u8_tol=1)
+         u8_max_lsb=lsb, u8_tol=1, lm=lm)
+
+
+def crossdevice_lm(torch, state):
+    """A small fp32 qwen2-family LM (4 layers, d_model 512, 8 q heads over
+    2 kv heads) on the card and on the CPU from the same weights: prefill
+    of 2 x 45 tokens, then 4 decode steps; logits within 1e-4 of their max
+    (TF32 off)."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.vae.model import map_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=4, d_model=512,
+                              n_heads=8, n_kv_heads=2, d_ff=1024,
+                              vocab_size=4096, dtype=torch.float32)
+    gpu = build_model(cfg, device="cuda", seed=7)
+    cpu = CausalLM(cfg, device="cpu",
+                   params=map_params(gpu.params, lambda t: t.cpu()))
+    toks = state["np"].random.default_rng(19).integers(0, cfg.vocab_size,
+                                                       (2, 49))
+    gl, gc = gpu.prefill(toks[:, :45], max_len=56)
+    cl, cc = cpu.prefill(toks[:, :45], max_len=56)
+    errs = []
+    for t in range(45, 50):
+        errs.append(float((gl.cpu() - cl).abs().max() / cl.abs().max()))
+        need(errs[-1] <= 1e-4, f"small LM logits differ by {errs[-1]} "
+             f"(relative) > 1e-4 at position {t}")
+        if t < 49:
+            gl, gc = gpu.decode_step(gc, toks[:, t])
+            cl, cc = cpu.decode_step(cc, toks[:, t])
+    k_rel = float((gc["k"].cpu() - cc["k"]).abs().max() / cc["k"].abs().max())
+    need(k_rel <= 1e-4, f"small LM KV cache differs by {k_rel} > 1e-4")
+    return {"config": {"n_layers": 4, "d_model": 512, "heads": [8, 2],
+                       "d_ff": 1024, "vocab": 4096, "dtype": "float32"},
+            "prompt": [2, 45], "decode_steps": 4,
+            "logits_rel_err": errs, "kv_cache_rel_err": k_rel, "tol": 1e-4}
+
+
+def device_ms(torch, fn, reps: int):
+    """The device time (ms) of one call of ``fn``: its kernels' own time
+    under ``torch.profiler``, averaged over ``reps`` calls (0 where the
+    profiler sees no device activity)."""
+    return profile_share(torch, fn, reps)["device_ms"]
+
+
+def profile_share(torch, fn, steps: int):
+    """Run ``fn`` ``steps`` times under ``torch.profiler``: wall ms per
+    step (host clock, profiler on), device ms per step (the kernels' own
+    time, as the profiler table's "Self CUDA" total sums it), their ratio,
+    and the ten kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                         # warm, outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    dev = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device = sum(ms for _, ms, _ in dev)
+    top = sorted(dev, key=lambda r: -r[1])[:10]
+    return {"steps": steps, "wall_ms": wall, "device_ms": device,
+            "busy_share": device / wall if device > 0 else None,
+            "device_launches": sum(n for _, _, n in dev),
+            "top": [{"kernel": k[:90], "ms": ms, "count": n}
+                    for k, ms, n in top]}
+
+
+def phase_lm(torch, log, state):
+    """The LM serving path at full Qwen2-7B width and depth in bf16: one
+    prefill of 4 x 2048 seeded tokens, then 64 greedy decode steps; then
+    decode-after-prefill logits against a prefill one token longer."""
+    np = state["np"]
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels import ops
+    state.pop("vae", None)                      # free the VAE phases' memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.memory_allocated()
+    prompts = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompts, max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = ops.launch_counts()
+    tok = logits.argmax(-1)
+    first = tok.clone()
+    wall, dev = [], []
+    for _ in range(LM_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits.argmax(-1)
+        stop.record()
+        stop.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+        dev.append(start.elapsed_time(stop))
+    launches = ops.launch_counts()
+    state["launches"]["lm"] = launches
+    L = cfg.n_layers
+    need(after_prefill["flash_attention"] == L and
+         after_prefill["decode_attention"] == 0,
+         f"prefill launched {after_prefill}, expected {L} flash_attention")
+    need(launches["flash_attention"] == L and
+         launches["decode_attention"] == L * LM_STEPS and
+         sum(launches.values()) == L * (1 + LM_STEPS),
+         f"the LM run launched {launches}, expected {L} flash_attention "
+         f"and {L * LM_STEPS} decode_attention")
+    need(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and
+         bool(torch.isfinite(logits.float()).all()), "bad decode logits")
+    need(bool((cache["pos"] == LM_PROMPT + LM_STEPS).all()),
+         f"cache positions {cache['pos'].tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    del cache, logits
+
+    # decode_step on x after prefill(p) against the last logits of
+    # prefill(p + [x]): 2049 positions, a ragged tile for the kernel
+    t0 = time.perf_counter()
+    lp, c = model.prefill(prompts, max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    warm_prefill_ms = (time.perf_counter() - t0) * 1e3
+    ld, c = model.decode_step(c, first)
+    del c
+    longer = np.concatenate([prompts, first.cpu().numpy()[:, None]], axis=1)
+    lf, _ = model.prefill(longer)
+    del _
+    # where the time goes: device kernel time against wall time, one
+    # prefill and four decode steps under torch.profiler
+    holder = {}
+
+    def run_prefill():
+        holder["l"], holder["c"] = model.prefill(prompts, max_len=LM_MAX_LEN)
+
+    def run_step():
+        holder["l"], holder["c"] = model.decode_step(
+            holder["c"], holder["l"].argmax(-1))
+
+    prof_prefill = profile_share(torch, run_prefill, 1)
+    prof_step = profile_share(torch, run_step, 4)
+    del holder
+    err = float((ld.float() - lf.float()).abs().max())
+    scale = float(lf.float().abs().max())
+    need(err <= 2e-2 * scale, f"decode-after-prefill logits differ from a "
+         f"prefill of {LM_PROMPT + 1} tokens by {err} > 2e-2 * {scale}")
+    steps = LM_BATCH * LM_PROMPT
+    emit(log, "lm", arch=LM_ARCH, dtype="bfloat16", layers=L,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         params=model.n_params, param_count_config=cfg.param_count(),
+         weights_bytes=weights_bytes, init_s=init_s,
+         max_memory_allocated=peak, batch=LM_BATCH, prompt=LM_PROMPT,
+         max_len=LM_MAX_LEN, decode_steps=LM_STEPS,
+         prefill_ms=prefill_ms, prefill_tokens_per_s=steps / prefill_ms * 1e3,
+         warm_prefill_ms=warm_prefill_ms,
+         warm_prefill_tokens_per_s=steps / warm_prefill_ms * 1e3,
+         decode_step_ms_median=statistics.median(dev),
+         decode_step_wall_ms_median=statistics.median(wall),
+         decode_step_ms=[round(x, 4) for x in dev],
+         decode_tokens_per_s=LM_BATCH / statistics.median(dev) * 1e3,
+         launches=launches, launches_after_prefill=after_prefill,
+         first_tokens=first.tolist(),
+         profile_prefill=prof_prefill, profile_decode_step=prof_step,
+         consistency_max_abs_err=err, consistency_logit_max=scale,
+         consistency_rel_err=err / scale, consistency_tol=2e-2,
+         consistency_tol_reason="bf16 weights and activations: the "
+                                "decode step's [4, 1] products and the "
+                                "decode kernel against the prefill's "
+                                "[4, 2049] products and the flash kernel; "
+                                "relative to the max |logit|")
 
 
 def main() -> int:
@@ -696,6 +1062,7 @@ def main() -> int:
         phase_slice(torch, log, state)
         phase_write(torch, log, state)
         phase_crossdevice(torch, log, state)
+        phase_lm(torch, log, state)
         totals = state["kernel_totals"]
         launches = {k: sum(run[k] for run in state["launches"].values())
                     for k in KERNELS}

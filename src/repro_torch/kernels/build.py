@@ -25,7 +25,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gn_stats", "conv3x3", "upsample_conv", "flash_attention",
-           "gn_silu")
+           "gn_silu", "decode_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,8 +45,11 @@ SIGNATURES = {
     "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P,
                                                    I, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
-                                                    F, P]),
+                                                    I, I, F, I, I, I, P]),
     "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
+    "decode_attention": ("decode_attention_launch", [P, P, P, P, P, P, P,
+                                                     I, I, I, I, I, I, F, I,
+                                                     P]),
 }
 
 
@@ -136,16 +139,19 @@ def check(err: int, what: str) -> None:
 # launch helpers shared by the wrappers
 # ---------------------------------------------------------------------------
 
-def require(what: str, **tensors) -> None:
-    """Raise unless every tensor is a contiguous fp32 CUDA tensor."""
+def require(what: str, dtypes=None, **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of one of
+    ``dtypes`` (default: float32 only)."""
     import torch
+    dtypes = (torch.float32,) if dtypes is None else dtypes
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{what}: {name} must be a CUDA tensor (a CPU "
                              f"tensor runs the plain version), got "
                              f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: {name} must be one of {dtypes}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
 

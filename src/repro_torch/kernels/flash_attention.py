@@ -1,10 +1,10 @@
 """Online-softmax attention (counterpart of the JAX package's
-``kernels/flash_attention.py``), the VAE mid-block's single head.
+``kernels/flash_attention.py``): the VAE mid-block's single head and the
+LM prefill's causal, sliding-window, grouped-query attention.
 
-On CUDA: ``csrc/flash_attention.cu``, non-causal with one kv head per q
-head.  On the CPU: the plain version, ``ref.flash_attention_ref``.  The
-causal, sliding-window and GQA cases (the LM's) are refused on every
-device until the kernel implements them.
+On CUDA: ``csrc/flash_attention.cu``, fp32 or bf16 inputs, fp32 softmax
+and accumulation, output in ``q.dtype``.  On the CPU: the plain version,
+``ref.flash_attention_ref``.
 """
 
 from __future__ import annotations
@@ -18,32 +18,47 @@ from repro_torch.kernels import build, ref
 #: kernel launches of :func:`flash_attention` in this process
 launches = 0
 
+#: element types the kernel takes, and their code in the C launcher
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q [n, h, sq, d], k/v [n, h, skv, d] -> [n, h, sq, d]; ``scale``
-    defaults to ``d ** -0.5``."""
+    """q [n, hq, sq, d], k/v [n, hkv, skv, d] with ``hq % hkv == 0`` (q
+    head h reads kv head ``h // (hq // hkv)``) -> [n, hq, sq, d].
+    ``causal`` and ``window`` mask with q aligned at the sequence end
+    (query i sits at position ``i + skv - sq``); ``scale`` defaults to
+    ``d ** -0.5``."""
     global launches
-    if causal or window is not None or q.shape[1] != k.shape[1]:
-        raise NotImplementedError(
-            "flash_attention: causal, sliding-window and GQA attention wait "
-            "for the LM slice of the port (ROADMAP: LM substrate)")
-    n, h, sq, d = q.shape
-    skv = k.shape[2]
-    if tuple(k.shape) != (n, h, skv, d) or tuple(v.shape) != tuple(k.shape):
+    n, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (n, hkv, skv, d) or tuple(v.shape) != tuple(k.shape) \
+            or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree "
+                         "(k/v [n, hkv, skv, d] with hq a multiple of hkv)")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} must be >= 1")
     scale = float(d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, scale=scale)
-    build.require("flash_attention", q=q, k=k, v=v)
-    if d % 4:
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                       window=window)
+    build.require("flash_attention", dtypes=tuple(DTYPES), q=q, k=k, v=v)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share a dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    align = 4 * q.element_size()            # one 4-element load
+    if d % 4 or any(t.data_ptr() % align for t in (q, k, v)):
         raise ValueError(f"flash_attention: head dim {d} must be a multiple "
-                         "of 4")
+                         f"of 4 and q/k/v {align}-byte aligned")
+    if n * hq > 65535:
+        raise ValueError(f"flash_attention: n * hq = {n * hq} exceeds the "
+                         "grid's 65535")
     out = torch.empty_like(q)
     build.check(build.lib("flash_attention").flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n * h, sq,
-        skv, d, scale, build.stream_of(q)), "flash_attention")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, hq, hkv,
+        sq, skv, d, scale, int(causal), window or 0, DTYPES[q.dtype],
+        build.stream_of(q)), "flash_attention")
     launches += 1
     return out

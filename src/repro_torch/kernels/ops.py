@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import conv3x3 as _conv3x3
+from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gn_silu as _gn_silu
 from repro_torch.kernels import gn_silu_conv as _gn_silu_conv
@@ -31,6 +32,7 @@ group_norm_silu = _gn_silu.group_norm_silu
 upsample_conv3x3 = _upsample_conv.upsample_conv3x3
 output_epilogue = _output_epilogue.output_epilogue
 flash_attention = _flash_attention.flash_attention
+decode_attention = _decode_attention.decode_attention
 
 #: kernel name -> the module that holds its wrapper and launch counter
 KERNEL_MODULES = {
@@ -40,6 +42,7 @@ KERNEL_MODULES = {
     "output_epilogue": _output_epilogue,
     "flash_attention": _flash_attention,
     "group_norm_silu": _gn_silu,
+    "decode_attention": _decode_attention,
 }
 
 

@@ -110,8 +110,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
                         window: Optional[int] = None) -> torch.Tensor:
     """Softmax attention.  q: [n, hq, sq, d]; k, v: [n, hkv, skv, d];
-    hq a multiple of hkv (GQA broadcast); causal/window masks align q and
-    k at the sequence end."""
+    hq a multiple of hkv (GQA broadcast: q head h reads kv head
+    ``h // (hq // hkv)``); causal/window masks align q and k at the
+    sequence end.  A row with no key left (sq > skv under ``causal``)
+    gives 0."""
     n, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -129,5 +131,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window is not None:
             mask &= kpos > qpos - window
         logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
+        p = torch.softmax(logits, dim=-1).masked_fill(
+            ~mask.any(dim=-1, keepdim=True), 0.0)
+    else:
+        p = torch.softmax(logits, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode attention against a KV cache.  q: [n, hq, d];
+    k_cache/v_cache: [n, hkv, S, d]; lengths: [n] valid prefix lengths
+    (a sequence of length 0 gives 0).  Returns [n, hq, d]."""
+    n, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    if rep > 1:
+        k_cache = k_cache.repeat_interleave(rep, dim=1)
+        v_cache = v_cache.repeat_interleave(rep, dim=1)
+    scale = (d ** -0.5) if scale is None else scale
+    logits = torch.einsum("nhd,nhsd->nhs", q.float(), k_cache.float()) * scale
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])[:, None, :]       # [n, 1, S]
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    p = p.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
+    return torch.einsum("nhs,nhsd->nhd", p, v_cache.float()).to(q.dtype)

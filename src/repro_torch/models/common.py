@@ -1,0 +1,167 @@
+"""Shared model substrate in PyTorch: config, norms, rotary embeddings,
+inits (counterpart of the JAX package's ``models/common.py``).
+
+One flat ``ModelConfig`` covers the whole architecture pool (dense GQA /
+MoE / RWKV6 / Mamba2-hybrid / enc-dec / VLM), with the JAX package's
+fields and parameter accounting; the port serves the dense family so
+far.  Configs for the concrete architectures live in
+``repro_torch.configs``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense|moe|ssm|hybrid|encdec|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: Optional[int] = None
+    # attention options
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    sliding_window: Optional[int] = None
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    # mlp
+    act: str = "swiglu"              # swiglu|gelu
+    # moe
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # ssm
+    ssm_type: Optional[str] = None   # rwkv6|mamba2
+    ssm_state: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+    ssm_head_dim: int = 64
+    # hybrid (zamba2): shared transformer block every ``attn_every`` layers
+    attn_every: int = 0
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    # misc
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    dtype: Any = torch.bfloat16
+    frontend: Optional[str] = None   # audio|vision (STUB per assignment)
+    scan_layers: bool = True
+    scan_unroll: bool = False
+    remat: bool = True
+    # long-context capability marker (sub-quadratic decode state)
+    subquadratic: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.family == "moe":
+            mlp = 3 * d * f * self.n_experts + d * self.n_experts  # + router
+        elif self.act == "swiglu":
+            mlp = 3 * d * f
+        else:
+            mlp = 2 * d * f
+        if self.ssm_type == "rwkv6":
+            attn = 5 * d * d                      # r,k,v,g,o projections
+            mlp = 2 * d * f
+        elif self.ssm_type == "mamba2":
+            d_in = self.ssm_expand * d
+            attn = 0
+            mlp = d * (2 * d_in + 2 * self.ssm_state
+                       + d_in // self.ssm_head_dim) + d_in * d
+        per_layer = attn + mlp
+        total = self.n_layers * per_layer + v * d
+        if not self.tie_embeddings:
+            total += v * d
+        if self.family == "hybrid" and self.attn_every:
+            d_sh = self.d_model
+            total += (4 * d_sh * d_sh) + 3 * d_sh * self.d_ff  # shared block
+        if self.family == "encdec":
+            enc = self.encoder_layers * (4 * d * d + 2 * d * f)
+            cross = self.n_layers * (4 * d * d)
+            total += enc + cross
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (= dense count except for MoE)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense = self.param_count() - 3 * d * f * self.n_experts * self.n_layers
+        return int(dense + 3 * d * f * self.experts_per_token * self.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * inv * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., seq, heads, d]; positions: broadcastable to [..., seq].
+    Split-halves layout: (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # [d/2]
+    angles = positions[..., None].float() * freqs              # [..., s, d/2]
+    cos = torch.cos(angles)[..., None, :]                      # [..., s, 1, d/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# init helpers (the JAX package's scales; the numbers differ, since the
+# generators differ)
+# ---------------------------------------------------------------------------
+
+def normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
+    """N(0, std^2) of ``shape`` drawn from ``gen`` on its device."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device) * std
+
+
+def dense(gen: torch.Generator, cin: int, cout: int, dtype,
+          std: Optional[float] = None) -> torch.Tensor:
+    """A ``[cin, cout]`` weight (``x @ w``), N(0, 1/cin) by default."""
+    return normal(gen, (cin, cout), dtype,
+                  (1.0 / math.sqrt(cin)) if std is None else std)
+
+
+def stacked(init_fn, gen: torch.Generator, n: int):
+    """``n`` layers of ``init_fn(gen)``: the JAX package's stacked
+    ``[L, ...]`` leaves become a list of per-layer trees."""
+    return [init_fn(gen) for _ in range(n)]

@@ -19,22 +19,27 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.vae.model import VAE, VAEConfig, map_params
 
 
-def params_from_numpy(tree: Dict[str, Any], device="cpu",
+def params_from_numpy(tree: Dict[str, Any], device=None,
                       dtype=torch.float32) -> Dict[str, Any]:
-    """Nested dicts/lists of numpy arrays -> the same tree of tensors."""
+    """Nested dicts/lists of numpy arrays -> the same tree of tensors on
+    ``device`` (``"cuda"`` unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     return map_params(tree, lambda a: torch.from_numpy(
-        np.array(a, dtype=np.float32)).to(device=device, dtype=dtype))
+        np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype))
 
 
 def vae_from_numpy(cfg: VAEConfig, decoder: Dict[str, Any],
                    encoder: Optional[Dict[str, Any]] = None,
-                   device="cpu") -> VAE:
-    """A port :class:`VAE` on ``device`` holding the exported decoder tree
-    and, if given, the encoder tree (no encoder otherwise)."""
-    return VAE(cfg, device=device, params=params_from_numpy(decoder),
+                   device=None) -> VAE:
+    """A port :class:`VAE` on ``device`` (``"cuda"`` unless the caller
+    asks for the CPU) holding the exported decoder tree and, if given,
+    the encoder tree (no encoder otherwise)."""
+    dev = resolve_device(device)
+    return VAE(cfg, device=dev, params=params_from_numpy(decoder, dev),
                with_encoder=encoder is not None,
-               encoder_params=(params_from_numpy(encoder)
+               encoder_params=(params_from_numpy(encoder, dev)
                                if encoder is not None else None))

@@ -91,6 +91,108 @@ def test_flash_attention(dev, n, h, sq, skv, d):
     assert max_err(got, ref.flash_attention_ref(q, k, v)) <= 2e-5
 
 
+# q heads over kv heads of 1, 2, 7; ragged tiles (sq, skv not multiples of
+# 64); sq < skv and sq > skv (first rows with no key give 0); windows; the
+# VAE's d = 512 and d not a multiple of 128
+LM_ATTENTION = [(1, 4, 4, 70, 70, 128, True, None),
+                (2, 14, 2, 129, 129, 128, True, None),
+                (1, 28, 4, 100, 100, 128, True, 33),
+                (1, 6, 2, 17, 200, 64, True, None),
+                (1, 2, 1, 90, 60, 32, True, None),
+                (2, 4, 2, 65, 130, 96, False, 40),
+                (1, 2, 1, 40, 40, 512, True, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", LM_ATTENTION)
+def test_flash_attention_lm_cases(dev, n, hq, hkv, sq, skv, d, causal,
+                                  window, dtype):
+    q, k, v = (a.to(dtype) for a in randn(
+        dev, 16, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d)))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert max_err(got, want) <= tol * float(want.abs().max().float())
+
+
+# ragged lengths incl. 0, 1 and S; S not a multiple of the 128-row chunk;
+# rep 7, rep 1 and rep 12 (two groups of 8 heads); d 32, 64, 128, 256
+DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
+          (2, 7, 1, 1000, 64, (999, 128)),
+          (3, 8, 8, 64, 32, (64, 63, 2)),
+          (2, 24, 2, 257, 256, (257, 100)),
+          (1, 12, 1, 130, 128, (130,))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,s,d,lengths", DECODE)
+def test_decode_attention(dev, n, hq, hkv, s, d, lengths, dtype):
+    q, kc, vc = (a.to(dtype) for a in randn(
+        dev, 17, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d)))
+    lens = torch.tensor(lengths, device=dev)
+    got = ops.decode_attention(q, kc, vc, lens)
+    want = ref.decode_attention_ref(q, kc, vc, lens)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert max_err(got, want) <= tol * float(want.abs().max().float())
+    assert torch.all(got[[i for i, n_ in enumerate(lengths) if n_ == 0]]
+                     == 0)
+
+
+def test_decode_attention_independent_of_batch_and_cache_length(dev):
+    """A sequence's result depends on its own rows and length only: the
+    same bits alone, in a batch, and in a longer cache."""
+    q, kc, vc = randn(dev, 18, (3, 14, 128), (3, 2, 400, 128),
+                      (3, 2, 400, 128))
+    lens = torch.tensor([400, 257, 33], device=dev)
+    batch = ops.decode_attention(q, kc, vc, lens)
+    for i in range(3):
+        one = ops.decode_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                   lens[i:i + 1])
+        assert torch.equal(batch[i:i + 1], one)
+    longer = torch.zeros((3, 2, 700, 128), device=dev)
+    kl, vl = longer.clone(), longer.clone()
+    kl[:, :, :400], vl[:, :, :400] = kc, vc
+    assert torch.equal(ops.decode_attention(q, kl, vl, lens), batch)
+
+
+def test_attention_kernels_count_one_launch_per_call(dev):
+    q, kc = randn(dev, 19, (2, 4, 32), (2, 2, 50, 32))
+    ops.reset_launch_counts()
+    ops.decode_attention(q, kc, kc, torch.tensor([50, 3], device=dev))
+    qq = q.reshape(2, 4, 1, 32)
+    ops.flash_attention(qq, kc, kc, causal=True)
+    ref.decode_attention_ref(q, kc, kc, torch.tensor([50, 3], device=dev))
+    counts = ops.launch_counts()
+    assert counts["decode_attention"] == 1
+    assert counts["flash_attention"] == 1
+    assert sum(counts.values()) == 2
+
+
+def test_lm_on_card_matches_cpu(dev):
+    """A small fp32 qwen2-family model: prefill and decode steps on the
+    card through both attention kernels against the plain CPU path."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config, reduced_config
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.vae.model import map_params
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-7b")),
+                              n_heads=8, n_kv_heads=2, d_model=256)
+    gpu = build_model(cfg, device=dev, seed=3)
+    cpu = CausalLM(cfg, device="cpu",
+                   params=map_params(gpu.params, lambda t: t.cpu()))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (3, 41))
+    gl, gc = gpu.prefill(toks[:, :37], max_len=48)
+    cl, cc = cpu.prefill(toks[:, :37], max_len=48)
+    for t in range(37, 41):
+        assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
+        gl, gc = gpu.decode_step(gc, toks[:, t])
+        cl, cc = cpu.decode_step(cc, toks[:, t])
+    assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
+    assert max_err(gc["k"].cpu(), cc["k"]) <= 1e-4 * float(cc["k"].abs().max())
+
+
 def test_gn_stats_against_float64(dev):
     from repro_torch.kernels.gn_silu_conv import gn_stats
     (x,) = randn(dev, 7, (2, 37, 29, 64))
@@ -167,8 +269,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         ops.conv3x3(x, wt.cpu())
     q = x.reshape(1, 1, 64, 8)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, q, q, causal=True)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), q.double(), q.double(), causal=True)
+    with pytest.raises(ValueError):          # 3 q heads over 2 kv heads
+        ops.flash_attention(x.reshape(1, 2, 32, 8)[:, :1].expand(
+            1, 3, 32, 8).contiguous(), x.reshape(1, 2, 32, 8),
+            x.reshape(1, 2, 32, 8))
+    with pytest.raises(ValueError):          # head dim above 256
+        kc = torch.zeros((1, 1, 4, 260), device=dev)
+        ops.decode_attention(torch.zeros((1, 2, 260), device=dev), kc, kc,
+                             torch.tensor([4], device=dev))
     (y,) = randn(dev, 9, (1, 4, 4, 6))
     with pytest.raises(ValueError):          # C not a multiple of 4
         ops.group_norm_silu(y, y[0, 0, 0], y[0, 0, 0], groups=2)

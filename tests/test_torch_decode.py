@@ -23,7 +23,7 @@ torch.set_num_threads(2)
 def pair():
     jv = JM.demo_vae(seed=0)
     tree = jax.tree_util.tree_map(np.asarray, jv.decoder)
-    return jv, tree, vae_from_numpy(M.DEMO_VAE, tree)
+    return jv, tree, vae_from_numpy(M.DEMO_VAE, tree, device="cpu")
 
 
 def latents(b, seed=0):

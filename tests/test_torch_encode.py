@@ -27,7 +27,7 @@ def pair():
     jv = JM.demo_vae(seed=0)
     dec = jax.tree_util.tree_map(np.asarray, jv.decoder)
     enc = jax.tree_util.tree_map(np.asarray, jv.encoder)
-    return jv, enc, vae_from_numpy(M.DEMO_VAE, dec, enc)
+    return jv, enc, vae_from_numpy(M.DEMO_VAE, dec, enc, device="cpu")
 
 
 def images(b, hw=16, seed=0):

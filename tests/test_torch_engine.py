@@ -47,7 +47,7 @@ def vaes():
     jv = jax_demo_vae(seed=0)
     return jv, vae_from_numpy(
         M.DEMO_VAE, jax.tree_util.tree_map(np.asarray, jv.decoder),
-        jax.tree_util.tree_map(np.asarray, jv.encoder))
+        jax.tree_util.tree_map(np.asarray, jv.encoder), device="cpu")
 
 
 def jax_box(jv, **kw):

@@ -18,7 +18,12 @@ COPIED = ["compression/latentcodec.py", "compression/ladder.py",
           "core/latent_store.py", "core/dual_cache.py", "core/tuner.py",
           "core/router.py", "core/regen_tier.py", "core/cost_model.py",
           "core/autoscale.py", "store/api.py", "store/tiers.py",
-          "store/walk.py"]
+          "store/walk.py", "configs/shapes.py", "configs/granite_8b.py",
+          "configs/kimi_k2.py", "configs/mixtral_8x7b.py",
+          "configs/phi4_mini.py", "configs/qwen2_7b.py",
+          "configs/qwen2_vl_72b.py", "configs/qwen3_14b.py",
+          "configs/rwkv6_7b.py", "configs/whisper_large_v3.py",
+          "configs/zamba2_2p7b.py"]
 FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
                        r"import repro\s*$|from repro import)", re.M)
 

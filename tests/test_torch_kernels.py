@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.conv3x3 import conv3x3 as jconv3x3
+from repro.kernels.decode_attention import decode_attention as jdecode
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.gn_silu import group_norm_silu as jgn_silu
 from repro.kernels.gn_silu_conv import gn_silu_conv3x3 as jgn_conv
@@ -118,12 +119,63 @@ def test_flash_attention_non_causal(n, h, sq, skv, d):
     close(ops.flash_attention(t(q), t(k), t(v)), want, 2e-5)
 
 
-@pytest.mark.parametrize("kw,hkv", [(dict(causal=True), 2),
-                                    (dict(window=8), 2), ({}, 1)])
-def test_flash_attention_refuses_lm_cases(kw, hkv):
-    q, k, v = arrs(7, (1, 2, 16, 8), (1, hkv, 16, 8), (1, hkv, 16, 8))
-    with pytest.raises(NotImplementedError, match="LM"):
-        ops.flash_attention(t(q), t(k), t(v), **kw)
+# causal; window with GQA rep 2; GQA rep 2 over a batch of 2; rep 7; sq <
+# skv (q aligned at the sequence end); ragged tiles with a non-causal
+# window; rep 7 with a window over an odd length
+LM_ATTENTION = [(1, 2, 2, 64, 64, 16, True, None),
+                (1, 2, 1, 48, 48, 8, True, 16),
+                (2, 4, 2, 40, 40, 8, True, None),
+                (1, 7, 1, 24, 24, 8, True, None),
+                (1, 2, 1, 16, 40, 8, True, None),
+                (1, 2, 2, 20, 36, 8, False, 12),
+                (1, 14, 2, 33, 33, 16, True, 8)]
+
+
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", LM_ATTENTION)
+def test_flash_attention_lm_cases(n, hq, hkv, sq, skv, d, causal, window):
+    q, k, v = arrs(7, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d))
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, window=window, block_q=32, block_kv=32,
+                  interpret=True)
+    close(ops.flash_attention(t(q), t(k), t(v), causal=causal,
+                              window=window), want, 2e-5)
+
+
+def test_fully_masked_rows_give_zero():
+    """With sq > skv under ``causal`` the first rows see no key: the port
+    gives 0 there (the JAX package's plain version gives NaN, its Pallas
+    kernel the mean of v), and the other rows are unchanged."""
+    q, k, v = arrs(14, (1, 2, 12, 8), (1, 1, 8, 8), (1, 1, 8, 8))
+    got = ops.flash_attention(t(q), t(k), t(v), causal=True).numpy()
+    assert np.all(got[:, :, :4] == 0)
+    want = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                    causal=True)
+    close(torch.from_numpy(got[:, :, 4:]), np.asarray(want)[:, :, 4:], 2e-5)
+    lengths = torch.tensor([0, 3])
+    out = ops.decode_attention(t(q[0, :, 0]).reshape(2, 1, 8).expand(
+        2, 2, 8).contiguous(), t(k).expand(2, 1, 8, 8).contiguous(),
+        t(v).expand(2, 1, 8, 8).contiguous(), lengths)
+    assert torch.all(out[0] == 0) and torch.all(torch.isfinite(out))
+
+
+# ragged lengths; rep 7 with a length of 1; S = 300, not a multiple of the
+# reference's 256-row tile; rep 1 with lengths at and below a tile edge
+DECODE = [(3, 4, 2, 64, 16, (64, 17, 1)),
+          (2, 7, 1, 40, 8, (1, 39)),
+          (2, 14, 2, 300, 32, (300, 129)),
+          (4, 8, 8, 256, 8, (256, 255, 128, 3))]
+
+
+@pytest.mark.parametrize("n,hq,hkv,s,d,lengths", DECODE)
+def test_decode_attention(n, hq, hkv, s, d, lengths):
+    q, kc, vc = arrs(15, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d))
+    lens = np.array(lengths, np.int32)
+    want = jdecode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                   jnp.asarray(lens), interpret=True)
+    close(ops.decode_attention(t(q), t(kc), t(vc), t(lens)), want, 2e-5)
+    close(ref.decode_attention_ref(t(q), t(kc), t(vc), t(lens)),
+          jref.decode_attention_ref(*map(jnp.asarray, (q, kc, vc, lens))),
+          2e-5)
 
 
 @pytest.mark.parametrize("causal,window,hkv", [(True, None, 1),
@@ -181,6 +233,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
         "flash_attention": lambda: ops.flash_attention(q, q, q),
         "group_norm_silu": lambda: ops.group_norm_silu(t(x), t(s), t(gb),
                                                        groups=2),
+        "decode_attention": lambda: ops.decode_attention(
+            q[:, 0, :2], q[:, :, :3], q[:, :, :3], torch.tensor([3])),
     }
     calls[name]()
     assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
