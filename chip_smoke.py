@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
-path and its LM serving path on one NVIDIA GPU and hold every Hopper
-kernel against its plain PyTorch version.
+path and its LM serving paths (dense, RWKV-6, Mamba-2 hybrid) on one
+NVIDIA GPU and hold every Hopper kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
-Phases, each printing one JSON line (any failure exits non-zero):
+Phases, each printing one JSON line and then a ``timing`` line with its
+wall seconds (any failure exits non-zero):
 
 1. device       card name and power limit, torch/CUDA versions, the
                 kernels' build from ``src/repro_torch/kernels/csrc``;
 2. kernels      each kernel against its plain version on the card at the
                 shapes that one 512x512 uint8 decode, one encode and one
-                float decode of the SD3.5-width VAE give it, and at the
+                float decode of the SD3.5-width VAE give it, at the
                 Qwen2-7B prefill's and decode step's attention shapes (bf16
-                and fp32, with a sliding-window case): max error and
-                tolerance, median ms (CUDA events; for the LM shapes the
-                kernels' device time under ``torch.profiler``), the plain
-                version's ms, a library call's ms, FLOPs, bytes and the
+                and fp32, with a sliding-window case), at zamba2-2.7b's
+                shared-block attention shapes (head_dim 80), and
+                ``rwkv6_scan`` at the rwkv6-7b prefill's shape (with and
+                without an initial state) and decode step's (t = 1, the
+                state updated in place): max error and tolerance, median
+                ms (CUDA events; for the LM shapes the kernels' device
+                time under ``torch.profiler``), the plain version's ms, a
+                library call's ms where one exists, FLOPs, bytes and the
                 bound; then the totals of each pass, and the plain
                 ``downsample``'s ms per encode;
 3. invariance   a bucket-8 decode bit-identical to eight batch-1 decodes;
@@ -33,24 +39,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
 6. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
-                relative tolerance; and a small fp32 qwen2-family LM's
-                prefill and decode steps, logits within a relative
-                tolerance;
-7. lm           the LM serving path: ``build_model`` of Qwen2-7B at full
-                width and depth in bf16 (seeded random weights), a prefill
-                of 4 x 2048 seeded tokens, 64 greedy ``decode_step``s:
-                parameters, peak memory, prefill and decode-step ms and
-                tokens/s, each attention kernel's launches (one per layer
-                and pass), and decode-after-prefill logits against a
-                prefill one token longer.
+                relative tolerance; and small fp32 qwen2-, RWKV-6- and
+                zamba2-family LMs' prefill and decode steps, logits and
+                caches within a relative tolerance;
+7. lm           the dense LM serving path: ``build_model`` of Qwen2-7B at
+8. ssm          full width and depth in bf16 (seeded random weights), then
+9. hybrid       rwkv6-7b, then zamba2-2.7b, each freed before the next is
+                built: a prefill of 4 x 2048 seeded tokens, 64 greedy
+                ``decode_step``s: parameters, peak memory, prefill and
+                decode-step ms and tokens/s, each kernel's launches
+                (checked exactly per prefill and per step),
+                decode-after-prefill logits against a prefill one token
+                longer (bf16, and fp32 on the same weights cast exactly),
+                and a ``torch.profiler`` window of a prefill and four
+                steps (device-busy share, top kernels).
 
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
-decode, one encode and one float decode of a 512x512 image, one Qwen2-7B
-prefill and one decode step; launches summed over the slice, write and lm
-phases), the ``nvidia-smi`` name and power-limit line, and as the last
-line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}``.  Full lines also go to ``chiprun_out/chip_smoke.jsonl``.  The
-script imports no JAX and nothing of the JAX package.
+decode, one encode and one float decode of a 512x512 image, and one
+prefill and one decode step of each LM; launches summed over the slice,
+write, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
+power-limit line, and as the last line ``{"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
+``chip_smoke.jsonl`` in ``OUT_DIR`` (the repository's output directory).
+The script imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -76,6 +87,8 @@ WRITE_IMAGES = 8          # objects put as uint8 pixels (oids 24-31)
 WRITE_DEMOTED = tuple(range(0, 16, 2))    # recipe objects left recipe-only
 WRITE_REQUESTS = 96
 LM_ARCH = "qwen2-7b"
+SSM_ARCH = "rwkv6-7b"
+HYBRID_ARCH = "zamba2-2.7b"
 LM_BATCH = 4
 LM_PROMPT = 2048          # prompt tokens per sequence
 LM_MAX_LEN = 2112         # KV-cache slots: prompt + 64 steps
@@ -83,7 +96,22 @@ LM_STEPS = 64             # greedy decode steps
 LM_WINDOW = 512           # the sliding-window kernel case
 DECODE_LENGTHS = (2049, 2080, 1500, 7)    # ragged cache lengths, one step
 VAE_PASSES = ("decode", "encode", "float_decode")
-PASSES = VAE_PASSES + ("lm_prefill", "lm_decode_step")
+#: each LM serving phase -> the model it serves
+SERVE = {"lm": LM_ARCH, "ssm": SSM_ARCH, "hybrid": HYBRID_ARCH}
+PASSES = VAE_PASSES + tuple(f"{ph}_{p}" for ph in SERVE
+                            for p in ("prefill", "decode_step"))
+_BF16 = ("bf16 weights and activations: the decode step's [4, 1] products "
+         "and kernels against the prefill's [4, 2049] ones; relative to the "
+         "max |logit|")
+#: decode-after-prefill tolerance in bf16 per serving phase, and why
+CONSISTENCY_TOL = {
+    "lm": (2e-2, _BF16),
+    "ssm": (2e-2, _BF16),
+    "hybrid": (1e-1, _BF16 + "; 63 bf16 blocks (54 Mamba-2 layers, 9 shared "
+               "attention blocks), more than twice Qwen2-7B's 28; the "
+               "path itself is held to the fp32 tolerance"),
+}
+FP32_CONSISTENCY_TOL = 1e-3
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -101,7 +129,12 @@ KERNELS = {
                         "src/repro/kernels/gn_silu.py:63"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:62"),
+    "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:55"),
 }
+#: kernels no single PyTorch call computes (``library_ms`` null)
+NO_LIBRARY = {"rwkv6_scan": "no single PyTorch call computes the RWKV-6 "
+                            "recurrence"}
 
 
 class SmokeFailure(RuntimeError):
@@ -399,6 +432,7 @@ def phase_kernels(torch, log, state):
         del a, got, want
         torch.cuda.empty_cache()
     lm_attention_checks(torch, log, state, totals, max_err)
+    rwkv6_checks(torch, log, state, totals, max_err)
     for per_kernel in totals.values():
         for t in per_kernel.values():
             with_bound(t, byte_peak)
@@ -475,27 +509,41 @@ def time_downsample(torch, log, state, encode):
 # the LM's attention kernels
 # ---------------------------------------------------------------------------
 
-def lm_attention_cases(cfg):
-    """[(kernel, shape, dtype name, calls per pass)] at the shapes the
-    Qwen2-7B serving run gives the attention kernels: the causal prefill
+def lm_attention_cases(get_config):
+    """[(arch, kernel, shape, dtype name, calls per pass)] at the shapes the
+    serving runs give the attention kernels.  Qwen2-7B: the causal prefill
     of 4 x 2048 tokens (28 calls per prefill), the same with a 512-token
     window (checked, in no pass), and one decode step against a cache of
-    2112 slots with ragged lengths (28 calls per step); bf16 (the model's
-    type) and fp32 (checked, in no pass)."""
-    n, hq, hkv, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    2112 slots with ragged lengths (28 calls per step), in bf16 (the
+    model's type) and fp32 (checked, in no pass).  zamba2-2.7b's shared
+    block (head_dim 80, 32 q over 32 kv heads): its causal prefill and its
+    decode step, 9 calls each per pass, bf16."""
     cases = []
+    cfg = get_config(LM_ARCH)
+    n, hq, hkv, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for dt in ("bfloat16", "float32"):
         main = dt == "bfloat16"
         prefill = dict(n=n, hq=hq, hkv=hkv, sq=LM_PROMPT, skv=LM_PROMPT, d=d,
                        causal=True)
-        cases.append(("flash_attention", dict(prefill, window=None), dt,
-                      {"lm_prefill": cfg.n_layers} if main else {}))
-        cases.append(("flash_attention", dict(prefill, window=LM_WINDOW), dt,
-                      {}))
-        cases.append(("decode_attention",
+        cases.append((LM_ARCH, "flash_attention", dict(prefill, window=None),
+                      dt, {"lm_prefill": cfg.n_layers} if main else {}))
+        cases.append((LM_ARCH, "flash_attention",
+                      dict(prefill, window=LM_WINDOW), dt, {}))
+        cases.append((LM_ARCH, "decode_attention",
                       dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
                            lengths=list(DECODE_LENGTHS)), dt,
                       {"lm_decode_step": cfg.n_layers} if main else {}))
+    zc = get_config(HYBRID_ARCH)
+    napp = zc.n_layers // zc.attn_every
+    n, hq, hkv, d = LM_BATCH, zc.n_heads, zc.n_kv_heads, zc.head_dim
+    cases.append((HYBRID_ARCH, "flash_attention",
+                  dict(n=n, hq=hq, hkv=hkv, sq=LM_PROMPT, skv=LM_PROMPT, d=d,
+                       causal=True, window=None), "bfloat16",
+                  {"hybrid_prefill": napp}))
+    cases.append((HYBRID_ARCH, "decode_attention",
+                  dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
+                       lengths=list(DECODE_LENGTHS)), "bfloat16",
+                  {"hybrid_decode_step": napp}))
     return cases
 
 
@@ -528,10 +576,9 @@ def lm_attention_checks(torch, log, state, totals, max_err):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    cfg = get_config(LM_ARCH)
     flop_peak, byte_peak, _, bf16_peak = state["peaks"]
     gen = torch.Generator(device="cuda").manual_seed(2024)
-    for kernel, shape, dt, per_pass in lm_attention_cases(cfg):
+    for arch, kernel, shape, dt, per_pass in lm_attention_cases(get_config):
         dtype = getattr(torch, dt)
         n, hq, hkv, d = shape["n"], shape["hq"], shape["hkv"], shape["d"]
         if kernel == "flash_attention":
@@ -563,7 +610,7 @@ def lm_attention_checks(torch, log, state, totals, max_err):
                 q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
         got, want = run(), plain()
         torch.cuda.synchronize()
-        label = f"{kernel}[{dt}]{shape}"
+        label = f"{arch} {kernel}[{dt}]{shape}"
         need(got.shape == want.shape and got.dtype == want.dtype == dtype,
              f"{label}: kernel gives {tuple(got.shape)} {got.dtype}")
         need(bool(torch.isfinite(got.float()).all()),
@@ -589,7 +636,7 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         peak = bf16_peak if dtype == torch.bfloat16 else flop_peak
         row = dict(times, flops=flops, ops_ms=flops / peak * 1e3,
                    bytes=nbytes)
-        emit(log, "kernel", name=kernel, dtype=dt, shape=shape,
+        emit(log, "kernel", name=kernel, arch=arch, dtype=dt, shape=shape,
              calls=per_pass, max_abs_err=err, tol=tol,
              tol_reason=(f"{rel:g} relative to the output's max: fp32 "
                          "softmax and sums in another order"
@@ -602,6 +649,107 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         max_err[kernel] = max(max_err[kernel], err)
         add_to_totals(totals, kernel, per_pass, row)
         del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+
+def rwkv6_work(shape, elt):
+    """(FLOPs, bytes) of one ``rwkv6_scan`` call: 5 d^2 + 7 d operations
+    per (sequence, head, token) -- r . S (2 d^2), k (x) v (d^2), dec S + kv
+    (2 d^2), the bonus sum r u k (3 d) and its product with v (2 d), the
+    decay's two exponentials (2 d) -- at the fp32 rate; r, k, v (``elt``
+    bytes each), w and u read once, the initial state read once where one
+    is given, the output (``elt``) and the final state written once."""
+    n, h, t, d = shape["n"], shape["h"], shape["t"], shape["d"]
+    elems = n * h * t * d
+    flops = float(n * h * t * (5 * d * d + 7 * d))
+    nbytes = (3 * elt * elems + 4 * elems + 4 * h * d + elt * elems
+              + 4 * n * h * d * d * (2 if shape["state"] else 1))
+    return flops, float(nbytes)
+
+
+def rwkv6_checks(torch, log, state, totals, max_err):
+    """``rwkv6_scan`` at the rwkv6-7b serving run's shapes: the prefill of
+    4 x 2048 tokens over 64 heads of 64 (r/k/v bf16 as the model gives
+    them, w fp32; with the zeroed cache state the prefill passes, 32 calls
+    per prefill, and with a random state and none, checked), and the decode
+    step (t = 1, the state updated in place, 32 calls per step).  Against
+    the sequential plain version on the same inputs; device time under
+    ``torch.profiler``, the plain version by CUDA events."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(SSM_ARCH)
+    d = cfg.ssm_head_dim
+    h = cfg.d_model // d
+    flop_peak, byte_peak = state["peaks"][:2]
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    base = dict(n=LM_BATCH, h=h, d=d)
+    cases = [(dict(base, t=LM_PROMPT, state="zeros"),
+              {"ssm_prefill": cfg.n_layers}),
+             (dict(base, t=LM_PROMPT, state="random"), {}),
+             (dict(base, t=LM_PROMPT, state=None), {}),
+             (dict(base, t=1, state="random", in_place=True),
+              {"ssm_decode_step": cfg.n_layers})]
+    for shape, per_pass in cases:
+        n, t = shape["n"], shape["t"]
+
+        def randn(*dims, scale=1.0):
+            return torch.randn(dims, generator=gen, device="cuda") * scale
+        r, k, v = (randn(n, h, t, d).to(torch.bfloat16) for _ in range(3))
+        w = randn(n, h, t, d, scale=0.3) - 2.0    # w0 = -2 plus the LoRA
+        u = randn(h, d, scale=0.1)
+        s0 = {"zeros": torch.zeros((n, h, d, d), device="cuda"),
+              "random": randn(n, h, d, d, scale=0.5),
+              None: None}[shape["state"]]
+        want, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+        if shape.get("in_place"):
+            cache = s0.clone()
+            got, got_s = ops.rwkv6_scan(r, k, v, w, u, cache, out_state=cache)
+            need(got_s is cache, "rwkv6_scan did not write the given state")
+
+            def run():
+                ops.rwkv6_scan(r, k, v, w, u, cache, out_state=cache)
+        else:
+            got, got_s = ops.rwkv6_scan(r, k, v, w, u, s0)
+
+            def run():
+                ops.rwkv6_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        label = f"rwkv6_scan{shape}"
+        need(got.dtype == torch.bfloat16 and got.shape == want.shape and
+             got_s.dtype == torch.float32, f"{label}: kernel gives "
+             f"{tuple(got.shape)} {got.dtype}, state {got_s.dtype}")
+        need(bool(torch.isfinite(got.float()).all()) and
+             bool(torch.isfinite(got_s).all()), f"{label}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        tol = 1e-2 * float(want.float().abs().max())
+        s_err = float((got_s - want_s).abs().max())
+        s_tol = 1e-4 * float(want_s.abs().max())
+        need(err <= tol, f"{label}: max error {err} > {tol}")
+        need(s_err <= s_tol, f"{label}: state error {s_err} > {s_tol}")
+        ms = device_ms(torch, run, REPS)
+        event_ms = cuda_ms(torch, run, REPS)
+        plain_ms = cuda_ms(torch, lambda: ref.rwkv6_scan_ref(
+            r, k, v, w, u, s0), 3 if t > 1 else REPS)
+        flops, nbytes = rwkv6_work(shape, r.element_size())
+        row = dict(ms=ms or event_ms, plain_ms=plain_ms, library_ms=0.0,
+                   flops=flops, ops_ms=flops / flop_peak * 1e3, bytes=nbytes)
+        bound = with_bound(dict(row), byte_peak)
+        emit(log, "kernel", name="rwkv6_scan", arch=SSM_ARCH,
+             dtype="bfloat16 r/k/v, fp32 w/u/state", shape=shape,
+             calls=per_pass, max_abs_err=err, tol=tol,
+             tol_reason="1e-2 of the output's max: one bf16 rounding of "
+                        "each output on both sides, from fp32 sums over d "
+                        "in another order",
+             state_max_abs_err=s_err, state_tol=s_tol,
+             state_tol_reason="1e-4 of the state's max: fp32, the update "
+                              "as one fma against a multiply and an add",
+             **row, timing="device time (torch.profiler), per call",
+             event_ms=event_ms, library_note=NO_LIBRARY["rwkv6_scan"],
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+             tflops=flops / row["ms"] / 1e9)
+        max_err["rwkv6_scan"] = max(max_err["rwkv6_scan"], err)
+        add_to_totals(totals, "rwkv6_scan", per_pass, row)
+        del r, k, v, w, u, s0, got, got_s, want, want_s
         torch.cuda.empty_cache()
 
 
@@ -845,29 +993,40 @@ def phase_crossdevice(torch, log, state):
     need(lsb <= 1, f"uint8 decode differs by {lsb} LSB > 1")
     need(f_rel <= 1e-4, f"float decode differs by {f_rel} (relative) > 1e-4")
     need(e_rel <= 1e-4, f"encoder mean differs by {e_rel} (relative) > 1e-4")
-    lm = crossdevice_lm(torch, state)
+    lms = [crossdevice_lm(torch, state, arch) for arch in CROSS_LMS]
     emit(log, "crossdevice", latent=[16, 16, 16], image=[128, 128],
          trunk_rel_err=rel, float_decode_rel_err=f_rel,
          encode_mean_rel_err=e_rel, tol=1e-4,
          tol_reason="fp32 through 30 convs (decoder) or 22 (encoder), GN "
                     "and attention with other summation orders on the two "
                     "devices; relative to the output's max",
-         u8_max_lsb=lsb, u8_tol=1, lm=lm)
+         u8_max_lsb=lsb, u8_tol=1, lms=lms)
 
 
-def crossdevice_lm(torch, state):
-    """A small fp32 qwen2-family LM (4 layers, d_model 512, 8 q heads over
-    2 kv heads) on the card and on the CPU from the same weights: prefill
-    of 2 x 45 tokens, then 4 decode steps; logits within 1e-4 of their max
-    (TF32 off)."""
+#: small fp32 models of each served family for the crossdevice phase
+CROSS_LMS = {
+    LM_ARCH: dict(n_layers=4, d_model=512, n_heads=8, n_kv_heads=2,
+                  d_ff=1024, vocab_size=4096),
+    SSM_ARCH: dict(n_layers=4, d_model=512, ssm_head_dim=64, d_ff=1024,
+                   vocab_size=4096),
+    HYBRID_ARCH: dict(n_layers=4, attn_every=2, d_model=640, n_heads=8,
+                      n_kv_heads=8, ssm_head_dim=64, ssm_state=64,
+                      d_ff=1024, vocab_size=4096),
+}
+
+
+def crossdevice_lm(torch, state, arch):
+    """A small fp32 model of ``arch``'s family (``CROSS_LMS``; the zamba2
+    one at head_dim 80) on the card and on the CPU from the same weights:
+    prefill of 2 x 45 tokens, then 4 decode steps; logits, and the KV or
+    SSM state caches, within 1e-4 of their max (TF32 off)."""
     import dataclasses
     from repro_torch.configs import build_model, get_config
     from repro_torch.models.lm import CausalLM
     from repro_torch.vae.model import map_params
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=4, d_model=512,
-                              n_heads=8, n_kv_heads=2, d_ff=1024,
-                              vocab_size=4096, dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                              **CROSS_LMS[arch])
     gpu = build_model(cfg, device="cuda", seed=7)
     cpu = CausalLM(cfg, device="cpu",
                    params=map_params(gpu.params, lambda t: t.cpu()))
@@ -878,17 +1037,23 @@ def crossdevice_lm(torch, state):
     errs = []
     for t in range(45, 50):
         errs.append(float((gl.cpu() - cl).abs().max() / cl.abs().max()))
-        need(errs[-1] <= 1e-4, f"small LM logits differ by {errs[-1]} "
+        need(errs[-1] <= 1e-4, f"small {arch} logits differ by {errs[-1]} "
              f"(relative) > 1e-4 at position {t}")
         if t < 49:
             gl, gc = gpu.decode_step(gc, toks[:, t])
             cl, cc = cpu.decode_step(cc, toks[:, t])
-    k_rel = float((gc["k"].cpu() - cc["k"]).abs().max() / cc["k"].abs().max())
-    need(k_rel <= 1e-4, f"small LM KV cache differs by {k_rel} > 1e-4")
-    return {"config": {"n_layers": 4, "d_model": 512, "heads": [8, 2],
-                       "d_ff": 1024, "vocab": 4096, "dtype": "float32"},
+    leaves = {k: (gc[k], cc[k]) for k in ("k", "shared_k") if k in cc}
+    leaves.update({f"ssm.{k}": (gc["ssm"][k], v)
+                   for k, v in cc.get("ssm", {}).items()})
+    cache_rel = {}
+    for key, (g, c) in leaves.items():
+        cache_rel[key] = float((g.cpu() - c).abs().max()
+                               / max(float(c.abs().max()), 1e-30))
+        need(cache_rel[key] <= 1e-4, f"small {arch} cache {key} differs by "
+             f"{cache_rel[key]} > 1e-4")
+    return {"arch": arch, "config": dict(model_shape(cfg), dtype="float32"),
             "prompt": [2, 45], "decode_steps": 4,
-            "logits_rel_err": errs, "kv_cache_rel_err": k_rel, "tol": 1e-4}
+            "logits_rel_err": errs, "cache_rel_err": cache_rel, "tol": 1e-4}
 
 
 def device_ms(torch, fn, reps: int):
@@ -926,25 +1091,63 @@ def profile_share(torch, fn, steps: int):
                     for k, ms, n in top]}
 
 
-def phase_lm(torch, log, state):
-    """The LM serving path at full Qwen2-7B width and depth in bf16: one
-    prefill of 4 x 2048 seeded tokens, then 64 greedy decode steps; then
-    decode-after-prefill logits against a prefill one token longer."""
+def expected_launches(cfg):
+    """(per prefill, per decode step) kernel launches of a serving run:
+    RWKV-6 one ``rwkv6_scan`` per layer; the hybrid one attention kernel
+    per shared-block application (Mamba-2 has no kernel); dense one per
+    layer."""
+    if cfg.ssm_type == "rwkv6":
+        return {"rwkv6_scan": cfg.n_layers}, {"rwkv6_scan": cfg.n_layers}
+    n = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+         else cfg.n_layers)
+    return {"flash_attention": n}, {"decode_attention": n}
+
+
+def model_shape(cfg):
+    """The widths a serving line reports for ``cfg``."""
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, tied=cfg.tie_embeddings)
+    if cfg.ssm_type == "rwkv6":
+        out.update(heads=cfg.d_model // cfg.ssm_head_dim,
+                   head_dim=cfg.ssm_head_dim)
+        return out
+    out.update(heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim)
+    if cfg.ssm_type == "mamba2":
+        d_in = cfg.ssm_expand * cfg.d_model
+        out.update(d_inner=d_in, ssm_heads=d_in // cfg.ssm_head_dim,
+                   ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
+                   conv_width=cfg.conv_width, attn_every=cfg.attn_every,
+                   shared_applications=cfg.n_layers // cfg.attn_every)
+    return out
+
+
+def phase_serve(torch, log, state, phase: str):
+    """One LM serving path (``SERVE[phase]``) at full width and depth in
+    bf16: one prefill of 4 x 2048 seeded tokens, then 64 greedy decode
+    steps, each kernel's launches checked exactly; then decode-after-
+    prefill logits against a prefill one token longer, in bf16 and in
+    fp32 (the same weights cast exactly), and a profiler window of a
+    prefill and four steps.  The model is freed on return."""
+    import dataclasses
     np = state["np"]
     from repro_torch.configs import build_model, get_config
     from repro_torch.kernels import ops
+    from repro_torch.models.lm import CausalLM
     state.pop("vae", None)                      # free the VAE phases' memory
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(LM_ARCH)
+    arch = SERVE[phase]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights_bytes = torch.cuda.memory_allocated()
+    n_params = model.n_params
     prompts = np.random.default_rng(23).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    per_prefill, per_step = expected_launches(cfg)
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -968,25 +1171,24 @@ def phase_lm(torch, log, state):
         wall.append((time.perf_counter() - t1) * 1e3)
         dev.append(start.elapsed_time(stop))
     launches = ops.launch_counts()
-    state["launches"]["lm"] = launches
-    L = cfg.n_layers
-    need(after_prefill["flash_attention"] == L and
-         after_prefill["decode_attention"] == 0,
-         f"prefill launched {after_prefill}, expected {L} flash_attention")
-    need(launches["flash_attention"] == L and
-         launches["decode_attention"] == L * LM_STEPS and
-         sum(launches.values()) == L * (1 + LM_STEPS),
-         f"the LM run launched {launches}, expected {L} flash_attention "
-         f"and {L * LM_STEPS} decode_attention")
+    state["launches"][phase] = launches
+    want_prefill = {k: per_prefill.get(k, 0) for k in KERNELS}
+    want_all = {k: per_prefill.get(k, 0) + LM_STEPS * per_step.get(k, 0)
+                for k in KERNELS}
+    need(after_prefill == want_prefill,
+         f"{arch} prefill launched {after_prefill}, expected {want_prefill}")
+    need(launches == want_all,
+         f"{arch} run launched {launches}, expected {want_all}")
     need(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and
          bool(torch.isfinite(logits.float()).all()), "bad decode logits")
     need(bool((cache["pos"] == LM_PROMPT + LM_STEPS).all()),
          f"cache positions {cache['pos'].tolist()}")
     peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for t in flat_leaves(cache))
     del cache, logits
 
     # decode_step on x after prefill(p) against the last logits of
-    # prefill(p + [x]): 2049 positions, a ragged tile for the kernel
+    # prefill(p + [x]): 2049 positions
     t0 = time.perf_counter()
     lp, c = model.prefill(prompts, max_len=LM_MAX_LEN)
     torch.cuda.synchronize()
@@ -1012,16 +1214,36 @@ def phase_lm(torch, log, state):
     del holder
     err = float((ld.float() - lf.float()).abs().max())
     scale = float(lf.float().abs().max())
-    need(err <= 2e-2 * scale, f"decode-after-prefill logits differ from a "
-         f"prefill of {LM_PROMPT + 1} tokens by {err} > 2e-2 * {scale}")
+    tol, tol_reason = CONSISTENCY_TOL[phase]
+    need(err <= tol * scale, f"{arch} decode-after-prefill logits differ "
+         f"from a prefill of {LM_PROMPT + 1} tokens by {err} > {tol} * "
+         f"{scale}")
+    # the same check in fp32, on the bf16 weights cast exactly: the path's
+    # own error without bf16 rounding; and how far the bf16 logits of the
+    # longer prefill lie from the fp32 ones (the bf16 noise floor)
+    twin = CausalLM(dataclasses.replace(cfg, dtype=torch.float32),
+                    device="cuda", params=model.params)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, c = twin.prefill(prompts, max_len=LM_MAX_LEN)
+    ld32, c = twin.decode_step(c, first)
+    del c
+    lf32, _ = twin.prefill(longer)
+    del _, twin
+    scale32 = float(lf32.abs().max())
+    err32 = float((ld32 - lf32).abs().max())
+    floor = float((lf.float() - lf32).abs().max()) / scale32
+    need(err32 <= FP32_CONSISTENCY_TOL * scale32, f"{arch} fp32 decode-"
+         f"after-prefill logits differ by {err32} > {FP32_CONSISTENCY_TOL} "
+         f"* {scale32}")
     steps = LM_BATCH * LM_PROMPT
-    emit(log, "lm", arch=LM_ARCH, dtype="bfloat16", layers=L,
-         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
-         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-         params=model.n_params, param_count_config=cfg.param_count(),
-         weights_bytes=weights_bytes, init_s=init_s,
-         max_memory_allocated=peak, batch=LM_BATCH, prompt=LM_PROMPT,
-         max_len=LM_MAX_LEN, decode_steps=LM_STEPS,
+    emit(log, phase, arch=arch, family=cfg.family, dtype="bfloat16",
+         **model_shape(cfg),
+         params=n_params, param_count_config=cfg.param_count(),
+         weights_bytes=weights_bytes, cache_bytes=cache_bytes,
+         init_s=init_s, max_memory_allocated=peak, batch=LM_BATCH,
+         prompt=LM_PROMPT, max_len=LM_MAX_LEN, decode_steps=LM_STEPS,
          prefill_ms=prefill_ms, prefill_tokens_per_s=steps / prefill_ms * 1e3,
          warm_prefill_ms=warm_prefill_ms,
          warm_prefill_tokens_per_s=steps / warm_prefill_ms * 1e3,
@@ -1030,15 +1252,33 @@ def phase_lm(torch, log, state):
          decode_step_ms=[round(x, 4) for x in dev],
          decode_tokens_per_s=LM_BATCH / statistics.median(dev) * 1e3,
          launches=launches, launches_after_prefill=after_prefill,
+         launches_per_prefill=per_prefill, launches_per_step=per_step,
          first_tokens=first.tolist(),
          profile_prefill=prof_prefill, profile_decode_step=prof_step,
          consistency_max_abs_err=err, consistency_logit_max=scale,
-         consistency_rel_err=err / scale, consistency_tol=2e-2,
-         consistency_tol_reason="bf16 weights and activations: the "
-                                "decode step's [4, 1] products and the "
-                                "decode kernel against the prefill's "
-                                "[4, 2049] products and the flash kernel; "
-                                "relative to the max |logit|")
+         consistency_rel_err=err / scale, consistency_tol=tol,
+         consistency_tol_reason=tol_reason,
+         fp32_consistency_rel_err=err32 / scale32,
+         fp32_consistency_tol=FP32_CONSISTENCY_TOL,
+         fp32_consistency_tol_reason="fp32 with other summation orders in "
+                                     "the [4, 1] and [4, 2049] products and "
+                                     "kernels (and the one-step against the "
+                                     "chunked SSD); relative to the max "
+                                     "|logit|",
+         bf16_vs_fp32_prefill_rel=floor)
+
+
+def flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in flat_leaves(v)]
+    return [tree]
+
+
+def run_phase(log, name: str, fn, *args) -> None:
+    """Run one phase and print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    fn(*args)
+    emit(log, "timing", of=name, wall_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -1056,13 +1296,14 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     state = {"np": np}
     with open(OUT_DIR / "chip_smoke.jsonl", "w") as log:
-        phase_device(torch, log, state)
-        phase_kernels(torch, log, state)
-        phase_invariance(torch, log, state)
-        phase_slice(torch, log, state)
-        phase_write(torch, log, state)
-        phase_crossdevice(torch, log, state)
-        phase_lm(torch, log, state)
+        run_phase(log, "device", phase_device, torch, log, state)
+        run_phase(log, "kernels", phase_kernels, torch, log, state)
+        run_phase(log, "invariance", phase_invariance, torch, log, state)
+        run_phase(log, "slice", phase_slice, torch, log, state)
+        run_phase(log, "write", phase_write, torch, log, state)
+        run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
+        for phase in SERVE:
+            run_phase(log, phase, phase_serve, torch, log, state, phase)
         totals = state["kernel_totals"]
         launches = {k: sum(run[k] for run in state["launches"].values())
                     for k in KERNELS}
@@ -1073,7 +1314,8 @@ def main() -> int:
              "ms": totals[k]["ms"], "plain_ms": totals[k]["plain_ms"],
              "bound_ms": totals[k]["bound_ms"],
              "bound_by": totals[k]["bound_by"],
-             "library_ms": totals[k]["library_ms"]}
+             "library_ms": (None if k in NO_LIBRARY
+                            else totals[k]["library_ms"])}
             for k, (src, rep) in KERNELS.items()]})
         print(line, flush=True)
         log.write(line + "\n")

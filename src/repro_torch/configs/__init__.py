@@ -66,7 +66,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
 def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     """A :class:`~repro_torch.models.lm.CausalLM` of ``cfg`` with seeded
     random weights on ``device`` (``"cuda"`` unless the caller asks for
-    the CPU).  The dense family only: the others raise
+    the CPU).  The dense, ssm and hybrid families: the others raise
     ``NotImplementedError`` naming their ROADMAP item."""
     from repro_torch.models.lm import CausalLM
     return CausalLM(cfg, device=device, seed=seed)

@@ -25,7 +25,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gn_stats", "conv3x3", "upsample_conv", "flash_attention",
-           "gn_silu", "decode_attention")
+           "gn_silu", "decode_attention", "rwkv6_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,6 +50,8 @@ SIGNATURES = {
     "decode_attention": ("decode_attention_launch", [P, P, P, P, P, P, P,
                                                      I, I, I, I, I, I, F, I,
                                                      P]),
+    "rwkv6_scan": ("rwkv6_scan_launch", [P, P, P, P, P, P, P, P,
+                                         I, I, I, I, I, P]),
 }
 
 

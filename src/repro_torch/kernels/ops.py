@@ -24,6 +24,7 @@ from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gn_silu as _gn_silu
 from repro_torch.kernels import gn_silu_conv as _gn_silu_conv
 from repro_torch.kernels import output_epilogue as _output_epilogue
+from repro_torch.kernels import rwkv6_scan as _rwkv6_scan
 from repro_torch.kernels import upsample_conv as _upsample_conv
 
 conv3x3 = _conv3x3.conv3x3
@@ -33,6 +34,7 @@ upsample_conv3x3 = _upsample_conv.upsample_conv3x3
 output_epilogue = _output_epilogue.output_epilogue
 flash_attention = _flash_attention.flash_attention
 decode_attention = _decode_attention.decode_attention
+rwkv6_scan = _rwkv6_scan.rwkv6_scan
 
 #: kernel name -> the module that holds its wrapper and launch counter
 KERNEL_MODULES = {
@@ -43,6 +45,7 @@ KERNEL_MODULES = {
     "flash_attention": _flash_attention,
     "group_norm_silu": _gn_silu,
     "decode_attention": _decode_attention,
+    "rwkv6_scan": _rwkv6_scan,
 }
 
 

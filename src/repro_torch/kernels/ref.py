@@ -157,3 +157,29 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
     p = p.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
     return torch.einsum("nhs,nhsd->nhd", p, v_cache.float()).to(q.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 linear-attention recurrence (per head), fp32 state, one token
+    at a time.  r, k, v, w: [n, h, t, d]; u: [h, d]; state [n, h, d, d]
+    (zeros if None)::
+
+        out_t = r_t . (S + u (x) (k_t (x) v_t))
+        S     = diag(exp(-exp(w_t))) S + k_t (x) v_t
+
+    Returns (out [n, h, t, d] in r's dtype, final state fp32)."""
+    n, h, t, d = r.shape
+    s = (torch.zeros((n, h, d, d), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    decay = torch.exp(-torch.exp(w.float()))
+    uf = u.float()[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]        # [n,h,d,d]
+        outs.append(torch.einsum("nhd,nhde->nhe", rf[:, :, i], s + uf * kv))
+        s = decay[:, :, i, :, None] * s + kv
+    return torch.stack(outs, dim=2).to(r.dtype), s

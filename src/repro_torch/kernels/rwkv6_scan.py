@@ -1,0 +1,80 @@
+"""RWKV-6 (Finch) linear-attention recurrence (counterpart of the JAX
+package's ``kernels/rwkv6_scan.py``): the time mix of every RWKV-6 layer,
+in the prefill and in each decode step::
+
+    out_t = r_t . (S + u (x) (k_t (x) v_t));   S <- diag(exp(-exp(w_t))) S + k_t (x) v_t
+
+On CUDA: ``csrc/rwkv6_scan.cu`` (one thread per value column of one
+(sequence, head) holds that column of the fp32 state in registers for
+the whole sequence), r/k/v in fp32 or bf16, w, u and the state in fp32,
+the output in r's dtype.  The final state may be written over the
+initial one (``out_state=state``), which is how ``decode_step`` updates
+its cache in place.  On the CPU: the plain version,
+``ref.rwkv6_scan_ref``, one token at a time.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import DTYPES
+
+#: kernel launches of :func:`rwkv6_scan` in this process
+launches = 0
+
+#: largest head dim the kernel takes (its state column lives in registers)
+MAX_HEAD_DIM = 128
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None,
+               out_state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w [n, h, t, d]; u [h, d]; state [n, h, d, d] fp32 (zeros
+    if None) -> (out [n, h, t, d] in r's dtype, final state [n, h, d, d]
+    fp32).  The final state goes into ``out_state`` when given (it may be
+    ``state`` itself), else into a new tensor."""
+    global launches
+    n, h, t, d = r.shape
+    sshape = (n, h, d, d)
+    if any(tuple(a.shape) != (n, h, t, d) for a in (k, v, w)) or \
+            tuple(u.shape) != (h, d) or \
+            any(s is not None and tuple(s.shape) != sshape
+                for s in (state, out_state)):
+        raise ValueError(
+            f"rwkv6_scan: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)}, "
+            f"state {None if state is None else tuple(state.shape)} "
+            "disagree (r/k/v/w [n, h, t, d], u [h, d], state [n, h, d, d])")
+    if r.device.type == "cpu":
+        out, final = ref.rwkv6_scan_ref(r, k, v, w, u, state)
+        if out_state is None:
+            return out, final
+        out_state.copy_(final)
+        return out, out_state
+    build.require("rwkv6_scan", dtypes=tuple(DTYPES), r=r, k=k, v=v)
+    states = {} if state is None else {"state": state}
+    if out_state is not None:
+        states["out_state"] = out_state
+    build.require("rwkv6_scan", w=w, u=u, **states)
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_scan: r, k, v must share a dtype, got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_scan: head dim {d} must be in 1.."
+                         f"{MAX_HEAD_DIM} (one state column per thread, in "
+                         "registers)")
+    out = torch.empty_like(r)
+    if out_state is None:
+        out_state = torch.empty(sshape, dtype=torch.float32, device=r.device)
+    build.check(build.lib("rwkv6_scan").rwkv6_scan_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if state is None else state.data_ptr(), out.data_ptr(),
+        out_state.data_ptr(), n * h, h, t, d, DTYPES[r.dtype],
+        build.stream_of(r)), "rwkv6_scan")
+    launches += 1
+    return out, out_state

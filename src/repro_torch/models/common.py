@@ -3,8 +3,8 @@ inits (counterpart of the JAX package's ``models/common.py``).
 
 One flat ``ModelConfig`` covers the whole architecture pool (dense GQA /
 MoE / RWKV6 / Mamba2-hybrid / enc-dec / VLM), with the JAX package's
-fields and parameter accounting; the port serves the dense family so
-far.  Configs for the concrete architectures live in
+fields and parameter accounting; the port serves the dense, SSM and
+hybrid families so far.  Configs for the concrete architectures live in
 ``repro_torch.configs``.
 """
 

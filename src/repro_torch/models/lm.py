@@ -1,14 +1,20 @@
-"""Decoder-only causal LM in PyTorch, dense family (counterpart of the JAX
-package's ``models/lm.py``): the serving entry points ``prefill`` and
-``decode_step``, and ``hidden`` / ``logits``.
+"""Decoder-only causal LM in PyTorch (counterpart of the JAX package's
+``models/lm.py``) for the dense, SSM (RWKV-6) and hybrid (Mamba-2 plus a
+shared attention block, Zamba2) families: the serving entry points
+``prefill`` and ``decode_step``, and ``hidden`` / ``logits``.
 
 The parameter tree is the JAX package's, with one difference: JAX's
 stacked ``[L, ...]`` layer leaves become a list of per-layer dicts, and
-the layers run in a Python loop where JAX scans.  The KV cache has the
-JAX package's tree (``pos [B]`` int32, ``k``/``v`` ``[L, B, Hkv, S,
-dh]``); ``decode_step`` updates it in place.  ``loss`` and training, and
-the MoE, SSM, hybrid, enc-dec and VLM families, wait for their slices of
-the port (``NOT_PORTED``).
+the layers run in a Python loop where JAX scans.  The hybrid family's
+``shared`` block stays one dict outside the list and runs after every
+``attn_every``-th layer.  Each leaf keeps the dtype the JAX init gives it:
+``cfg.dtype``, except the fp32 leaves named in ``FP32_LEAVES``.  The
+cache has the JAX package's tree: ``pos [B]`` int32; ``k``/``v`` ``[L, B,
+Hkv, S, dh]`` (dense); ``ssm`` with each state leaf stacked on L (SSM and
+hybrid); ``shared_k``/``shared_v`` ``[napp, B, Hkv, S, dh]`` (hybrid).
+``decode_step`` updates it in place.  ``loss`` and training, and the MoE,
+enc-dec and VLM families, wait for their slices of the port
+(``NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -20,24 +26,54 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import common as C
+from repro_torch.models import ssm as S
 from repro_torch.models.common import ModelConfig
-from repro_torch.vae.model import map_params, param_count
+from repro_torch.vae.model import param_count
 
 #: families the port does not serve yet -> the ROADMAP item that ports them
 NOT_PORTED = {
     "moe": "ROADMAP A 11 (MoE)",
-    "ssm": "ROADMAP A 12 (SSM: RWKV-6, then Mamba-2)",
-    "hybrid": "ROADMAP A 13 (hybrid)",
     "encdec": "ROADMAP A 14 (enc-dec)",
     "vlm": "ROADMAP A 15 (VLM / M-RoPE)",
 }
 
+#: parameter leaves the JAX init makes fp32 whatever ``cfg.dtype`` is:
+#: RWKV-6's decay base and bonus, Mamba-2's decay, skip and step bias, and
+#: (with the MoE slice) the router
+FP32_LEAVES = frozenset({"w0", "u", "A_log", "D", "dt_bias", "router"})
 
-def require_dense(cfg: ModelConfig) -> None:
+
+def require_ported(cfg: ModelConfig) -> None:
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family waits for "
-            f"{NOT_PORTED[cfg.family]}; the port serves the dense family")
+            f"{NOT_PORTED[cfg.family]}; the port serves the dense, ssm and "
+            "hybrid families")
+
+
+def leaf_dtypes(params, cfg: ModelConfig, fn):
+    """``fn(leaf, dtype)`` on every leaf of ``params``, with the dtype the
+    JAX init gives a leaf of that name (``FP32_LEAVES`` fp32, the rest
+    ``cfg.dtype``)."""
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, name) for v in tree]
+        return fn(tree, torch.float32 if name in FP32_LEAVES else cfg.dtype)
+    return walk(params, None)
+
+
+def _hybrid(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid" and bool(cfg.attn_every)
+
+
+def _shared_slot(cfg: ModelConfig, idx: int) -> Optional[int]:
+    """The shared block's application index after layer ``idx``, or None
+    where it is not applied."""
+    if _hybrid(cfg) and idx % cfg.attn_every == cfg.attn_every - 1:
+        return idx // cfg.attn_every
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -46,14 +82,19 @@ def require_dense(cfg: ModelConfig) -> None:
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     ones = torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device)
+    if cfg.ssm_type == "rwkv6":
+        return {"ln1": ones, "ln2": ones.clone(),
+                "mix": S.rwkv6_init(gen, cfg)}
+    if cfg.ssm_type == "mamba2":
+        return {"ln1": ones, "mix": S.mamba2_init(gen, cfg)}
     return {"ln1": ones, "attn": B.attn_init(gen, cfg),
             "ln2": ones.clone(), "mlp": B.mlp_init(gen, cfg)}
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Seeded random parameters on ``gen``'s device at the JAX package's
-    scales: embed N(0, 0.02), dense weights N(0, 1/cin), norms 1,
-    biases 0."""
+    scales and dtypes: embed N(0, 0.02), dense weights N(0, 1/cin), norms
+    1, biases 0; the SSM leaves as ``ssm.rwkv6_init`` / ``mamba2_init``."""
     params: Dict[str, Any] = {
         "embed": C.normal(gen, (cfg.vocab_size, cfg.d_model), cfg.dtype,
                           0.02),
@@ -64,6 +105,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = C.dense(gen, cfg.d_model, cfg.vocab_size,
                                     cfg.dtype)
+    if _hybrid(cfg):
+        ones = torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device)
+        params["shared"] = {"ln1": ones, "attn": B.attn_init(gen, cfg),
+                            "ln2": ones.clone(), "mlp": B.mlp_init(gen, cfg)}
     return params
 
 
@@ -79,16 +124,90 @@ def _mlp_residual(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + B.mlp(p["mlp"], _norm(x, p["ln2"], cfg), cfg)
 
 
+def _store_kv(kt: torch.Tensor, vt: torch.Tensor, k_dst: torch.Tensor,
+              v_dst: torch.Tensor, cfg: ModelConfig) -> None:
+    """Write a prefill's roped k/v ``[B, Hkv, S, dh]`` into cache slices.
+    With a sliding window the cache keeps the last ``window`` positions,
+    rolled into the ring-buffer slots that ``decode_step`` continues;
+    later slots stay 0."""
+    s_total = kt.shape[2]
+    w = cfg.sliding_window
+    keep = min(s_total, w or s_total)
+    kk, vv = kt[:, :, -keep:], vt[:, :, -keep:]
+    if w and s_total > w:
+        shift = s_total % w                      # ring-buffer alignment
+        kk = torch.roll(kk, shift, dims=2)
+        vv = torch.roll(vv, shift, dims=2)
+    k_dst[:, :, :keep] = kk
+    v_dst[:, :, :keep] = vv
+
+
+def _attn_block(p, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, kv=None) -> torch.Tensor:
+    """Pre-norm attention and MLP over a full sequence: a dense layer or
+    the hybrid's shared block.  ``kv`` = (k, v) cache slices take the
+    roped k and v."""
+    h, kt, vt = B.attention(p["attn"], _norm(x, p["ln1"], cfg), cfg,
+                            positions)
+    if kv is not None:
+        _store_kv(kt, vt, kv[0], kv[1], cfg)
+    return _mlp_residual(p, x + h, cfg)
+
+
+def _attn_block_decode(p, x: torch.Tensor, cfg: ModelConfig,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+    h = B.attention_decode(p["attn"], _norm(x, p["ln1"], cfg), cfg,
+                           k_cache, v_cache, pos)
+    return _mlp_residual(p, x + h, cfg)
+
+
+def _ssm_layer(p, x: torch.Tensor, cfg: ModelConfig,
+               state: Optional[Dict[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """``x + mixer(norm(x))``; RWKV-6's block holds its own channel mix
+    (its ``ln2`` is unused, as in the JAX model)."""
+    block = S.rwkv6_block if cfg.ssm_type == "rwkv6" else S.mamba2_block
+    h, _ = block(p["mix"], _norm(x, p["ln1"], cfg), cfg, state)
+    return x + h
+
+
+def _layer_state(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s slice of the SSM state cache (views: written in
+    place)."""
+    return {k: v[i] for k, v in cache["ssm"].items()}
+
+
+def _forward(params, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor,
+             cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Every layer (and the shared block after every ``attn_every``-th)
+    over a full sequence; with a cache, each layer's k/v or final SSM
+    state goes into it."""
+    for i, p in enumerate(params["layers"]):
+        if cfg.ssm_type:
+            x = _ssm_layer(p, x, cfg,
+                           None if cache is None else _layer_state(cache, i))
+        else:
+            x = _attn_block(p, x, cfg, positions,
+                            None if cache is None
+                            else (cache["k"][i], cache["v"][i]))
+        app = _shared_slot(cfg, i)
+        if app is not None:
+            x = _attn_block(params["shared"], x, cfg, positions,
+                            None if cache is None
+                            else (cache["shared_k"][app],
+                                  cache["shared_v"][app]))
+    return x
+
+
 def hidden(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Token ids [B, S] -> final hidden states [B, S, d]."""
     x = params["embed"][tokens]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for p in params["layers"]:
-        h, _, _ = B.attention(p["attn"], _norm(x, p["ln1"], cfg), cfg,
-                              positions)
-        x = _mlp_residual(p, x + h, cfg)
-    return _norm(x, params["final_norm"], cfg)
+    return _norm(_forward(params, x, cfg, positions), params["final_norm"],
+                 cfg)
 
 
 def logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -99,11 +218,26 @@ def logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> Dict[str, Any]:
+    L = cfg.n_layers
     s = min(max_len, cfg.sliding_window or max_len)
-    k = torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim),
-                    dtype=cfg.dtype, device=device)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": k, "v": torch.zeros_like(k)}
+    cache: Dict[str, Any] = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.ssm_type:
+        init = (S.rwkv6_state_init if cfg.ssm_type == "rwkv6"
+                else S.mamba2_state_init)
+        cache["ssm"] = {k: torch.zeros((L,) + tuple(v.shape), dtype=v.dtype,
+                                       device=device)
+                        for k, v in init(cfg, batch, "meta").items()}
+    else:
+        k = torch.zeros((L, batch, cfg.n_kv_heads, s, cfg.head_dim),
+                        dtype=cfg.dtype, device=device)
+        cache["k"], cache["v"] = k, torch.zeros_like(k)
+    if _hybrid(cfg):
+        napp = cfg.n_layers // cfg.attn_every
+        k = torch.zeros((napp, batch, cfg.n_kv_heads, s, cfg.head_dim),
+                        dtype=cfg.dtype, device=device)
+        cache["shared_k"], cache["shared_v"] = k, torch.zeros_like(k)
+    return cache
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -111,29 +245,16 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (logits for the last position [B, V], filled cache).
 
-    ``max_len`` sizes the KV cache (>= prompt length) so decode steps
-    have free slots; defaults to the prompt length.  With a sliding
-    window the cache keeps the last ``window`` positions, rolled into the
-    ring-buffer slots that ``decode_step`` continues."""
+    ``max_len`` sizes the KV caches (>= prompt length) so decode steps
+    have free slots; defaults to the prompt length.  The SSM state does
+    not depend on it."""
     x = params["embed"][tokens]
     b, s_total, _ = x.shape
     max_len = max(max_len or s_total, s_total)
     positions = torch.arange(s_total, device=x.device)[None].expand(
         b, s_total)
     cache = init_cache(cfg, b, max_len, x.device)
-    w = cfg.sliding_window
-    keep = min(s_total, w or s_total)
-    for i, p in enumerate(params["layers"]):
-        h, kt, vt = B.attention(p["attn"], _norm(x, p["ln1"], cfg), cfg,
-                                positions)
-        kk, vv = kt[:, :, -keep:], vt[:, :, -keep:]
-        if w and s_total > w:
-            shift = s_total % w                  # ring-buffer alignment
-            kk = torch.roll(kk, shift, dims=2)
-            vv = torch.roll(vv, shift, dims=2)
-        cache["k"][i, :, :, :keep] = kk          # later slots stay 0
-        cache["v"][i, :, :, :keep] = vv
-        x = _mlp_residual(p, x + h, cfg)
+    x = _forward(params, x, cfg, positions, cache)
     cache["pos"].fill_(s_total)
     h = _norm(x[:, -1], params["final_norm"], cfg)
     return logits(params, h, cfg), cache
@@ -145,9 +266,16 @@ def decode_step(params, cache: Dict[str, Any], tokens: torch.Tensor,
     pos = cache["pos"]
     x = params["embed"][tokens][:, None, :]              # [B, 1, d]
     for i, p in enumerate(params["layers"]):
-        h = B.attention_decode(p["attn"], _norm(x, p["ln1"], cfg), cfg,
-                               cache["k"][i], cache["v"][i], pos)
-        x = _mlp_residual(p, x + h, cfg)
+        if cfg.ssm_type:
+            x = _ssm_layer(p, x, cfg, _layer_state(cache, i))
+        else:
+            x = _attn_block_decode(p, x, cfg, cache["k"][i], cache["v"][i],
+                                   pos)
+        app = _shared_slot(cfg, i)
+        if app is not None:
+            x = _attn_block_decode(params["shared"], x, cfg,
+                                   cache["shared_k"][app],
+                                   cache["shared_v"][app], pos)
     cache["pos"] = pos + 1
     h = _norm(x[:, 0], params["final_norm"], cfg)
     return logits(params, h, cfg), cache
@@ -163,15 +291,16 @@ class CausalLM:
     ``params`` (a tree of tensors with per-layer dicts, e.g. from
     :func:`repro_torch.models.bridge.lm_from_numpy`) replaces the seeded
     random initialisation, which draws from a ``torch.Generator`` on the
-    target device.  ``device`` defaults to ``"cuda"`` and raises where
-    CUDA is absent; pass ``device="cpu"`` for the plain path.  Every entry
-    point runs under ``torch.inference_mode()`` and takes token ids as
-    anything ``torch.as_tensor`` reads.
+    target device.  Each leaf is cast to the dtype the JAX init gives it
+    (:func:`leaf_dtypes`).  ``device`` defaults to ``"cuda"`` and raises
+    where CUDA is absent; pass ``device="cpu"`` for the plain path.  Every
+    entry point runs under ``torch.inference_mode()`` and takes token ids
+    as anything ``torch.as_tensor`` reads.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
                  params: Optional[Dict[str, Any]] = None):
-        require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.inference_mode():
@@ -179,8 +308,8 @@ class CausalLM:
                 gen = torch.Generator(device=self.device).manual_seed(
                     int(seed))
                 params = init_params(gen, cfg)
-            self.params = map_params(params, lambda t: t.to(
-                device=self.device, dtype=cfg.dtype).contiguous())
+            self.params = leaf_dtypes(params, cfg, lambda t, dt: t.to(
+                device=self.device, dtype=dt).contiguous())
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)

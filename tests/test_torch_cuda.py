@@ -93,14 +93,16 @@ def test_flash_attention(dev, n, h, sq, skv, d):
 
 # q heads over kv heads of 1, 2, 7; ragged tiles (sq, skv not multiples of
 # 64); sq < skv and sq > skv (first rows with no key give 0); windows; the
-# VAE's d = 512 and d not a multiple of 128
+# VAE's d = 512 and d not a multiple of 128 (zamba2's shared block: 80)
 LM_ATTENTION = [(1, 4, 4, 70, 70, 128, True, None),
                 (2, 14, 2, 129, 129, 128, True, None),
                 (1, 28, 4, 100, 100, 128, True, 33),
                 (1, 6, 2, 17, 200, 64, True, None),
                 (1, 2, 1, 90, 60, 32, True, None),
                 (2, 4, 2, 65, 130, 96, False, 40),
-                (1, 2, 1, 40, 40, 512, True, 16)]
+                (1, 2, 1, 40, 40, 512, True, 16),
+                (2, 32, 32, 130, 130, 80, True, None),
+                (1, 4, 4, 70, 70, 80, True, 20)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -117,12 +119,14 @@ def test_flash_attention_lm_cases(dev, n, hq, hkv, sq, skv, d, causal,
 
 
 # ragged lengths incl. 0, 1 and S; S not a multiple of the 128-row chunk;
-# rep 7, rep 1 and rep 12 (two groups of 8 heads); d 32, 64, 128, 256
+# rep 7, rep 1 and rep 12 (two groups of 8 heads); d 32, 64, 128, 256 and
+# zamba2's 80
 DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
           (2, 7, 1, 1000, 64, (999, 128)),
           (3, 8, 8, 64, 32, (64, 63, 2)),
           (2, 24, 2, 257, 256, (257, 100)),
-          (1, 12, 1, 130, 128, (130,))]
+          (1, 12, 1, 130, 128, (130,)),
+          (4, 32, 32, 200, 80, (200, 129, 64, 1))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -370,3 +374,101 @@ def test_engine_on_cuda_classifies_like_cpu(dev):
         assert (g.hit_class, g.node) == (c.hit_class, c.node)
         d = np.abs(g.payload.astype(np.int16) - c.payload.astype(np.int16))
         assert d.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# rwkv6_scan: t not a multiple of the kernel's 8-token chunk, d from 8 to
+# 128 (and d not a power of two), fp32 and bf16 r/k/v, with and without an
+# initial state
+# ---------------------------------------------------------------------------
+
+RWKV = [(1, 2, 37, 8, False), (2, 3, 20, 16, True), (3, 4, 1, 32, True),
+        (2, 5, 64, 64, True), (1, 2, 29, 128, True), (2, 2, 13, 80, False),
+        (1, 3, 9, 3, True)]
+
+
+def rwkv_inputs(dev, seed, n, h, t, d, dtype, with_state):
+    r, k, v, w, u, s0 = randn(dev, seed, *[(n, h, t, d)] * 4, (h, d),
+                              (n, h, d, d), scale=0.5)
+    w = w * 0.6 - 1.0
+    return ([a.to(dtype) for a in (r, k, v)] + [w, u]
+            + [s0 if with_state else None])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,t,d,with_state", RWKV)
+def test_rwkv6_scan(dev, n, h, t, d, with_state, dtype):
+    """Against the sequential plain version on the same CUDA tensors:
+    fp32 1e-4 of the max (sums over d and t in another order, the state
+    update as one fma); bf16 output 1e-2 (one bf16 rounding of each)."""
+    args = rwkv_inputs(dev, 30 + d, n, h, t, d, dtype, with_state)
+    got, gs = ops.rwkv6_scan(*args)
+    want, ws = ref.rwkv6_scan_ref(*args)
+    assert got.dtype == dtype and gs.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert max_err(got, want) <= tol * float(want.float().abs().max())
+    assert max_err(gs, ws) <= 1e-4 * float(ws.abs().max())
+
+
+def test_rwkv6_scan_state_in_place_and_batch_invariant(dev):
+    """The final state written over the initial one equals a separate
+    one bit for bit; each sequence alone gives the same bits as in the
+    batch."""
+    args = rwkv_inputs(dev, 41, 3, 4, 45, 64, torch.bfloat16, True)
+    out, fresh = ops.rwkv6_scan(*args)
+    state = args[5].clone()
+    out2, same = ops.rwkv6_scan(*args[:5], state, out_state=state)
+    assert same is state
+    assert torch.equal(out2, out) and torch.equal(state, fresh)
+    for i in range(3):
+        one = [a[i:i + 1] for a in args[:4]] + [args[4], args[5][i:i + 1]]
+        o1, s1 = ops.rwkv6_scan(*one)
+        assert torch.equal(o1, out[i:i + 1]) and torch.equal(s1, fresh[i:i + 1])
+
+
+def test_rwkv6_scan_counts_and_refuses(dev):
+    args = rwkv_inputs(dev, 42, 1, 2, 5, 16, torch.float32, True)
+    ops.reset_launch_counts()
+    ops.rwkv6_scan(*args)
+    ref.rwkv6_scan_ref(*args)
+    assert ops.launch_counts()["rwkv6_scan"] == 1
+    assert sum(ops.launch_counts().values()) == 1
+    big = rwkv_inputs(dev, 43, 1, 1, 2, 136, torch.float32, False)
+    with pytest.raises(ValueError):          # head dim above 128
+        ops.rwkv6_scan(*big)
+    with pytest.raises(TypeError):           # w must be fp32
+        ops.rwkv6_scan(*args[:3], args[3].to(torch.bfloat16), *args[4:])
+    with pytest.raises(ValueError):          # a CPU state on a CUDA call
+        ops.rwkv6_scan(*args[:5], args[5].cpu())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_ssm_lm_on_card_matches_cpu(dev, arch):
+    """Small fp32 RWKV-6 and zamba2 models: prefill and decode steps on
+    the card (rwkv6_scan; flash and decode attention in the shared block)
+    against the plain CPU path, logits and state caches."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config, reduced_config
+    from repro_torch.models.lm import CausalLM
+    from repro_torch.vae.model import map_params
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), n_layers=4)
+    gpu = build_model(cfg, device=dev, seed=4)
+    cpu = CausalLM(cfg, device="cpu",
+                   params=map_params(gpu.params, lambda t: t.cpu()))
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 40))
+    ops.reset_launch_counts()
+    gl, gc = gpu.prefill(toks[:, :37], max_len=48)
+    cl, cc = cpu.prefill(toks[:, :37], max_len=48)
+    counts = ops.launch_counts()
+    if arch == "rwkv6-7b":
+        assert counts["rwkv6_scan"] == cfg.n_layers
+    else:
+        assert counts["flash_attention"] == cfg.n_layers // cfg.attn_every
+    for t in range(37, 40):
+        assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
+        gl, gc = gpu.decode_step(gc, toks[:, t])
+        cl, cc = cpu.decode_step(cc, toks[:, t])
+    assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
+    for key, want in cc["ssm"].items():
+        got = gc["ssm"][key].cpu()
+        assert max_err(got, want) <= 1e-4 * max(1.0, float(want.abs().max()))

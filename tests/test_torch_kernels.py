@@ -235,6 +235,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
                                                        groups=2),
         "decode_attention": lambda: ops.decode_attention(
             q[:, 0, :2], q[:, :, :3], q[:, :, :3], torch.tensor([3])),
+        "rwkv6_scan": lambda: ops.rwkv6_scan(q, q, q, q, q[0, :, 0]),
     }
     calls[name]()
     assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
@@ -247,3 +248,6 @@ def test_other_devices_are_refused():
     w = torch.zeros((3, 3, 8, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.conv3x3(x, w)
+    r = x.reshape(1, 4, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rwkv6_scan(r, r, r, r, torch.zeros((4, 8), device="meta"))

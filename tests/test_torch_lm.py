@@ -156,7 +156,14 @@ def test_qwen2_7b_full_width_parameter_count():
 @pytest.mark.parametrize("arch", [a for a in RC.ARCH_IDS
                                   if RC.get_config(a).family != "dense"])
 def test_other_families_wait_for_their_slice(arch):
+    """The ssm and hybrid families build (``tests/test_torch_ssm.py``
+    holds them to the JAX package); the others raise, naming their
+    ROADMAP item."""
     cfg = TC.reduced_config(TC.get_config(arch))
+    if cfg.family in ("ssm", "hybrid"):
+        model = TC.build_model(cfg, device="cpu")
+        assert model.n_params > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A 1"):
         TC.build_model(cfg, device="cpu")
 
