@@ -23,7 +23,10 @@ wall seconds (any failure exits non-zero):
                 ms (CUDA events; for the LM shapes the kernels' device
                 time under ``torch.profiler``), the plain version's ms, a
                 library call's ms where one exists, FLOPs, bytes and the
-                bound; then the totals of each pass, and the plain
+                bound (at the peak of what the kernel runs on: for fp32
+                work in 3xTF32, three TF32 products per fp32 one at the
+                TF32 peak), and what the kernel runs on (``design``); then
+                the totals of each pass, and the plain
                 ``downsample``'s ms per encode;
 3. invariance   a bucket-8 decode bit-identical to eight batch-1 decodes;
 4. slice        the read path: ``LatentBox.engine(device="cuda")`` at
@@ -117,7 +120,7 @@ FP32_CONSISTENCY_TOL = 1e-3
 KERNELS = {
     "conv3x3": ("src/repro_torch/kernels/csrc/conv3x3.cu",
                 "src/repro/kernels/conv3x3.py:76"),
-    "gn_silu_conv3x3": ("src/repro_torch/kernels/csrc/conv3x3.cu",
+    "gn_silu_conv3x3": ("src/repro_torch/kernels/csrc/gn_silu_conv.cu",
                         "src/repro/kernels/gn_silu_conv.py:84"),
     "upsample_conv3x3": ("src/repro_torch/kernels/csrc/upsample_conv.cu",
                          "src/repro/kernels/upsample_conv.py:102"),
@@ -132,6 +135,20 @@ KERNELS = {
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:55"),
 }
+#: kernel -> what its CUDA source runs on
+DESIGN = {
+    "conv3x3": "CUDA-core fp32 implicit GEMM",
+    "gn_silu_conv3x3": "3xTF32 mma.sync implicit GEMM",
+    "upsample_conv3x3": "CUDA-core fp32 implicit GEMM",
+    "output_epilogue": "CUDA-core fp32 implicit GEMM",
+    "flash_attention": "wgmma bf16, 3xTF32 mma.sync fp32",
+    "group_norm_silu": "CUDA-core fp32",
+    "decode_attention": "CUDA-core split over the cache",
+    "rwkv6_scan": "CUDA-core fp32 scan",
+}
+#: kernels whose fp32 work runs in 3xTF32 on the tensor cores: their
+#: bound counts three TF32 products per fp32 one at the TF32 peak
+TENSOR_CORE = ("gn_silu_conv3x3", "flash_attention")
 #: kernels no single PyTorch call computes (``library_ms`` null)
 NO_LIBRARY = {"rwkv6_scan": "no single PyTorch call computes the RWKV-6 "
                             "recurrence"}
@@ -162,16 +179,29 @@ def nvidia_smi(query: str) -> str:
 
 def card_peaks(name: str):
     """(fp32 FLOP/s outside the tensor cores, HBM bytes/s, description,
-    dense bf16 tensor-core FLOP/s) of the part, from NVIDIA's data sheets,
-    read off the device name."""
+    dense bf16 tensor-core FLOP/s, dense TF32 tensor-core FLOP/s) of the
+    part, from NVIDIA's data sheets, read off the device name."""
     if "PCIe" in name:
         return (51e12, 2.0e12, "H100 PCIe: 51 TFLOP/s fp32, 756 TFLOP/s "
-                "bf16 dense tensor, 2.0 TB/s", 756e12)
+                "bf16 and 378 TF32 dense tensor, 2.0 TB/s", 756e12, 378e12)
     if "NVL" in name:
         return (60e12, 3.9e12, "H100 NVL: 60 TFLOP/s fp32, 835 TFLOP/s bf16 "
-                "dense tensor, 3.9 TB/s", 835e12)
+                "and 417 TF32 dense tensor, 3.9 TB/s", 835e12, 417e12)
     return (67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 989 TFLOP/s bf16 "
-            "dense tensor, 3.35 TB/s", 989e12)
+            "and 495 TF32 dense tensor, 3.35 TB/s", 989e12, 495e12)
+
+
+def ops_ms(state, kernel, flops, dtype="float32"):
+    """The least time (ms) of ``flops`` on what ``kernel`` runs them on:
+    bf16 at the bf16 tensor-core peak; fp32 at the TF32 peak, three
+    products per fp32 one, for a kernel in ``TENSOR_CORE``, else at the
+    fp32 peak of the CUDA cores."""
+    fp32_peak, _, _, bf16_peak, tf32_peak = state["peaks"]
+    if dtype == "bfloat16":
+        return flops / bf16_peak * 1e3
+    if kernel in TENSOR_CORE:
+        return 3.0 * flops / tf32_peak * 1e3
+    return flops / fp32_peak * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +416,7 @@ def phase_kernels(torch, log, state):
     checks.setdefault(("flash_attention", (16384, top)),
                       dict.fromkeys(VAE_PASSES, 0))
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    flop_peak, byte_peak = state["peaks"][:2]
+    byte_peak = state["peaks"][1]
     totals = {p: {k: dict.fromkeys(TOTAL_FIELDS, 0.0) for k in KERNELS}
               for p in PASSES}
     max_err = dict.fromkeys(KERNELS, 0.0)
@@ -422,8 +452,9 @@ def phase_kernels(torch, log, state):
             extra["stats_pass_ms"] = cuda_ms(
                 torch, lambda: gn_stats(a[0], groups, 1e-6), REPS)
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                   ops_ms=flops / flop_peak * 1e3, bytes=nbytes)
-        emit(log, "kernel", name=kernel, shape=list(args), calls=per_pass,
+                   ops_ms=ops_ms(state, kernel, flops), bytes=nbytes)
+        emit(log, "kernel", name=kernel, design=DESIGN[kernel],
+             shape=list(args), calls=per_pass,
              max_abs_err=err, tol=tol, tol_reason=why, **row,
              bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
              tflops=flops / ms / 1e9, **extra)
@@ -456,7 +487,7 @@ def phase_kernels(torch, log, state):
 
 
 #: what each pass's per-kernel totals sum (``ops_ms``: FLOPs over the peak
-#: of their type, so bf16 and fp32 work add up)
+#: of what runs them, so bf16 and fp32 work add up)
 TOTAL_FIELDS = ("ms", "plain_ms", "library_ms", "flops", "ops_ms", "bytes",
                 "calls")
 
@@ -576,7 +607,7 @@ def lm_attention_checks(torch, log, state, totals, max_err):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    flop_peak, byte_peak, _, bf16_peak = state["peaks"]
+    byte_peak = state["peaks"][1]
     gen = torch.Generator(device="cuda").manual_seed(2024)
     for arch, kernel, shape, dt, per_pass in lm_attention_cases(get_config):
         dtype = getattr(torch, dt)
@@ -633,10 +664,10 @@ def lm_attention_checks(torch, log, state, totals, max_err):
                 times[key] = event[key] = None
                 event["library_note"] = str(exc).splitlines()[0][:200]
         flops, nbytes = attention_work(kernel, shape, q.element_size())
-        peak = bf16_peak if dtype == torch.bfloat16 else flop_peak
-        row = dict(times, flops=flops, ops_ms=flops / peak * 1e3,
+        row = dict(times, flops=flops, ops_ms=ops_ms(state, kernel, flops, dt),
                    bytes=nbytes)
-        emit(log, "kernel", name=kernel, arch=arch, dtype=dt, shape=shape,
+        emit(log, "kernel", name=kernel, design=DESIGN[kernel], arch=arch,
+             dtype=dt, shape=shape,
              calls=per_pass, max_abs_err=err, tol=tol,
              tol_reason=(f"{rel:g} relative to the output's max: fp32 "
                          "softmax and sums in another order"
@@ -644,7 +675,8 @@ def lm_attention_checks(torch, log, state, totals, max_err):
              **row, timing="device time (torch.profiler), per call",
              event_times=event,
              bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
-             peak_tflops=peak / 1e12, tflops=flops / row["ms"] / 1e9)
+             peak_tflops=flops / row["ops_ms"] / 1e9,
+             tflops=flops / row["ms"] / 1e9)
         row["library_ms"] = row["library_ms"] or 0.0
         max_err[kernel] = max(max_err[kernel], err)
         add_to_totals(totals, kernel, per_pass, row)
@@ -680,7 +712,7 @@ def rwkv6_checks(torch, log, state, totals, max_err):
     cfg = get_config(SSM_ARCH)
     d = cfg.ssm_head_dim
     h = cfg.d_model // d
-    flop_peak, byte_peak = state["peaks"][:2]
+    byte_peak = state["peaks"][1]
     gen = torch.Generator(device="cuda").manual_seed(2025)
     base = dict(n=LM_BATCH, h=h, d=d)
     cases = [(dict(base, t=LM_PROMPT, state="zeros"),
@@ -732,9 +764,11 @@ def rwkv6_checks(torch, log, state, totals, max_err):
             r, k, v, w, u, s0), 3 if t > 1 else REPS)
         flops, nbytes = rwkv6_work(shape, r.element_size())
         row = dict(ms=ms or event_ms, plain_ms=plain_ms, library_ms=0.0,
-                   flops=flops, ops_ms=flops / flop_peak * 1e3, bytes=nbytes)
+                   flops=flops, ops_ms=ops_ms(state, "rwkv6_scan", flops),
+                   bytes=nbytes)
         bound = with_bound(dict(row), byte_peak)
-        emit(log, "kernel", name="rwkv6_scan", arch=SSM_ARCH,
+        emit(log, "kernel", name="rwkv6_scan", design=DESIGN["rwkv6_scan"],
+             arch=SSM_ARCH,
              dtype="bfloat16 r/k/v, fp32 w/u/state", shape=shape,
              calls=per_pass, max_abs_err=err, tol=tol,
              tol_reason="1e-2 of the output's max: one bf16 rounding of "
@@ -1315,7 +1349,8 @@ def main() -> int:
              "bound_ms": totals[k]["bound_ms"],
              "bound_by": totals[k]["bound_by"],
              "library_ms": (None if k in NO_LIBRARY
-                            else totals[k]["library_ms"])}
+                            else totals[k]["library_ms"]),
+             "design": DESIGN[k]}
             for k, (src, rep) in KERNELS.items()]})
         print(line, flush=True)
         log.write(line + "\n")

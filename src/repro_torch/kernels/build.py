@@ -24,8 +24,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gn_stats", "conv3x3", "upsample_conv", "flash_attention",
-           "gn_silu", "decode_attention", "rwkv6_scan")
+SOURCES = ("gn_stats", "conv3x3", "gn_silu_conv", "upsample_conv",
+           "flash_attention", "gn_silu", "decode_attention", "rwkv6_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +42,8 @@ SIGNATURES = {
     "gn_stats": ("gn_stats_launch", [P, P, P, I, I, I, I, I, F, P]),
     "conv3x3": ("conv3x3_launch", [P, P, P, P, P, P, P,
                                    I, I, I, I, I, I, I, I, P]),
+    "gn_silu_conv": ("gn_silu_conv3x3_launch", [P, P, P, P, P, P, P,
+                                                 I, I, I, I, I, I, P]),
     "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P,
                                                    I, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,

@@ -1,12 +1,13 @@
 // 3x3 SAME convolution with an optional GroupNorm + SiLU prologue and an
-// fp32 or uint8 epilogue: one kernel template for three TPU kernels.
+// fp32 or uint8 epilogue, on the CUDA cores: one kernel template for two TPU
+// kernels.
 //
 // Replaces, from src/repro/kernels/:
 //   conv3x3.py::conv3x3 (_conv_kernel)                     PRO none, EPI f32
-//   gn_silu_conv.py::gn_silu_conv3x3 (_fused_kernel)        PRO gn+silu, EPI f32
 //   output_epilogue.py::output_epilogue (_epilogue_kernel)  PRO gn+silu, EPI u8
-// The GroupNorm statistics pass those two fused kernels share runs first,
-// in gn_stats.cu.
+// The GroupNorm statistics pass of the fused kernel runs first, in
+// gn_stats.cu.  gn_silu_conv.py::gn_silu_conv3x3 has a tensor-core kernel of
+// its own, gn_silu_conv.cu.
 //
 // Bound on the H100: operations.  At the decoder's widths (Cin, Cout of
 // 128-512) a 3x3 conv does 9*Cin FMAs per output element against a few
@@ -18,7 +19,8 @@
 // staged once per 8-channel chunk in shared memory, and each halo row
 // reused by the three taps of a filter row.  The normalised activation
 // exists only in shared memory; the uint8 epilogue writes a quarter of the
-// fp32 bytes.  wgmma and TMA are left for later work.
+// fp32 bytes.  The 3xTF32 tile of gn_silu_conv.cu is the way to the tensor
+// cores for these two as well.
 
 #include "conv_tile.cuh"
 
@@ -29,7 +31,6 @@ extern "C" int conv3x3_launch(const float* x, const float* stats,
                               int pro, int epi, cudaStream_t stream) {
   rt::ConvArgs a{x, stats, gamma, beta, w, b, out, N, H, W, Cin, Cout, G};
   if (pro == 0 && epi == 0) return rt::launch_conv<0, 0, 0>(a, stream);
-  if (pro == 1 && epi == 0) return rt::launch_conv<1, 0, 0>(a, stream);
   if (pro == 1 && epi == 1) return rt::launch_conv<1, 1, 0>(a, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // The direct 3x3 convolution tile shared by conv3x3.cu and
-// upsample_conv.cu: NHWC fp32 activations, HWIO fp32 weights, fp32
-// accumulation on the CUDA cores.
+// upsample_conv.cu (and gn_silu_conv.cu for Cout <= 4): NHWC fp32
+// activations, HWIO fp32 weights, fp32 accumulation on the CUDA cores.
 //
 // One block computes an output tile of TH x TW pixels of ONE image by BN
 // output channels.  For every chunk of BK input channels it stages the

@@ -1,0 +1,226 @@
+// Tensor-core building blocks for Hopper (sm_90a), shared by the attention
+// and convolution kernels: the warpgroup products (wgmma) that read a bf16
+// A operand from registers and B from shared memory through a matrix
+// descriptor, the warp-level TF32 product (mma.sync.m16n8k8) with the
+// hi/lo split of 3xTF32, and the cp.async copies that stage tiles in
+// shared memory.
+//
+// Shared-memory operands of wgmma use the layout without swizzle: the unit
+// is an 8 x 8 "core matrix" of bf16 stored as 128 contiguous bytes, eight
+// rows of 16 bytes.  For a K-major operand (rows along M or N, K
+// contiguous) a row of the core matrix is 8 consecutive K values; for an
+// MN-major operand (the transposed B, as V is in P V) it is 8 consecutive
+// N values of one K.  The descriptor gives the byte strides between core
+// matrices along K (the leading-dimension offset) and along M/N (the
+// stride-dimension offset); see make_desc().
+//
+// 3xTF32: an fp32 value x is carried as hi = tf32(x) and lo = tf32(x - hi)
+// (both rounded to nearest, ties away from zero, as cvt.rna does); a
+// product is lo*hi' + hi*lo' + hi*hi' with fp32 accumulation, which keeps
+// about 22 bits of each product where one TF32 product keeps about 11.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tc {
+
+// SMs of the current device (read once per process: a launcher chooses its
+// tile by how many blocks the card runs at once); 0 if it cannot be read
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: global -> shared copies that bypass registers; src_bytes 0 fills
+// the destination with zeros (a tile's ragged edge)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes to shared memory (st.shared, cp.async) become
+// visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TF32 on mma.sync
+// ---------------------------------------------------------------------------
+
+// fp32 -> tf32, rounded to nearest with ties away from zero.  cvt.rna
+// leaves the 13 low bits zero (checked on the H100), so its result is the
+// operand as the MMA reads it and x - hi is exact.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split_tf32(float x) {
+  const uint32_t hi = tf32(x);
+  return {hi, tf32(x - __uint_as_float(hi))};
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8]; a: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); b: b0 (k t, n g), b1 (k t+4, n g); c: c0 (g, 2t), c1 (g,
+// 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1), with g = lane / 4 and t = lane % 4
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[16 x 8] = a[16 x 8] b[8 x 8], a fresh fragment (C = 0)
+__device__ __forceinline__ void mma_tf32_zero(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// c += a b in 3xTF32 within the tensor core's accumulator: the two small
+// cross terms, then hi * hi.  Only for a short chain of steps into a fresh
+// fragment, which is then added to the sum on the CUDA cores (see below).
+__device__ __forceinline__ void mma_3xtf32_chain(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                                 const uint32_t* bhi, const uint32_t* blo) {
+  mma_tf32(c, alo, bhi);
+  mma_tf32(c, ahi, blo);
+  mma_tf32(c, ahi, bhi);
+}
+
+// c += a b in 3xTF32: the two small cross terms, then hi * hi, summed in a
+// fresh fragment that is then added to c on the CUDA cores.  The tensor
+// core does not round to nearest when it adds into its accumulator: chained
+// there over the thousands of steps of a wide conv, the sum drifts all one
+// way, by up to an ulp of c per step, far enough to fail the 1e-4 fp32
+// tolerance (the Cin = 520 conv case of tests/test_torch_cuda.py); a
+// round-to-nearest add after each short chain does not drift.
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                           const uint32_t* bhi, const uint32_t* blo) {
+  float d[4];
+  mma_tf32_zero(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (bf16 in, fp32 accumulators); D fragments: warp w of the warpgroup
+// owns rows 16w..16w+15, and for each 8-column chunk j the thread holds
+// d[4j..4j+3] at (g, 8j+2t), (g, 8j+2t+1), (g+8, 8j+2t), (g+8, 8j+2t+1)
+// ---------------------------------------------------------------------------
+
+// matrix descriptor of a no-swizzle operand at p: lbo = byte stride between
+// core matrices along K, sbo = along M/N
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFFu) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the m16n8k16
+// A fragment of each warp's 16 rows), B from shared memory, MN-major if TB
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16], A from registers (the m16n8k16
+// A fragment of each warp's 16 rows), B from shared memory, MN-major if TB
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+}  // namespace tc

@@ -2,8 +2,10 @@
 ``kernels/flash_attention.py``): the VAE mid-block's single head and the
 LM prefill's causal, sliding-window, grouped-query attention.
 
-On CUDA: ``csrc/flash_attention.cu``, fp32 or bf16 inputs, fp32 softmax
-and accumulation, output in ``q.dtype``.  On the CPU: the plain version,
+On CUDA: ``csrc/flash_attention.cu`` on the tensor cores (bf16 up to
+head dim 128 on ``wgmma`` with P rounded to bf16 before P V; fp32, and
+bf16 above 128, in 3xTF32 on ``mma.sync``), fp32 softmax and
+accumulation, output in ``q.dtype``.  On the CPU: the plain version,
 ``ref.flash_attention_ref``.
 """
 

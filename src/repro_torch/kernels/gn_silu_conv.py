@@ -2,9 +2,10 @@
 (counterpart of the JAX package's ``kernels/gn_silu_conv.py``).
 
 On CUDA: ``csrc/gn_stats.cu`` computes the per-(n, group) statistics,
-then ``csrc/conv3x3.cu`` normalises, activates and convolves the input
-halo in shared memory (the normalised activation never reaches device
-memory).  On the CPU: the plain version, ``ref.gn_silu_conv3x3_ref``.
+then ``csrc/gn_silu_conv.cu`` normalises, activates and convolves the
+input halo in shared memory (the normalised activation never reaches
+device memory), an implicit GEMM in 3xTF32 on the tensor cores.  On the
+CPU: the plain version, ``ref.gn_silu_conv3x3_ref``.
 """
 
 from __future__ import annotations
@@ -67,9 +68,9 @@ def gn_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     cout = w.shape[-1]
     stats = gn_stats(x, groups, eps)
     out = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
-    build.check(build.lib("conv3x3").conv3x3_launch(
+    build.check(build.lib("gn_silu_conv").gn_silu_conv3x3_launch(
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-        groups, 1, 0, build.stream_of(x)), "gn_silu_conv3x3")
+        groups, build.stream_of(x)), "gn_silu_conv3x3")
     launches += 1
     return out

@@ -51,7 +51,15 @@ def test_conv3x3(dev, n, h, w, cin, cout, groups):
     assert max_err(ops.conv3x3(x, wt, b), ref.conv3x3_ref(x, wt, b)) <= 2e-5
 
 
-@pytest.mark.parametrize("n,h,w,cin,cout,groups", CONV_SHAPES)
+# the tensor-core tile's edges: Cin not a multiple of its 16-channel chunk,
+# Cout not a multiple of its 128-channel tile, H and W not multiples of its
+# 4 x 32 pixels; grids up to one block per SM run 16-warp blocks, the last
+# case (324 blocks) 8-warp ones
+TC_CONV_SHAPES = [(1, 13, 37, 520, 264, 8), (2, 6, 45, 128, 132, 32),
+                  (2, 70, 90, 24, 264, 4)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", CONV_SHAPES + TC_CONV_SHAPES)
 def test_gn_silu_conv3x3(dev, n, h, w, cin, cout, groups):
     x, s, gb, wt, b = randn(dev, 2, (n, h, w, cin), (cin,), (cin,),
                             (3, 3, cin, cout), (cout,))
@@ -102,7 +110,15 @@ LM_ATTENTION = [(1, 4, 4, 70, 70, 128, True, None),
                 (2, 4, 2, 65, 130, 96, False, 40),
                 (1, 2, 1, 40, 40, 512, True, 16),
                 (2, 32, 32, 130, 130, 80, True, None),
-                (1, 4, 4, 70, 70, 80, True, 20)]
+                (1, 4, 4, 70, 70, 80, True, 20),
+                # the tensor-core tiles' edges: d = 8, 80, 132, 512; rep 7, 2
+                # and 1; sq, skv not multiples of 64 or 128; windows
+                (1, 7, 1, 100, 100, 8, True, None),
+                (2, 14, 2, 200, 200, 80, True, 64),
+                (1, 2, 1, 150, 150, 132, True, 50),
+                (1, 4, 4, 130, 257, 132, True, None),
+                (1, 1, 1, 70, 300, 512, False, None),
+                (1, 2, 2, 190, 190, 512, True, 100)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
