@@ -27,7 +27,11 @@ wall seconds (any failure exits non-zero):
                 work in 3xTF32, three TF32 products per fp32 one at the
                 TF32 peak), and what the kernel runs on (``design``); then
                 the totals of each pass, and the plain
-                ``downsample``'s ms per encode;
+                ``downsample``'s ms per encode.  The four conv kernels'
+                bf16 and int8 weight cases at every decode shape, each
+                against its plain version at the fp32 tolerance, with
+                its ms beside the fp32 case's, and their totals over one
+                uint8 decode per weight dtype;
 3. invariance   a bucket-8 decode bit-identical to eight batch-1 decodes;
 4. slice        the read path: ``LatentBox.engine(device="cuda")`` at
                 SD3.5-VAE width serving seeded Zipf requests of latent
@@ -39,15 +43,26 @@ wall seconds (any failure exits non-zero):
                 puts, their pixels equal to a direct decode, each kernel's
                 launches (all > 0), encode device ms, median regen ms, and
                 one read through a float32-pixel box against ``decode``;
-6. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
+6. quant        the quantized read path: engines opened with
+                ``weight_dtype="bfloat16"`` on the calibrated decoder and
+                ``"int8"`` on a grid-snapped copy, each gate at most 1 LSB
+                and equal to ``gate_max_lsb`` outside the engine, serving
+                a seeded Zipf trace of latent puts in windows: every
+                served image within +-1 LSB of the fp32-weight decode,
+                bucket 8 bit-identical to batch 1, each kernel's launches
+                (all > 0), device ms per image per bucket beside fp32
+                weights, ``decoder_storage``; then a raw int8 engine on
+                the unsnapped decoder, accepted or refused as its gate
+                says;
+7. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
                 relative tolerance; and small fp32 qwen2-, RWKV-6- and
                 zamba2-family LMs' prefill and decode steps, logits and
                 caches within a relative tolerance;
-7. lm           the dense LM serving path: ``build_model`` of Qwen2-7B at
-8. ssm          full width and depth in bf16 (seeded random weights), then
-9. hybrid       rwkv6-7b, then zamba2-2.7b, each freed before the next is
+8. lm           the dense LM serving path: ``build_model`` of Qwen2-7B at
+9. ssm          full width and depth in bf16 (seeded random weights), then
+10. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
                 built: a prefill of 4 x 2048 seeded tokens, 64 greedy
                 ``decode_step``s: parameters, peak memory, prefill and
                 decode-step ms and tokens/s, each kernel's launches
@@ -60,7 +75,7 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
+write, quant, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
 ``chip_smoke.jsonl`` in ``OUT_DIR`` (the repository's output directory).
@@ -89,6 +104,10 @@ WRITE_RECIPES = 24        # objects put by recipe (oids 0-23)
 WRITE_IMAGES = 8          # objects put as uint8 pixels (oids 24-31)
 WRITE_DEMOTED = tuple(range(0, 16, 2))    # recipe objects left recipe-only
 WRITE_REQUESTS = 96
+QUANT_OBJECTS = 16        # latent puts of the quant phase
+QUANT_REQUESTS = 64
+QUANT_BUCKETS = (1, 2, 4, 8)
+GATE_LATENT = (8, 8, 16)  # the engine's gate probes 8x8 latents
 LM_ARCH = "qwen2-7b"
 SSM_ARCH = "rwkv6-7b"
 HYBRID_ARCH = "zamba2-2.7b"
@@ -149,6 +168,10 @@ DESIGN = {
 #: kernels whose fp32 work runs in 3xTF32 on the tensor cores: their
 #: bound counts three TF32 products per fp32 one at the TF32 peak
 TENSOR_CORE = ("gn_silu_conv3x3", "flash_attention")
+#: the conv kernels that take quantized weights, and the storage dtypes
+QUANT_KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
+                 "output_epilogue")
+WEIGHT_DTYPES = ("float32", "bfloat16", "int8")
 #: kernels no single PyTorch call computes (``library_ms`` null)
 NO_LIBRARY = {"rwkv6_scan": "no single PyTorch call computes the RWKV-6 "
                             "recurrence"}
@@ -355,6 +378,69 @@ def kernel_inputs(torch, kernel, args, gen):
     return [x, gamma, beta, wt, b]
 
 
+def kernel_error(kernel, got, want):
+    """(max error, tolerance, why) of a kernel's output against its plain
+    version's on the same inputs."""
+    if kernel == "output_epilogue":
+        return (float((got.int() - want.int()).abs().max()), 1.0,
+                "uint8 +-1 LSB: only the fp32 sum order differs, which can "
+                "move a value across a rounding edge")
+    err = float((got - want).abs().max())
+    return (err, 1e-4 * max(1.0, float(want.abs().max())),
+            "fp32 with another summation order (up to 9*Cin or d terms, or "
+            "a group's statistics): 1e-4 relative to the output's max")
+
+
+def collapse_ms(torch, w):
+    """ms of the upsampler wrapper's per-call phase collapse of a stored
+    filter alone (tensor additions on the card, part of its ``ms``)."""
+    from repro_torch.kernels import ref
+    return cuda_ms(torch, lambda: ref.storage_phase_weights(w), REPS)
+
+
+def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
+                     wrappers, plains, quant_totals):
+    """The bf16 and int8 weight cases of a decode-path conv kernel at one
+    decode shape: each against its plain version on the same inputs at
+    the fp32 tolerance (bf16 and int8 weights are exact in fp32, so only
+    the sum order differs), with its ms beside the fp32 case's.  Returns
+    the largest error."""
+    from repro_torch.kernels import ops
+    from repro_torch.vae.quantize import quantize_int8
+    worst = 0.0
+    quant_totals["float32"][kernel]["ms"] += calls * fp32_ms
+    quant_totals["float32"][kernel]["calls"] += calls
+    wt = a[-2]
+    for wd in WEIGHT_DTYPES[1:]:
+        wq = wt.bfloat16() if wd == "bfloat16" else quantize_int8(wt)
+        w_store, w_scale = ops.weight_parts(wq)
+        qa = list(a[:-2]) + [wq, a[-1]]
+        pa = list(a[:-2]) + [w_store, a[-1]]
+        got = wrappers[kernel](qa)
+        want = plains[kernel](pa, w_scale)
+        torch.cuda.synchronize()
+        need(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+             f"{kernel}{args} {wd}: shape or dtype differs")
+        need(bool(torch.isfinite(got.float()).all()),
+             f"{kernel}{args} {wd}: non-finite output")
+        err, tol, why = kernel_error(kernel, got, want)
+        need(err <= tol, f"{kernel}{args} {wd}: max error {err} > {tol}")
+        ms = cuda_ms(torch, lambda: wrappers[kernel](qa), REPS)
+        plain_ms = cuda_ms(torch, lambda: plains[kernel](pa, w_scale), REPS)
+        extra = ({"phase_collapse_ms": collapse_ms(torch, w_store)}
+                 if kernel == "upsample_conv3x3" else {})
+        emit(log, "kernel_quant", name=kernel, weight_dtype=wd,
+             shape=list(args), calls_per_decode=calls, max_abs_err=err,
+             tol=tol, tol_reason=why, ms=ms, plain_ms=plain_ms,
+             fp32_ms=fp32_ms, weight_bytes=int(wq.nbytes),
+             fp32_weight_bytes=int(wt.nbytes), **extra)
+        quant_totals[wd][kernel]["ms"] += calls * ms
+        quant_totals[wd][kernel]["calls"] += calls
+        worst = max(worst, err)
+        del wq, w_store, w_scale, qa, pa, got, want
+    return worst
+
+
 def phase_kernels(torch, log, state):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -372,10 +458,13 @@ def phase_kernels(torch, log, state):
         "group_norm_silu": lambda a: ops.group_norm_silu(*a, groups=groups),
     }
     plains = {
-        "conv3x3": lambda a: ref.conv3x3_ref(*a),
-        "gn_silu_conv3x3": lambda a: ref.gn_silu_conv3x3_ref(*a, groups),
-        "upsample_conv3x3": lambda a: ref.upsample_conv3x3_ref(*a),
-        "output_epilogue": lambda a: ref.output_epilogue_ref(*a, groups),
+        "conv3x3": lambda a, s=None: ref.conv3x3_ref(*a, w_scale=s),
+        "gn_silu_conv3x3": lambda a, s=None: ref.gn_silu_conv3x3_ref(
+            *a, groups, w_scale=s),
+        "upsample_conv3x3": lambda a, s=None: ref.upsample_conv3x3_ref(
+            *a, w_scale=s),
+        "output_epilogue": lambda a, s=None: ref.output_epilogue_ref(
+            *a, groups, w_scale=s),
         "flash_attention": lambda a: ref.flash_attention_ref(*a),
         "group_norm_silu": lambda a: ref.group_norm_silu_ref(*a, groups),
     }
@@ -420,6 +509,9 @@ def phase_kernels(torch, log, state):
     totals = {p: {k: dict.fromkeys(TOTAL_FIELDS, 0.0) for k in KERNELS}
               for p in PASSES}
     max_err = dict.fromkeys(KERNELS, 0.0)
+    # weight dtype -> kernel -> ms and calls over one uint8 decode
+    quant_totals = {wd: {k: {"ms": 0.0, "calls": 0} for k in QUANT_KERNELS}
+                    for wd in WEIGHT_DTYPES}
     for (kernel, args), per_pass in checks.items():
         a = kernel_inputs(torch, kernel, args, gen)
         got = wrappers[kernel](a)
@@ -430,17 +522,7 @@ def phase_kernels(torch, log, state):
              f"plain {tuple(want.shape)} {want.dtype}")
         need(bool(torch.isfinite(got.float()).all()), f"{kernel}{args}: "
              "non-finite output")
-        if kernel == "output_epilogue":
-            err = float((got.int() - want.int()).abs().max())
-            tol, why = 1.0, ("uint8 +-1 LSB: only the fp32 sum order differs, "
-                             "which can move a value across a rounding edge")
-        else:
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            tol = 1e-4 * max(1.0, scale)
-            why = ("fp32 with another summation order (up to 9*Cin or d "
-                   "terms, or a group's statistics): 1e-4 relative to the "
-                   "output's max")
+        err, tol, why = kernel_error(kernel, got, want)
         need(err <= tol, f"{kernel}{args}: max error {err} > {tol}")
         ms = cuda_ms(torch, lambda: wrappers[kernel](a), REPS)
         plain_ms = cuda_ms(torch, lambda: plains[kernel](a), REPS)
@@ -451,6 +533,8 @@ def phase_kernels(torch, log, state):
             # its first pass alone: how the time splits between the two
             extra["stats_pass_ms"] = cuda_ms(
                 torch, lambda: gn_stats(a[0], groups, 1e-6), REPS)
+        if kernel == "upsample_conv3x3":
+            extra["phase_collapse_ms"] = collapse_ms(torch, a[1])
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
                    ops_ms=ops_ms(state, kernel, flops), bytes=nbytes)
         emit(log, "kernel", name=kernel, design=DESIGN[kernel],
@@ -460,8 +544,17 @@ def phase_kernels(torch, log, state):
              tflops=flops / ms / 1e9, **extra)
         max_err[kernel] = max(max_err[kernel], err)
         add_to_totals(totals, kernel, per_pass, row)
+        if kernel in QUANT_KERNELS and per_pass["decode"]:
+            qerr = quantized_checks(torch, log, state, kernel, args, a, ms,
+                                    per_pass["decode"], wrappers, plains,
+                                    quant_totals)
+            max_err[kernel] = max(max_err[kernel], qerr)
         del a, got, want
         torch.cuda.empty_cache()
+    emit(log, "kernels_quant_per_decode", image=[image_hw] * 2,
+         totals=quant_totals,
+         total_ms={wd: sum(t["ms"] for t in quant_totals[wd].values())
+                   for wd in quant_totals})
     lm_attention_checks(torch, log, state, totals, max_err)
     rwkv6_checks(torch, log, state, totals, max_err)
     for per_kernel in totals.values():
@@ -1000,6 +1093,150 @@ def phase_write(torch, log, state):
          float32_get_bit_identical=ferr == 0.0, launches=launches)
 
 
+def phase_quant(torch, log, state):
+    """The quantized read path at SD3.5-VAE width.  Engines opened with
+    bf16 weights on the calibrated decoder, int8 on a grid-snapped copy
+    and int8 on the calibrated (raw) one: each opens if and only if its
+    gate (computed again outside the engine) is at most 1 LSB at every
+    bucket.  The bf16 and snapped-int8 configurations then serve a seeded
+    Zipf trace of latent puts: through the engine where it opened, else
+    window by window through ``VAE.decode_u8`` at that weight dtype, so
+    the kernels' quantized cases run either way."""
+    np = state["np"]
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.store import LatentBox, StoreConfig
+    from repro_torch.vae import quantize as Q
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    side = 8 * LATENT_HW
+    rng = np.random.default_rng(29)
+    latents = [rng.standard_normal((LATENT_HW, LATENT_HW, 16))
+               .astype(np.float16) for _ in range(QUANT_OBJECTS)]
+    ranks = np.arange(1, QUANT_OBJECTS + 1, dtype=np.float64)
+    p = ranks ** -1.1
+    trace = [int(t) for t in rng.choice(QUANT_OBJECTS, QUANT_REQUESTS,
+                                        p=p / p.sum())]
+    windows = [trace[s:s + SLICE_WINDOW]
+               for s in range(0, len(trace), SLICE_WINDOW)]
+
+    def cfg(weight_dtype):
+        return StoreConfig(n_nodes=2, cache_bytes_per_node=6e6,
+                           image_bytes=float(side * side * 3),
+                           latent_bytes=1.2e5, promote_threshold=2,
+                           tuner=TunerConfig(window=10**9),
+                           decode_buckets=QUANT_BUCKETS,
+                           weight_dtype=weight_dtype)
+
+    def open_gated(v, wd):
+        """(box or None, outcome, the gate computed outside the engine)."""
+        v.set_weight_dtype(wd)
+        outside = Q.gate_max_lsb(v, QUANT_BUCKETS, GATE_LATENT)
+        rule = "accepted" if max(outside.values()) <= 1 else "refused"
+        try:
+            box = LatentBox.engine(vae=v, config=cfg(wd), device="cuda")
+        except Q.QuantizationGateError:
+            box = None
+        outcome = "refused" if box is None else "accepted"
+        need(outcome == rule, f"{wd}: engine {outcome}, but its gate "
+             f"{outside} says {rule}")
+        if box is not None:
+            gate = box.backend.engine.gate_lsb
+            need(gate == outside, f"{wd}: engine gate {gate} != {outside}")
+        return box, outcome, outside
+
+    snapped = sd35_vae(torch, "cuda")[0]
+    snapped.encoder = None
+    Q.snap_to_grid(snapped)
+    path = {k for k, _ in decode_calls(vae.cfg, LATENT_HW)}
+    runs = {}
+    for wd, v, decoder in (("bfloat16", vae, "calibrated"),
+                           ("int8", snapped, "calibrated, grid-snapped")):
+        box, outcome, gate = open_gated(v, wd)
+        if box is not None:
+            box.backend.engine.prewarm_decode((LATENT_HW, LATENT_HW, 16))
+            for oid, z in enumerate(latents):
+                box.put(oid, latent=z)
+        else:
+            v.decode_u8(np.zeros((1, LATENT_HW, LATENT_HW, 16), np.float32))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = []                              # (oid, uint8 HWC pixels)
+        hits = Counter()
+        for win in windows:
+            if box is not None:
+                res = box.get_many(win)
+                hits.update(r.hit_class for r in res)
+                served += [(r.oid, r.payload) for r in res]
+            else:
+                oids = sorted(set(win))
+                imgs = v.decode_u8(np.stack(
+                    [latents[o] for o in oids]).astype(np.float32))
+                imgs = dict(zip(oids, imgs.cpu().numpy()))
+                served += [(o, imgs[o]) for o in win]
+        serve_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        state["launches"][f"quant_{wd}"] = launches
+        need(all(launches[k] > 0 for k in path),
+             f"{wd}: a kernel of the quantized read path was never "
+             f"launched: {launches}")
+        oracle = {oid: v.decode_u8(latents[oid][None].astype(np.float32),
+                                   precision="float32")[0].cpu().numpy()
+                  for oid in sorted(set(trace))}
+        served_lsb = 0
+        for oid, img in served:
+            need(img is not None and img.shape == (side, side, 3)
+                 and img.dtype == np.uint8, f"{wd}: bad payload for {oid}")
+            served_lsb = max(served_lsb, int(np.abs(
+                img.astype(np.int16) - oracle[oid].astype(np.int16)).max()))
+        # the engine serves only what its gate admitted: within +-1 LSB
+        need(box is None or served_lsb <= 1, f"{wd}: served pixels "
+             f"{served_lsb} LSB from the fp32-weight decode")
+        # bucket 8 bit-identical to batch-1 decodes at this dtype
+        z8 = np.stack(latents[:8]).astype(np.float32)
+        batch = v.decode_u8(z8).cpu()
+        same = [bool(torch.equal(batch[i:i + 1], v.decode_u8(z8[i:i + 1])
+                                 .cpu())) for i in range(8)]
+        need(all(same), f"{wd}: bucket 8 differs from batch-1: {same}")
+        # device ms per image of a full bucket, this dtype and fp32 weights
+        device_ms = {}
+        for b in QUANT_BUCKETS:
+            zb = torch.from_numpy(z8[:b].copy()).cuda()
+            ms = cuda_ms(torch, lambda: v.decode_u8(zb), 3)
+            ms32 = cuda_ms(torch, lambda: v.decode_u8(zb, precision="float32"),
+                           3)
+            device_ms[str(b)] = {"per_image_ms": ms / b,
+                                 "fp32_per_image_ms": ms32 / b}
+        run = dict(decoder=decoder, engine=outcome, gate_lsb=gate,
+                   served_by="engine" if box is not None else "decode_u8",
+                   serve_s=serve_s, served_max_lsb_vs_fp32=served_lsb,
+                   bucket8_bit_identical=same, device_decode_ms=device_ms,
+                   launches=launches, decoder_storage=Q.decoder_storage(
+                       Q.quantize_decoder(v.decoder, wd)))
+        if box is not None:
+            summ = box.summary()
+            run.update(hit_classes=dict(hits), decodes=summ["decodes"],
+                       batches=summ["decode_batches"],
+                       quantize_gate_lsb=summ["quantize_gate_lsb"])
+        runs[wd] = run
+        del box, served, oracle
+    need(any(r["engine"] == "accepted" for r in runs.values()),
+         "no quantized engine opened: the engine's quantized path did not run")
+    del snapped
+    torch.cuda.empty_cache()
+    # raw int8 on the calibrated (unsnapped) decoder: the gate decides
+    _, raw_outcome, raw_gate = open_gated(vae, "int8")
+    vae.set_weight_dtype("float32")               # later phases: fp32
+    emit(log, "quant", image=[side, side], objects=QUANT_OBJECTS,
+         requests=QUANT_REQUESTS, window=SLICE_WINDOW,
+         buckets=list(QUANT_BUCKETS), gate_latent=list(GATE_LATENT),
+         runs=runs, raw_int8={"engine": raw_outcome, "gate_lsb": raw_gate},
+         fp32_storage=Q.decoder_storage(vae.decoder),
+         lsb_tol=1, lsb_tol_reason="the engine's open-time gate: quantized "
+         "uint8 within +-1 LSB of the fp32-weight decode at every bucket; "
+         "a configuration above it is refused")
+
+
 def phase_crossdevice(torch, log, state):
     from repro_torch.vae.model import VAE, map_params
     vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
@@ -1335,6 +1572,7 @@ def main() -> int:
         run_phase(log, "invariance", phase_invariance, torch, log, state)
         run_phase(log, "slice", phase_slice, torch, log, state)
         run_phase(log, "write", phase_write, torch, log, state)
+        run_phase(log, "quant", phase_quant, torch, log, state)
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:
             run_phase(log, phase, phase_serve, torch, log, state, phase)

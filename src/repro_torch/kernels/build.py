@@ -40,12 +40,12 @@ F = ctypes.c_float
 #: function returns cudaGetLastError()
 SIGNATURES = {
     "gn_stats": ("gn_stats_launch", [P, P, P, I, I, I, I, I, F, P]),
-    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, P, P,
-                                   I, I, I, I, I, I, I, I, P]),
-    "gn_silu_conv": ("gn_silu_conv3x3_launch", [P, P, P, P, P, P, P,
-                                                 I, I, I, I, I, I, P]),
-    "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P,
-                                                   I, I, I, I, I, P]),
+    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, P, P, P,
+                                   I, I, I, I, I, I, I, I, I, P]),
+    "gn_silu_conv": ("gn_silu_conv3x3_launch", [P, P, P, P, P, P, P, P,
+                                                 I, I, I, I, I, I, I, P]),
+    "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P, P,
+                                                   I, I, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
                                                     I, I, F, I, I, I, P]),
     "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
@@ -158,6 +158,34 @@ def require(what: str, dtypes=None, **tensors) -> None:
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+#: storage dtype of a conv weight -> its code in the C interfaces
+#: (``conv_tile.cuh``'s ``WeightType``)
+WEIGHT_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int16": 3}
+
+
+def conv_weight(what: str, w, w_scale, int_dtype=None):
+    """Check a conv weight in its storage dtype (fp32, bf16 or
+    ``int_dtype``, default int8) and its per-Cout fp32 scale, which an
+    integer weight needs and no other takes; returns (the weight's code,
+    the scale's pointer or 0)."""
+    import torch
+    int_dtype = int_dtype or torch.int8
+    require(what, dtypes=(torch.float32, torch.bfloat16, int_dtype), w=w)
+    scaled = w.dtype == int_dtype
+    if scaled != (w_scale is not None):
+        raise ValueError(f"{what}: an {int_dtype} weight needs its per-Cout "
+                         f"w_scale, and no other weight takes one "
+                         f"(w is {w.dtype})")
+    code = WEIGHT_CODES[str(w.dtype).replace("torch.", "")]
+    if not scaled:
+        return code, 0
+    require(what, w_scale=w_scale)
+    if tuple(w_scale.shape) != (w.shape[-1],):
+        raise ValueError(f"{what}: w_scale must be [{w.shape[-1]}], got "
+                         f"{tuple(w_scale.shape)}")
+    return code, w_scale.data_ptr()
 
 
 def stream_of(t) -> int:

@@ -24,13 +24,15 @@
 
 #include "conv_tile.cuh"
 
+// w in its storage type wtype (0 fp32, 1 bf16, 2 int8 with wscale [Cout])
 extern "C" int conv3x3_launch(const float* x, const float* stats,
                               const float* gamma, const float* beta,
-                              const float* w, const float* b, void* out,
-                              int N, int H, int W, int Cin, int Cout, int G,
-                              int pro, int epi, cudaStream_t stream) {
-  rt::ConvArgs a{x, stats, gamma, beta, w, b, out, N, H, W, Cin, Cout, G};
-  if (pro == 0 && epi == 0) return rt::launch_conv<0, 0, 0>(a, stream);
-  if (pro == 1 && epi == 1) return rt::launch_conv<1, 1, 0>(a, stream);
+                              const void* w, const float* wscale,
+                              const float* b, void* out, int N, int H, int W,
+                              int Cin, int Cout, int G, int pro, int epi,
+                              int wtype, cudaStream_t stream) {
+  rt::ConvArgs a{x, stats, gamma, beta, w, wscale, b, out, N, H, W, Cin, Cout, G};
+  if (pro == 0 && epi == 0) return rt::launch_conv_typed<0, 0, 0>(a, wtype, stream);
+  if (pro == 1 && epi == 1) return rt::launch_conv_typed<1, 1, 0>(a, wtype, stream);
   return (int)cudaErrorInvalidValue;
 }

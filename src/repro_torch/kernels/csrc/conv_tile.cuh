@@ -1,6 +1,16 @@
 // The direct 3x3 convolution tile shared by conv3x3.cu and
 // upsample_conv.cu (and gn_silu_conv.cu for Cout <= 4): NHWC fp32
-// activations, HWIO fp32 weights, fp32 accumulation on the CUDA cores.
+// activations, HWIO weights in their storage type, fp32 accumulation on
+// the CUDA cores.
+//
+// Weights (WT): fp32, bf16, int8 codes, or int16 (the upsampler's int8
+// taps collapsed per phase).  Each is converted to fp32 as the chunk's
+// weights are staged in shared memory; every one of these types is exact
+// in fp32, so the products and the sum order are those of an fp32 weight
+// of the same value, and the dequantized weight never exists in device
+// memory.  An integer weight's per-output-channel scale multiplies the
+// fp32 sum in the epilogue, before the bias (the order of the TPU
+// kernels, conv3x3.py:102-108).
 //
 // One block computes an output tile of TH x TW pixels of ONE image by BN
 // output channels.  For every chunk of BK input channels it stages the
@@ -34,6 +44,33 @@
 
 namespace rt {
 
+// a bf16 weight as stored (its 16 bits; fp32 is the same bits << 16)
+struct bf16w {
+  uint16_t bits;
+};
+
+// the weight storage types in the C interfaces (build.py's WEIGHT_CODES)
+enum WeightType { kF32 = 0, kBF16 = 1, kI8 = 2, kI16 = 3 };
+
+// integer weights carry a per-output-channel dequant scale
+template <class WT> struct Scaled { static constexpr bool value = false; };
+template <> struct Scaled<int8_t> { static constexpr bool value = true; };
+template <> struct Scaled<int16_t> { static constexpr bool value = true; };
+
+// a stored weight in fp32 (exact for every storage type)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16w v) { return __uint_as_float((uint32_t)v.bits << 16); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f32(int16_t v) { return (float)v; }
+
+// ... loaded through the read-only cache
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16w* p) {
+  return __uint_as_float((uint32_t)__ldg(&p->bits) << 16);
+}
+__device__ __forceinline__ float ldg_f32(const int8_t* p) { return (float)__ldg(p); }
+__device__ __forceinline__ float ldg_f32(const int16_t* p) { return (float)__ldg(p); }
+
 template <int TH_, int TW_, int BN_, int TPM_, int TPN_>
 struct ConvCfg {
   static constexpr int TH = TH_, TW = TW_, BN = BN_, TPM = TPM_, TPN = TPN_;
@@ -58,13 +95,14 @@ struct ConvArgs {
   const float* stats;  // [N, G, 2] (mean, rstd) for PRO == 1
   const float* gamma;  // [Cin] for PRO == 1
   const float* beta;   // [Cin] for PRO == 1
-  const float* w;      // [3, 3, Cin, Cout], or [2, 2, 2, 2, Cin, Cout] (UPS)
+  const void* w;       // [3, 3, Cin, Cout], or [2, 2, 2, 2, Cin, Cout] (UPS)
+  const float* wscale; // [Cout] dequant scale of an integer weight, else null
   const float* bias;   // [Cout]
   void* out;           // [N, H, W, Cout] f32/u8, or [N, 2H, 2W, Cout] (UPS)
   int N, H, W, Cin, Cout, G;
 };
 
-template <class Cfg, int PRO, int EPI, int UPS>
+template <class Cfg, int PRO, int EPI, int UPS, class WT>
 __global__ void __launch_bounds__(Cfg::THREADS, Cfg::THREADS >= 256 ? 2 : 4)
 conv_tile_kernel(ConvArgs a) {
   constexpr int TH = Cfg::TH, TW = Cfg::TW, BN = Cfg::BN, BK = Cfg::BK;
@@ -92,7 +130,7 @@ conv_tile_kernel(ConvArgs a) {
   const int r = p0 / TW, c0 = p0 % TW;
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
   const float* __restrict__ x = a.x + (size_t)img * H * W * Cin;
-  const float* __restrict__ w = a.w + (size_t)phase * NT * Cin * Cout;
+  const WT* __restrict__ w = static_cast<const WT*>(a.w) + (size_t)phase * NT * Cin * Cout;
   const int cpg = PRO ? Cin / a.G : 1;
 
   float acc[TPM][TPN];
@@ -125,7 +163,7 @@ conv_tile_kernel(ConvArgs a) {
       const int nn = e % BN, kk = (e / BN) % BK, t = e / (BN * BK);
       const int c = ck + kk, co = n0 + nn;
       Ws[t][kk][nn] = (c < Cin && co < Cout)
-                          ? __ldg(w + ((size_t)t * Cin + c) * Cout + co)
+                          ? ldg_f32(w + ((size_t)t * Cin + c) * Cout + co)
                           : 0.f;
     }
     __syncthreads();
@@ -176,8 +214,12 @@ conv_tile_kernel(ConvArgs a) {
       const int cb = n0 + g * (BN / NG) + tx * 4;
       float v[4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        v[jj] = acc[i][4 * g + jj] + (cb + jj < Cout ? __ldg(a.bias + cb + jj) : 0.f);
+      for (int jj = 0; jj < 4; ++jj) {
+        const bool in = cb + jj < Cout;
+        float t = acc[i][4 * g + jj];
+        if (Scaled<WT>::value) t = __fmul_rn(t, in ? __ldg(a.wscale + cb + jj) : 0.f);
+        v[jj] = t + (in ? __ldg(a.bias + cb + jj) : 0.f);
+      }
       if (EPI == 0) {
         float* o = static_cast<float*>(a.out) + opix * Cout + cb;
         if ((Cout & 3) == 0 && cb + 3 < Cout) {
@@ -201,24 +243,42 @@ conv_tile_kernel(ConvArgs a) {
   }
 }
 
-template <class Cfg, int PRO, int EPI, int UPS>
+template <class Cfg, int PRO, int EPI, int UPS, class WT>
 int launch_conv_tile(const ConvArgs& a, cudaStream_t stream) {
+  if (Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
   const int tiles = ((a.H + Cfg::TH - 1) / Cfg::TH) *
                     ((a.W + Cfg::TW - 1) / Cfg::TW);
   const int ntiles = (a.Cout + Cfg::BN - 1) / Cfg::BN;
   const dim3 grid(tiles, ntiles * (UPS ? 4 : 1), a.N);
-  conv_tile_kernel<Cfg, PRO, EPI, UPS><<<grid, Cfg::THREADS, 0, stream>>>(a);
+  conv_tile_kernel<Cfg, PRO, EPI, UPS, WT><<<grid, Cfg::THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Wide tiles for real channel counts, narrow ones for conv_out's 3.
-template <int PRO, int EPI, int UPS>
+template <int PRO, int EPI, int UPS, class WT>
 int launch_conv(const ConvArgs& a, cudaStream_t stream) {
   if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.Cin <= 0 || a.Cout <= 0 ||
       a.N > 65535 || (PRO && (a.G <= 0 || a.Cin % a.G != 0)))
     return (int)cudaErrorInvalidValue;
-  if (a.Cout <= 4) return launch_conv_tile<NarrowCfg, PRO, EPI, UPS>(a, stream);
-  return launch_conv_tile<WideCfg, PRO, EPI, UPS>(a, stream);
+  if (a.Cout <= 4) return launch_conv_tile<NarrowCfg, PRO, EPI, UPS, WT>(a, stream);
+  return launch_conv_tile<WideCfg, PRO, EPI, UPS, WT>(a, stream);
+}
+
+// launch_conv for the storage type code wtype (fp32, bf16 or int8; int16
+// only where I16 is set: the upsampler's collapsed int8 taps)
+template <int PRO, int EPI, int UPS, int I16 = 0>
+int launch_conv_typed(const ConvArgs& a, int wtype, cudaStream_t stream) {
+  switch (wtype) {
+    case kF32: return launch_conv<PRO, EPI, UPS, float>(a, stream);
+    case kBF16: return launch_conv<PRO, EPI, UPS, bf16w>(a, stream);
+    case kI8:
+      if constexpr (!I16) return launch_conv<PRO, EPI, UPS, int8_t>(a, stream);
+      break;
+    case kI16:
+      if constexpr (I16 != 0) return launch_conv<PRO, EPI, UPS, int16_t>(a, stream);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace rt

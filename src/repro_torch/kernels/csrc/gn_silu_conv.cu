@@ -49,6 +49,17 @@
 // Determinism: one block per (image, pixel tile, Cout tile), a fixed K
 // order, no split-K: each image's result is independent of the batch.
 //
+// Weights in their storage type (the TPU kernel's quantized operand forms,
+// gn_silu_conv.py:77, 132-138): fp32, bf16, or int8 codes with a per-Cout
+// scale.  The raw rows come through the same cp.async ring (16 bytes carry
+// 4, 8 or 16 weights).  bf16 values and int8 codes (|q| <= 127) are exact
+// in TF32, so a weight's lo half would be zero: its B fragment is the
+// value's fp32 bits, with no split, and each product takes two TF32 MMAs
+// (a_hi b + a_lo b, tc::mma_2xtf32) instead of three.  The dropped
+// a_hi b_lo product is exactly zero, so the result is the bit pattern the
+// fp32 path gives for the same weight values.  The scale multiplies each
+// output channel's fp32 sum in the epilogue, before the bias.
+//
 // Cout <= 4 (no main-path caller) keeps the narrow CUDA-core tile of
 // conv_tile.cuh: a matrix tile 128 channels wide would be 97 % idle.
 
@@ -62,18 +73,30 @@ constexpr int HWD = TW + 2;                   // halo columns
 constexpr int HPIX = (TH + 2) * HWD;          // halo pixels
 constexpr int PLANE = 232;                    // >= HPIX, 8 mod 32 words
 constexpr int HALO_WORDS = 2 * BK * PLANE;    // one halo buffer, hi and lo
-constexpr int WS = BN + 8;                    // weight row stride, 8 mod 32
-constexpr int W_WORDS = BK * WS;              // one weight stage (fp32)
-constexpr int SMEM_BYTES = (2 * HALO_WORDS + STAGES * W_WORDS) * 4;
 
-// V4: Cin % 4 == 0 and Cout % 4 == 0 with 16-byte aligned x, w, gamma and
-// beta: the halo is read four channels at a time and the weights copied 16
-// bytes at a time; else one value at a time
+// one weight stage of WT: BK rows of BN weights at a row stride of RS
+// weights, a multiple of 16 bytes, 8 mod 32 words for fp32 and 4 mod 32
+// for bf16 and int8 (a fragment load's 4 rows by 8 columns then hit
+// distinct banks, or share a word)
+template <class WT>
+struct Stage {
+  static constexpr int VEC = 16 / (int)sizeof(WT);   // weights per 16 bytes
+  static constexpr int RS = BN + (VEC > 8 ? VEC : 8);
+  static constexpr int ELEMS = BK * RS;
+  static constexpr int SMEM_BYTES = 2 * HALO_WORDS * 4 + STAGES * ELEMS * (int)sizeof(WT);
+};
+
+// V4: Cin % 4 == 0, Cout a multiple of 16 bytes of weights, and 16-byte
+// aligned x, w, gamma and beta: the halo is read four channels at a time
+// and the weights copied 16 bytes at a time; else one value at a time
+// WT: the weight's storage type (float, rt::bf16w, int8_t)
 // NT threads: warps 2 along M (2 rows of the tile each) x NT / 64 along N
 // (4 or 8: 32 or 16 channels each)
-template <int V4, int NT>
+template <int V4, int NT, class WT>
 __global__ void __launch_bounds__(NT, 512 / NT)
 gn_silu_conv_kernel(rt::ConvArgs a) {
+  constexpr bool F32 = sizeof(WT) == 4;
+  constexpr int RS = Stage<WT>::RS, W_ELEMS = Stage<WT>::ELEMS;
   constexpr int THREADS = NT, MW = 2;                  // warps along M
   constexpr int NWN = NT / 32 / MW;                    // warps along N: 4 or 8
   constexpr int NTW = BN / 8 / NWN;                    // n8 tiles per warp: 4 or 2
@@ -81,7 +104,8 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
   constexpr int WR = TH / MW;                          // output rows per warp
   extern __shared__ __align__(16) uint32_t sm[];
   uint32_t* const halo = sm;                           // [2][hi, lo][BK][PLANE]
-  float* const wst = reinterpret_cast<float*>(sm + 2 * HALO_WORDS);  // [STAGES][BK][WS]
+  WT* const wst = reinterpret_cast<WT*>(sm + 2 * HALO_WORDS);  // [STAGES][BK][RS]
+  const WT* const w = static_cast<const WT*>(a.w);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int wm = warp / NWN, wn = warp % NWN;
@@ -96,15 +120,18 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
   // the weights of step s (chunk s / 9, tap s % 9) into its stage
   auto copy_weights = [&](int s) {
     const int ck = (s / 9) * BK, tap = s % 9;
-    float* dst = wst + (s % STAGES) * W_WORDS;
-    constexpr int VEC = V4 ? 4 : 1;
+    WT* dst = wst + (s % STAGES) * W_ELEMS;
+    constexpr int VEC = V4 ? Stage<WT>::VEC : 1;
     for (int e = tid; e < BK * BN / VEC; e += THREADS) {
       const int kk = e / (BN / VEC), nn = (e % (BN / VEC)) * VEC;
       const int c = ck + kk, co = n0 + nn;
       const bool ok = c < Cin && co < Cout;
-      const float* src = ok ? a.w + ((size_t)tap * Cin + c) * Cout + co : a.w;
-      if (V4) tc::cp_async16(dst + kk * WS + nn, src, ok);
-      else tc::cp_async4(dst + kk * WS + nn, src, ok);
+      const WT* src = ok ? w + ((size_t)tap * Cin + c) * Cout + co : w;
+      if (V4) tc::cp_async16(dst + kk * RS + nn, src, ok);
+      else if (F32) tc::cp_async4(dst + kk * RS + nn, src, ok);
+      // a 1- or 2-byte weight has no cp.async: a plain store, which the
+      // barrier before its step makes visible like the copies
+      else dst[kk * RS + nn] = ok ? *src : WT{};
     }
   };
 
@@ -195,7 +222,7 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
 
     const uint32_t* const Ah = halo + (ch & 1) * HALO_WORDS;
     const uint32_t* const Al = Ah + BK * PLANE;
-    const float* const Wf = wst + (s % STAGES) * W_WORDS;
+    const WT* const Wf = wst + (s % STAGES) * W_ELEMS;
     // each 8-deep step in a fresh fragment, then added with round-to-nearest
     // (the same for both tile heights, so they give the same bits)
 #pragma unroll
@@ -203,12 +230,19 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
       uint32_t bh[NTW][2], bl[NTW][2];
 #pragma unroll
       for (int nt = 0; nt < NTW; ++nt) {
-        const int ib = (kk + t) * WS + wn * 8 * NTW + nt * 8 + g;
-        const tc::Split b0 = tc::split_tf32(Wf[ib]), b1 = tc::split_tf32(Wf[ib + 4 * WS]);
-        bh[nt][0] = b0.hi;
-        bh[nt][1] = b1.hi;
-        bl[nt][0] = b0.lo;
-        bl[nt][1] = b1.lo;
+        const int ib = (kk + t) * RS + wn * 8 * NTW + nt * 8 + g;
+        if constexpr (F32) {
+          const tc::Split b0 = tc::split_tf32(rt::to_f32(Wf[ib]));
+          const tc::Split b1 = tc::split_tf32(rt::to_f32(Wf[ib + 4 * RS]));
+          bh[nt][0] = b0.hi;
+          bh[nt][1] = b1.hi;
+          bl[nt][0] = b0.lo;
+          bl[nt][1] = b1.lo;
+        } else {
+          // exact in TF32: the fp32 bits are the operand, lo is zero
+          bh[nt][0] = __float_as_uint(rt::to_f32(Wf[ib]));
+          bh[nt][1] = __float_as_uint(rt::to_f32(Wf[ib + 4 * RS]));
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -217,7 +251,10 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
         const uint32_t ah[4] = {Ah[ia], Ah[ia + 8], Ah[ia + 4 * PLANE], Ah[ia + 4 * PLANE + 8]};
         const uint32_t al[4] = {Al[ia], Al[ia + 8], Al[ia + 4 * PLANE], Al[ia + 4 * PLANE + 8]};
 #pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) tc::mma_3xtf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
+        for (int nt = 0; nt < NTW; ++nt) {
+          if constexpr (F32) tc::mma_3xtf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
+          else tc::mma_2xtf32(acc[mt][nt], ah, al, bh[nt]);
+        }
       }
     }
   }
@@ -247,7 +284,11 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
       }
       if (y >= H || xx >= W) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] += cb + j < Cout ? __ldg(a.bias + cb + j) : 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const bool in = cb + j < Cout;
+        if (rt::Scaled<WT>::value) v[j] = __fmul_rn(v[j], in ? __ldg(a.wscale + cb + j) : 0.f);
+        v[j] += in ? __ldg(a.bias + cb + j) : 0.f;
+      }
       float* o = out + (((size_t)img * H + y) * W + xx) * Cout + cb;
       if ((Cout & 3) == 0 && cb + 3 < Cout) {
         *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -260,42 +301,55 @@ gn_silu_conv_kernel(rt::ConvArgs a) {
   }
 }
 
-template <int V4, int NT>
+template <int V4, int NT, class WT>
 int launch_tile(const rt::ConvArgs& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gn_silu_conv_kernel<V4, NT>,
+  constexpr int SMEM_BYTES = Stage<WT>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(gn_silu_conv_kernel<V4, NT, WT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW), (a.Cout + BN - 1) / BN, a.N);
-  gn_silu_conv_kernel<V4, NT><<<grid, NT, SMEM_BYTES, stream>>>(a);
+  gn_silu_conv_kernel<V4, NT, WT><<<grid, NT, SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // 16 warps per block where the grid fits the SMs once over (one 64 x 64
 // latent: 128 blocks), else 8 warps and two blocks per SM
-template <int V4>
+template <int V4, class WT>
 int launch(const rt::ConvArgs& a, cudaStream_t stream) {
   const int sms = tc::sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const long blocks =
       (long)a.N * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW) * ((a.Cout + BN - 1) / BN);
-  return blocks <= sms ? launch_tile<V4, 512>(a, stream) : launch_tile<V4, 256>(a, stream);
+  return blocks <= sms ? launch_tile<V4, 512, WT>(a, stream) : launch_tile<V4, 256, WT>(a, stream);
+}
+
+template <class WT>
+int launch_typed(const rt::ConvArgs& a, cudaStream_t stream) {
+  if (rt::Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.Cout <= 4) return rt::launch_conv_tile<rt::NarrowCfg, 1, 0, 0, WT>(a, stream);
+  const bool v4 = a.Cin % 4 == 0 && a.Cout % Stage<WT>::VEC == 0 &&
+                  (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
+                   reinterpret_cast<uintptr_t>(a.gamma) | reinterpret_cast<uintptr_t>(a.beta)) % 16 == 0;
+  return v4 ? launch<1, WT>(a, stream) : launch<0, WT>(a, stream);
 }
 
 }  // namespace
 
 // x [N, H, W, Cin], stats [N, G, 2] (mean, rstd), gamma/beta [Cin], w [3, 3,
-// Cin, Cout], b [Cout], out [N, H, W, Cout]; all fp32 and contiguous.
+// Cin, Cout] in its storage type wtype (0 fp32, 1 bf16, 2 int8 with wscale
+// [Cout]), b [Cout], out [N, H, W, Cout]; the rest fp32; all contiguous.
 extern "C" int gn_silu_conv3x3_launch(const float* x, const float* stats, const float* gamma,
-                                      const float* beta, const float* w, const float* b,
-                                      float* out, int N, int H, int W, int Cin, int Cout, int G,
-                                      cudaStream_t stream) {
-  rt::ConvArgs a{x, stats, gamma, beta, w, b, out, N, H, W, Cin, Cout, G};
+                                      const float* beta, const void* w, const float* wscale,
+                                      const float* b, float* out, int N, int H, int W, int Cin,
+                                      int Cout, int G, int wtype, cudaStream_t stream) {
+  rt::ConvArgs a{x, stats, gamma, beta, w, wscale, b, out, N, H, W, Cin, Cout, G};
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || N > 65535 || G <= 0 ||
       Cin % G != 0)
     return (int)cudaErrorInvalidValue;
-  if (Cout <= 4) return rt::launch_conv_tile<rt::NarrowCfg, 1, 0, 0>(a, stream);
-  const bool v4 = Cin % 4 == 0 && Cout % 4 == 0 &&
-                  (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                   reinterpret_cast<uintptr_t>(gamma) | reinterpret_cast<uintptr_t>(beta)) % 16 == 0;
-  return v4 ? launch<1>(a, stream) : launch<0>(a, stream);
+  switch (wtype) {
+    case rt::kF32: return launch_typed<float>(a, stream);
+    case rt::kBF16: return launch_typed<rt::bf16w>(a, stream);
+    case rt::kI8: return launch_typed<int8_t>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

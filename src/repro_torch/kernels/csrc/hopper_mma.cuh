@@ -147,6 +147,20 @@ __device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const 
   for (int i = 0; i < 4; ++i) c[i] += d[i];
 }
 
+// c += a b in 3xTF32 where b is exact in TF32 (a bf16 weight, or an
+// integer code of at most 11 bits): b's lo half is zero, so of the three
+// products only a_lo b and a_hi b remain, and dropping a_hi b_lo changes
+// no bit (it adds exact zeros).  Same fresh fragment and round-to-nearest
+// add as mma_3xtf32.
+__device__ __forceinline__ void mma_2xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                           const uint32_t* b) {
+  float d[4];
+  mma_tf32_zero(d, alo, b);
+  mma_tf32(d, ahi, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+}
+
 // ---------------------------------------------------------------------------
 // wgmma (bf16 in, fp32 accumulators); D fragments: warp w of the warpgroup
 // owns rows 16w..16w+15, and for each 8-column chunk j the thread holds

@@ -15,14 +15,23 @@
 // halo and writes its phase's pixels of the interleaved [2H, 2W] output.
 // The zero halo at the image edge is exactly the SAME padding of the
 // upsampled image (the input is pre-activation), so no ring masking.
+//
+// Weights (the TPU kernel's quantized operand forms, upsample_conv.py:
+// 66-97, 126-144): fp32; bf16 collapsed in bf16 (each add rounded, as the
+// reference collapses them); int8 codes collapsed in int16, exact since a
+// collapsed tap sums at most four codes, with the per-Cout scale applied
+// to the fp32 sum before the bias.  Each is widened to fp32 as it is
+// staged in shared memory.
 
 #include "conv_tile.cuh"
 
-extern "C" int upsample_conv3x3_launch(const float* x, const float* wc,
-                                       const float* b, float* out, int N,
-                                       int H, int W, int Cin, int Cout,
+// wc in its storage type wtype (0 fp32, 1 bf16, 3 int16 with wscale [Cout])
+extern "C" int upsample_conv3x3_launch(const float* x, const void* wc,
+                                       const float* wscale, const float* b,
+                                       float* out, int N, int H, int W,
+                                       int Cin, int Cout, int wtype,
                                        cudaStream_t stream) {
-  rt::ConvArgs a{x, nullptr, nullptr, nullptr, wc, b, out,
+  rt::ConvArgs a{x, nullptr, nullptr, nullptr, wc, wscale, b, out,
                  N, H, W, Cin, Cout, 1};
-  return rt::launch_conv<0, 0, 1>(a, stream);
+  return rt::launch_conv_typed<0, 0, 1, 1>(a, wtype, stream);
 }

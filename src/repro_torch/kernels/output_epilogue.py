@@ -2,7 +2,8 @@
 (counterpart of the JAX package's ``kernels/output_epilogue.py``).
 
 On CUDA: ``csrc/gn_stats.cu`` then ``csrc/conv3x3.cu`` with the uint8
-epilogue, so the decode's last write is the displayable image itself.
+epilogue (the weight read in its storage dtype, as in ``conv3x3``), so
+the decode's last write is the displayable image itself.
 On the CPU: the plain version, ``ref.output_epilogue_ref``.
 """
 
@@ -21,21 +22,24 @@ launches = 0
 
 def output_epilogue(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     w: torch.Tensor, b: Optional[torch.Tensor] = None,
-                    groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+                    groups: int = 32, eps: float = 1e-6,
+                    w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``quantize_u8(conv3x3(silu(group_norm(x))))``.  x [N, H, W, Cin]
-    NHWC, scale/bias [Cin], w [3, 3, Cin, Cout], b [Cout] -> uint8
-    [N, H, W, Cout]."""
+    NHWC, scale/bias [Cin], w [3, 3, Cin, Cout] (fp32, bf16, or int8 with
+    w_scale [Cout]), b [Cout] -> uint8 [N, H, W, Cout]."""
     global launches
     if x.device.type == "cpu":
-        return ref.output_epilogue_ref(x, scale, bias, w, b, groups, eps)
-    b = check_gn_conv("output_epilogue", x, scale, bias, w, b, groups)
+        return ref.output_epilogue_ref(x, scale, bias, w, b, groups, eps,
+                                       w_scale)
+    b, wcode, sptr = check_gn_conv("output_epilogue", x, scale, bias, w, b,
+                                   groups, w_scale)
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
     stats = gn_stats(x, groups, eps)
     out = torch.empty((n, h, wd, cout), dtype=torch.uint8, device=x.device)
     build.check(build.lib("conv3x3").conv3x3_launch(
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-        groups, 1, 1, build.stream_of(x)), "output_epilogue")
+        w.data_ptr(), sptr, b.data_ptr(), out.data_ptr(), n, h, wd, cin,
+        cout, groups, 1, 1, wcode, build.stream_of(x)), "output_epilogue")
     launches += 1
     return out

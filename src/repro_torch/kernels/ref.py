@@ -4,11 +4,13 @@ counterparts of the JAX package's ``kernels/ref.py``).
 They compute the same functions as the Hopper kernels, in full fp32,
 with ordinary tensor operations: the CPU path runs them, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds each
-kernel against them on the card.  The convolutions are written as nine
-shifted channel matmuls (the kernels' own arithmetic) rather than a
-library convolution, and attention as an explicit softmax.  Layouts are
-the JAX package's: NHWC activations, HWIO weights, ``[n, h, s, d]``
-attention.
+kernel against them on the card.  Conv weights stored in bf16 or int8
+are read exactly in fp32, and an int8 filter's per-output-channel scale
+multiplies the fp32 sum before the bias, as in the JAX kernels.  The
+convolutions are written as nine shifted channel matmuls (the kernels'
+own arithmetic) rather than a library convolution, and attention as an
+explicit softmax.  Layouts are the JAX package's: NHWC activations,
+HWIO weights, ``[n, h, s, d]`` attention.
 """
 
 from __future__ import annotations
@@ -41,9 +43,22 @@ def group_norm_silu_ref(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.sigmoid(xf)).to(x.dtype)
 
 
+def _scale_bias(acc, w_scale, b):
+    """The JAX kernels' epilogue order: the fp32 sum times the per-Cout
+    dequant scale (int8 storage), then the bias."""
+    if w_scale is not None:
+        acc = acc * w_scale.float()
+    if b is not None:
+        acc = acc + b.to(acc.dtype)
+    return acc
+
+
 def conv3x3_ref(x: torch.Tensor, w: torch.Tensor,
-                b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """3x3 SAME conv, NHWC x HWIO -> NHWC, as nine shifted matmuls."""
+                b: Optional[torch.Tensor] = None,
+                w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 SAME conv, NHWC x HWIO -> NHWC, as nine shifted matmuls.  ``w``
+    is fp32, bf16 or int8 (then with its per-Cout ``w_scale``); each tap
+    is read in fp32, which holds bf16 and int8 values exactly."""
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
@@ -52,15 +67,14 @@ def conv3x3_ref(x: torch.Tensor, w: torch.Tensor,
         for dx in range(3):
             acc = acc + torch.matmul(xp[:, dy:dy + h, dx:dx + wd, :],
                                      w[dy, dx].to(x.dtype))
-    if b is not None:
-        acc = acc + b.to(x.dtype)
-    return acc
+    return _scale_bias(acc, w_scale, b)
 
 
 def gn_silu_conv3x3_ref(x, scale, bias, w, b=None, groups: int = 32,
-                        eps: float = 1e-6) -> torch.Tensor:
+                        eps: float = 1e-6, w_scale=None) -> torch.Tensor:
     """``conv3x3(silu(group_norm(x)))``."""
-    return conv3x3_ref(group_norm_silu_ref(x, scale, bias, groups, eps), w, b)
+    return conv3x3_ref(group_norm_silu_ref(x, scale, bias, groups, eps), w, b,
+                       w_scale)
 
 
 _PHASE_TAPS = {0: ((0,), (1, 2)), 1: ((0, 1), (2,))}
@@ -70,7 +84,12 @@ def phase_weights(w: torch.Tensor) -> torch.Tensor:
     """Collapse a ``[3, 3, Cin, Cout]`` filter into the ``[2, 2, 2, 2,
     Cin, Cout]`` per-phase 2x2 filters (index order ``[pi, pj, a, b]``):
     output pixel ``(2i+pi, 2j+pj)`` of ``conv3x3(upsample2x(x))`` is
-    ``sum_ab x[i+pi+a-1, j+pj+b-1] @ out[pi, pj, a, b]``."""
+    ``sum_ab x[i+pi+a-1, j+pj+b-1] @ out[pi, pj, a, b]``.
+
+    The taps are added in ``w``'s own dtype, left to right from 0 as
+    Python's ``sum`` does, like the JAX package's ``phase_weights``: an
+    int16 filter (int8 codes widened) sums exactly (|sum| <= 4 * 127); a
+    bf16 filter rounds to bf16 after each add, as the reference does."""
     rows = []
     for pi in (0, 1):
         cols = []
@@ -85,11 +104,42 @@ def phase_weights(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def storage_phase_weights(w: torch.Tensor) -> torch.Tensor:
+    """:func:`phase_weights` of a stored filter: int8 codes collapse in
+    int16, fp32 and bf16 filters in their own dtype."""
+    return phase_weights(w.to(torch.int16) if w.dtype == torch.int8 else w)
+
+
 def upsample_conv3x3_ref(x: torch.Tensor, w: torch.Tensor,
-                         b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``conv3x3(nearest_upsample_2x(x))``."""
-    x2 = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    return conv3x3_ref(x2, w, b)
+                         b: Optional[torch.Tensor] = None,
+                         w_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """``conv3x3(nearest_upsample_2x(x))``.
+
+    An fp32 or int8 filter convolves the upsampled tensor: its phase
+    collapse is exact up to fp32 rounding.  A bf16 filter's collapse
+    rounds (see :func:`phase_weights`), so the function of bf16 storage
+    is the phase form with the collapsed bf16 taps, which this computes:
+    four 2x2 convs of the pre-upsample tensor, interleaved."""
+    if w.dtype != torch.bfloat16:
+        x2 = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return conv3x3_ref(x2, w, b, w_scale)
+    n, h, wd, _ = x.shape
+    wc = phase_weights(w)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    out = torch.empty((n, 2 * h, 2 * wd, w.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    for pi in (0, 1):
+        for pj in (0, 1):
+            acc = torch.zeros((n, h, wd, w.shape[-1]), dtype=x.dtype,
+                              device=x.device)
+            for a in (0, 1):
+                for c in (0, 1):
+                    acc = acc + torch.matmul(
+                        xp[:, pi + a:pi + a + h, pj + c:pj + c + wd, :],
+                        wc[pi, pj, a, c].to(x.dtype))
+            out[:, pi::2, pj::2, :] = _scale_bias(acc, w_scale, b)
+    return out
 
 
 def quantize_u8_ref(y: torch.Tensor) -> torch.Tensor:
@@ -100,10 +150,10 @@ def quantize_u8_ref(y: torch.Tensor) -> torch.Tensor:
 
 
 def output_epilogue_ref(x, scale, bias, w, b=None, groups: int = 32,
-                        eps: float = 1e-6) -> torch.Tensor:
+                        eps: float = 1e-6, w_scale=None) -> torch.Tensor:
     """``quantize_u8(conv3x3(silu(group_norm(x))))``."""
     return quantize_u8_ref(gn_silu_conv3x3_ref(x, scale, bias, w, b,
-                                               groups, eps))
+                                               groups, eps, w_scale))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,8 +14,10 @@ marginal-hit tuner's EWMAs.
 Writes take a latent, an image (encoded on the card) or a recipe
 (synthesised, then encoded); a read of an object demoted to its recipe
 regenerates it (recipe -> pixels -> encoder -> latent) bit-exactly.
-Pixels are served as uint8 or float32, from float32 weights.  Quantized
-weights, the kernel autotuner and elastic autoscaling wait for later
+Pixels are served as uint8 or float32.  The uint8 path may serve
+decoder weights stored in bf16 or int8 (``StoreConfig.weight_dtype``),
+admitted only behind the +-1-LSB gate that the engine runs when it
+opens.  The kernel autotuner and elastic autoscaling wait for later
 slices (see ROADMAP.md) and raise ``NotImplementedError``.
 """
 
@@ -289,9 +291,6 @@ class ServingEngine:
             raise ValueError(f"the VAE lives on {vae.device}, but the "
                              f"engine was asked to run on {dev}")
         self.cfg = cfg or StoreConfig()
-        if self.cfg.weight_dtype != "float32":
-            raise not_ported(f"weight_dtype={self.cfg.weight_dtype!r}",
-                             "ROADMAP queue A, quantized weights")
         if self.cfg.autotune:
             raise not_ported("autotune=True",
                              "ROADMAP queue A, kernel autotuner")
@@ -314,6 +313,21 @@ class ServingEngine:
                                      pixel_format=self.cfg.pixel_format)
         self.stats = self.walk.counts           # shared hit/spill accounting
         self._inflight: List[_Ticket] = []      # open microbatch
+        # -- quantized decoder weights, admitted behind the gate -------------
+        self.gate_lsb: Optional[Dict[int, int]] = None
+        if self.cfg.weight_dtype != "float32":
+            if self.cfg.pixel_format != "uint8":
+                raise ValueError(
+                    "weight_dtype quantization serves the uint8 fast path "
+                    "only; the float32 pixel format stays on f32 weights")
+            from repro_torch.vae.quantize import check_u8_gate
+            vae.set_weight_dtype(self.cfg.weight_dtype)
+            # the +-1-LSB open-time gate: quantized against fp32-oracle
+            # uint8 pixels on probe latents at every decode bucket; raises
+            # QuantizationGateError (configuration refused) on a breach
+            self.gate_lsb = check_u8_gate(
+                vae, self.cfg.decode_buckets,
+                (8, 8, vae.cfg.latent_channels))
         # decode fleet accounting (one shared device per node)
         self.gpus_per_node = int(self.cfg.gpus_per_node)
         self._gpu_ms = 0.0
@@ -570,5 +584,7 @@ class ServingEngine:
         out["decompress_memo_hits"] = self.batcher.stats["memo_hits"]
         out["pixel_format"] = self.cfg.pixel_format
         out["weight_dtype"] = self.cfg.weight_dtype
+        if self.gate_lsb is not None:
+            out["quantize_gate_lsb"] = dict(self.gate_lsb)
         out["device"] = str(self.batcher.device)
         return out

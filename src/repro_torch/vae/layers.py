@@ -11,6 +11,13 @@ batch size: a bucket-8 decode then gives each image the same bits as a
 batch-1 decode, since the kernels are batch-invariant too.  They are
 fp32 matmuls, which PyTorch runs without TF32 unless a caller turns
 ``torch.backends.cuda.matmul.allow_tf32`` on.
+
+Quantized decoder weights (:mod:`repro_torch.vae.quantize`) pass through
+in their storage form: a 3x3 conv weight in bf16 or as a
+``QuantizedWeight`` goes to its kernel as it is stored; the 1x1 shortcut
+dequantizes (a small weight; the JAX package leaves it to XLA) and the
+attention's bf16 dense weights are cast to the activations' fp32 for the
+plain matmuls.
 """
 
 from __future__ import annotations
@@ -100,7 +107,10 @@ def conv2d(x: torch.Tensor, p: Params) -> torch.Tensor:
         raise NotImplementedError(
             f"conv2d: the VAE's unstrided convs are 3x3 and 1x1, got "
             f"{tuple(w.shape[:2])}")
-    return per_image(lambda xi: torch.matmul(xi, w[0, 0]) + p["b"], x)
+    if isinstance(w, ops.QuantizedWeight):
+        w = w.dequant(x.dtype)
+    w = w[0, 0].to(x.dtype)
+    return per_image(lambda xi: torch.matmul(xi, w) + p["b"], x)
 
 
 def group_norm(x: torch.Tensor, p: Params, groups: int = 32,
@@ -135,7 +145,7 @@ def attn_block(x: torch.Tensor, p: Params, groups: int = 32) -> torch.Tensor:
     n, h, w, c = x.shape
 
     def dense(y, d):
-        return torch.matmul(y, d["w"]) + d["b"]
+        return torch.matmul(y, d["w"].to(y.dtype)) + d["b"].to(y.dtype)
 
     def qkv(xi):
         y = group_norm(xi, p["norm"], groups=groups).reshape(1, h * w, c)

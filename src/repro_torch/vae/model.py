@@ -9,7 +9,9 @@ parameters.  The encoder mirrors it with 2 res blocks per level and
 strided downsamplers, and returns the latent (mean, logvar) moments.
 Three forward passes: ``decode_u8`` (the uint8 read path, with the fused
 output epilogue), ``decode`` (float pixels in [-1, 1]) and ``encode``
-(the write and regeneration path).
+(the write and regeneration path).  ``decode_u8`` may serve decoder
+weights stored in bf16 or int8 (``VAE(weight_dtype=)``, see
+:mod:`repro_torch.vae.quantize`); the fp32 tree stays as the oracle.
 """
 
 from __future__ import annotations
@@ -213,12 +215,20 @@ class VAE:
     ``with_encoder=False`` builds no encoder.  ``device`` defaults to
     ``"cuda"`` and raises where CUDA is absent; pass ``device="cpu"`` for
     the plain path.
+
+    ``weight_dtype`` ('float32' | 'bfloat16' | 'int8') is the storage
+    precision of the decoder weights that ``decode_u8`` serves from (see
+    :mod:`repro_torch.vae.quantize`).  The fp32 tree is always kept as
+    the oracle: :meth:`decode` and ``decode_u8(z, precision="float32")``
+    run it, which is what the engine's +-1-LSB open-time gate compares
+    against.
     """
 
     def __init__(self, cfg: VAEConfig = SD35_VAE, seed: int = 0,
                  device=None, params: Optional[Dict[str, Any]] = None,
                  with_encoder: bool = True,
-                 encoder_params: Optional[Dict[str, Any]] = None):
+                 encoder_params: Optional[Dict[str, Any]] = None,
+                 weight_dtype: str = "float32"):
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -231,6 +241,27 @@ class VAE:
             encoder_params = init_encoder(gen, cfg)
         self.encoder = (map_params(encoder_params, self._leaf)
                         if encoder_params is not None else None)
+        self.set_weight_dtype(weight_dtype)
+
+    def set_weight_dtype(self, weight_dtype: str) -> None:
+        """(Re-)derive the serving tree at ``weight_dtype`` from the
+        current fp32 decoder.  Unconditional: a caller that changed
+        ``self.decoder`` (calibration, tests) gets fresh quantized
+        weights."""
+        from repro_torch.vae import quantize as Q      # late: no cycle
+        self._qparams: Dict[str, Any] = {"float32": self.decoder}
+        if weight_dtype != "float32":
+            self._qparams[weight_dtype] = Q.quantize_decoder(self.decoder,
+                                                             weight_dtype)
+        self.weight_dtype = weight_dtype
+
+    def _params_for(self, precision: Optional[str]) -> Dict[str, Any]:
+        precision = precision or self.weight_dtype
+        if precision not in self._qparams:
+            from repro_torch.vae import quantize as Q
+            self._qparams[precision] = Q.quantize_decoder(self.decoder,
+                                                          precision)
+        return self._qparams[precision]
 
     def _leaf(self, p: torch.Tensor) -> torch.Tensor:
         return p.to(device=self.device, dtype=self.cfg.dtype).contiguous()
@@ -253,11 +284,14 @@ class VAE:
         with torch.no_grad():
             return decode(self.decoder, self._input(z), self.cfg)
 
-    def decode_u8(self, z) -> torch.Tensor:
+    def decode_u8(self, z, precision: Optional[str] = None) -> torch.Tensor:
         """latents [N, h, w, C] -> uint8 [N, 8h, 8w, 3] on this device
-        (asynchronous on CUDA: the caller synchronises)."""
+        (asynchronous on CUDA: the caller synchronises), from the weights
+        at ``precision`` (default: the configured ``weight_dtype``;
+        'float32' forces the oracle weights, the gate's reference)."""
         with torch.no_grad():
-            return decode_u8(self.decoder, self._input(z), self.cfg)
+            return decode_u8(self._params_for(precision), self._input(z),
+                             self.cfg)
 
     def decode_trunk(self, z) -> torch.Tensor:
         with torch.no_grad():
@@ -284,7 +318,8 @@ def calibrate_output_range(vae: VAE, target_std: float = 0.35,
 
     Random-init decoders emit images that saturate the uint8 clamp, which
     no trained decoder does.  Port of the JAX package's
-    ``vae/quantize.py:calibrate_output_range``."""
+    ``vae/quantize.py:calibrate_output_range``; like it, re-derives the
+    quantized serving tree from the rescaled decoder."""
     cfg = vae.cfg
     z = probe_latents((probe_hw, probe_hw, cfg.latent_channels), 2, seed)
     y = vae.decode(z).cpu().numpy()
@@ -292,12 +327,17 @@ def calibrate_output_range(vae: VAE, target_std: float = 0.35,
     co = vae.decoder["conv_out"]
     co["w"] = (co["w"] * gain).contiguous()
     co["b"] = (co["b"] * gain).contiguous()
+    vae.set_weight_dtype(vae.weight_dtype)
     return gain
 
 
-def demo_vae(seed: int = 0, device=None) -> VAE:
+def demo_vae(seed: int = 0, device=None,
+             weight_dtype: str = "float32") -> VAE:
     """The demo :class:`VAE` (decoder and encoder) with its output range
-    calibrated into the display domain; deterministic per seed."""
+    calibrated into the display domain, serving ``weight_dtype``
+    weights; deterministic per seed."""
     vae = VAE(DEMO_VAE, seed=seed, device=device)
     calibrate_output_range(vae)
+    if weight_dtype != "float32":
+        vae.set_weight_dtype(weight_dtype)
     return vae

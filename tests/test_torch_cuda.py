@@ -5,6 +5,9 @@ channels, the encoder's three input channels, ragged attention lengths.
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors.  Also the batch invariance of the decode, the encoder and the
 engine on CUDA against the CPU, and regeneration bit-exact on the card.
+The four conv kernels' quantized-weight cases (bf16, and int8 with a
+per-Cout scale) at ragged shapes, their bits against the fp32 path on
+the same weight values, and the quantized decode and engine gate.
 
 Marked ``cuda``: these skip where no NVIDIA GPU is present.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.vae import quantize as Q
 
 pytestmark = pytest.mark.cuda
 
@@ -488,3 +492,178 @@ def test_ssm_lm_on_card_matches_cpu(dev, arch):
     for key, want in cc["ssm"].items():
         got = gc["ssm"][key].cpu()
         assert max_err(got, want) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# quantized weights: bf16, and int8 codes with a per-Cout scale
+# ---------------------------------------------------------------------------
+
+QUANT = ["bfloat16", "int8"]
+# Cin 4-520, Cout 8-264 and conv_out's 3; H and W multiples of neither the
+# 4 x 32 tiles nor the 16 x 32 narrow one.  The tensor-core tile copies
+# weights 16 bytes at a time where Cout allows: Cout 136 and 264 send
+# int8 (Cout % 16) to the one-value path, 132 bf16 (Cout % 8) too, 256
+# neither
+QUANT_CONV_SHAPES = [(1, 5, 7, 4, 8, 2), (1, 9, 6, 8, 3, 2),
+                     (2, 33, 70, 24, 136, 4), (1, 13, 37, 520, 264, 8),
+                     (2, 6, 45, 128, 132, 32), (1, 37, 70, 128, 3, 32),
+                     (1, 6, 45, 520, 256, 8)]
+
+
+def stored(wt, weight_dtype):
+    return wt.bfloat16() if weight_dtype == "bfloat16" else Q.quantize_int8(wt)
+
+
+def plain_args(w):
+    """(weight in its storage dtype, w_scale) for the plain versions."""
+    return ops.weight_parts(w)
+
+
+def rel_err(got, want):
+    return max_err(got, want) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("weight_dtype", QUANT)
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", QUANT_CONV_SHAPES)
+def test_conv3x3_quantized(dev, weight_dtype, n, h, w, cin, cout, groups):
+    x, wt, b = randn(dev, 21, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wq = stored(wt * 0.1, weight_dtype)
+    wp, s = plain_args(wq)
+    got = ops.conv3x3(x, wq, b)
+    assert rel_err(got, ref.conv3x3_ref(x, wp, b, s)) <= 2e-5
+
+
+@pytest.mark.parametrize("weight_dtype", QUANT)
+@pytest.mark.parametrize("n,h,w,cin,cout,groups",
+                         QUANT_CONV_SHAPES + [(2, 70, 90, 24, 264, 4)])
+def test_gn_silu_conv3x3_quantized(dev, weight_dtype, n, h, w, cin, cout,
+                                   groups):
+    x, sc, gb, wt, b = randn(dev, 22, (n, h, w, cin), (cin,), (cin,),
+                             (3, 3, cin, cout), (cout,))
+    wq = stored(wt * 0.1, weight_dtype)
+    wp, s = plain_args(wq)
+    got = ops.gn_silu_conv3x3(x, sc, gb, wq, b, groups=groups)
+    want = ref.gn_silu_conv3x3_ref(x, sc, gb, wp, b, groups, w_scale=s)
+    assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("weight_dtype", QUANT)
+@pytest.mark.parametrize("n,h,w,cin,cout,groups",
+                         [(1, 9, 6, 8, 3, 2), (1, 37, 70, 128, 3, 32),
+                          (2, 5, 7, 520, 3, 8), (1, 8, 8, 16, 32, 4)])
+def test_output_epilogue_quantized(dev, weight_dtype, n, h, w, cin, cout,
+                                   groups):
+    x, sc, gb, wt, b = randn(dev, 23, (n, h, w, cin), (cin,), (cin,),
+                             (3, 3, cin, cout), (cout,))
+    wq = stored(wt * 0.1 / max(1.0, (cin / 32) ** 0.5), weight_dtype)
+    wp, s = plain_args(wq)
+    got = ops.output_epilogue(x, sc, gb, wq, b, groups=groups)
+    want = ref.output_epilogue_ref(x, sc, gb, wp, b, groups, w_scale=s)
+    assert got.dtype == torch.uint8
+    assert max_err(got.int(), want.int()) <= 1
+    assert 0 < float(got.float().mean()) < 255
+
+
+@pytest.mark.parametrize("weight_dtype", QUANT)
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 4, 4, 8, 8), (2, 5, 3, 4, 16), (1, 7, 40, 12, 130),
+    (1, 6, 9, 520, 264)])
+def test_upsample_conv3x3_quantized(dev, weight_dtype, n, h, w, cin, cout):
+    x, wt, b = randn(dev, 24, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wq = stored(wt * 0.1, weight_dtype)
+    wp, s = plain_args(wq)
+    got = ops.upsample_conv3x3(x, wq, b)
+    assert tuple(got.shape) == (n, 2 * h, 2 * w, cout)
+    assert rel_err(got, ref.upsample_conv3x3_ref(x, wp, b, s)) <= 2e-5
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", [(2, 33, 70, 24, 136, 4),
+                                                   (1, 13, 37, 520, 264, 8)])
+def test_quantized_kernels_give_the_fp32_bits(dev, n, h, w, cin, cout,
+                                              groups):
+    """Stored bf16 and int8 weights are exact in fp32 (and TF32): the
+    quantized cases sum the same products in the same order as the fp32
+    kernels on the same values, and the int8 scale is one rounded multiply
+    before the bias.  In ``gn_silu_conv.cu`` the bf16/int8 case runs two
+    TF32 MMAs per product where fp32 runs three; the dropped one is 0."""
+    x, sc, gb, wt, b = randn(dev, 25, (n, h, w, cin), (cin,), (cin,),
+                             (3, 3, cin, cout), (cout,))
+    zero = torch.zeros_like(b)
+    wb = (wt * 0.1).bfloat16()
+    assert torch.equal(ops.conv3x3(x, wb, b), ops.conv3x3(x, wb.float(), b))
+    assert torch.equal(ops.gn_silu_conv3x3(x, sc, gb, wb, b, groups=groups),
+                       ops.gn_silu_conv3x3(x, sc, gb, wb.float(), b,
+                                           groups=groups))
+    qw = Q.quantize_int8(wt * 0.1)
+    assert torch.equal(ops.conv3x3(x, qw, b),
+                       ops.conv3x3(x, qw.q.float(), zero) * qw.scale + b)
+    assert torch.equal(
+        ops.gn_silu_conv3x3(x, sc, gb, qw, b, groups=groups),
+        ops.gn_silu_conv3x3(x, sc, gb, qw.q.float(), zero, groups=groups)
+        * qw.scale + b)
+    assert torch.equal(ops.upsample_conv3x3(x, qw, b),
+                       ops.upsample_conv3x3(x, qw.q.float(), zero)
+                       * qw.scale + b)
+
+
+def test_quantized_launch_counted_once_per_call(dev):
+    x, sc, gb, wt, b = randn(dev, 26, (1, 8, 8, 16), (16,), (16,),
+                             (3, 3, 16, 16), (16,))
+    ops.reset_launch_counts()
+    for wq in (wt.bfloat16(), Q.quantize_int8(wt)):
+        ops.conv3x3(x, wq, b)
+        ops.gn_silu_conv3x3(x, sc, gb, wq, b, groups=4)
+        ops.upsample_conv3x3(x, wq, b)
+        ops.output_epilogue(x, sc, gb, wq, b, groups=4)
+    counts = ops.launch_counts()
+    for k in ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
+              "output_epilogue"):
+        assert counts[k] == 2
+    assert sum(counts.values()) == 8
+
+
+def test_wrappers_refuse_bad_quantized_weights(dev):
+    x, wt, b = randn(dev, 27, (1, 8, 8, 8), (3, 3, 8, 8), (8,))
+    qw = Q.quantize_int8(wt)
+    with pytest.raises(ValueError):          # int8 without its scale
+        ops._conv3x3.conv3x3(x, qw.q, b)
+    with pytest.raises(ValueError):          # a scale with fp32 weights
+        ops._conv3x3.conv3x3(x, wt, b, w_scale=qw.scale)
+    with pytest.raises(ValueError):          # a scale of the wrong length
+        ops._upsample_conv.upsample_conv3x3(x, qw.q, b,
+                                            w_scale=qw.scale[:4])
+    with pytest.raises(TypeError):           # int16 is the collapse's only
+        ops._conv3x3.conv3x3(x, qw.q.to(torch.int16), b, w_scale=qw.scale)
+    with pytest.raises(ValueError):          # the scale on the CPU
+        ops.gn_silu_conv3x3(x, x[0, 0, 0], x[0, 0, 0],
+                            ops.QuantizedWeight(qw.q, qw.scale.cpu()), b,
+                            groups=4)
+
+
+@pytest.mark.parametrize("weight_dtype", QUANT)
+def test_quantized_demo_decode_on_card(dev, weight_dtype):
+    """bf16 and snapped int8 demo decoders on the card: bucket 8
+    bit-identical to batch 1, within +-1 LSB of the same weights on the
+    CPU, and the gate within 1 LSB; an engine opens and reports it."""
+    from repro_torch.store import LatentBox, StoreConfig
+    from repro_torch.vae.model import demo_vae, map_params
+    gpu = demo_vae(seed=0, device=dev)
+    if weight_dtype == "int8":
+        Q.snap_to_grid(gpu)
+    gpu.set_weight_dtype(weight_dtype)
+    cpu = demo_vae(seed=0, device="cpu")
+    cpu.decoder = map_params(gpu.decoder, lambda p: p.cpu())
+    cpu.set_weight_dtype(weight_dtype)
+    z = Q.probe_latents((8, 8, 4), 8, seed=4)
+    batch = gpu.decode_u8(z).cpu()
+    for i in range(8):
+        assert torch.equal(batch[i:i + 1], gpu.decode_u8(z[i:i + 1]).cpu())
+    assert max_err(batch.int(), cpu.decode_u8(z).int()) <= 1
+    gate = Q.check_u8_gate(gpu, (1, 2, 4, 8), (8, 8, 4))
+    assert max(gate.values()) <= 1
+    box = LatentBox.engine(vae=gpu, device=dev, config=StoreConfig(
+        n_nodes=1, cache_bytes_per_node=1e5, adaptive=False,
+        weight_dtype=weight_dtype))
+    box.put(0, latent=z[0].astype(np.float16))
+    assert box.get(0).payload.dtype == np.uint8
+    assert box.summary()["quantize_gate_lsb"] == gate

@@ -6,7 +6,8 @@ pixels within +-1 LSB.  The same holds for a write-path trace (recipe
 and uint8-image puts, demotions, regenerated reads), and float32 pixels
 agree within 1e-4.  Also: regeneration bit-exact within the port,
 ``promote``, the device default (no CUDA -> the port refuses to run
-instead of carrying on on the CPU), the features still left out, and
+instead of carrying on on the CPU), the features still left out (a
+quantized ``weight_dtype`` opens: ``tests/test_torch_quantize.py``), and
 the batcher's bucketing and single-flight."""
 
 import numpy as np
@@ -152,8 +153,7 @@ class TestDevice:
 
 
 class TestNotPorted:
-    @pytest.mark.parametrize("kw", [dict(weight_dtype="bfloat16"),
-                                    dict(autotune=True),
+    @pytest.mark.parametrize("kw", [dict(autotune=True),
                                     dict(autoscale=True),
                                     dict(data_dir="unused")])
     def test_config_raises(self, vaes, kw):
