@@ -21,7 +21,9 @@ wall seconds (any failure exits non-zero):
                 without an initial state) and decode step's (t = 1, the
                 state updated in place): max error and tolerance, median
                 ms (CUDA events; for the LM shapes the kernels' device
-                time under ``torch.profiler``), the plain version's ms, a
+                time under ``torch.profiler``; for the decode attention
+                also with a cold L2, ``cold_ms``, beside SDPA's), the
+                plain version's ms, a
                 library call's ms where one exists, FLOPs, bytes and the
                 bound (at the peak of what the kernel runs on: for fp32
                 work in 3xTF32, three TF32 products per fp32 one at the
@@ -85,6 +87,7 @@ The script imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import statistics
 from collections import Counter
@@ -162,7 +165,10 @@ DESIGN = {
     "output_epilogue": "CUDA-core fp32 implicit GEMM",
     "flash_attention": "wgmma bf16, 3xTF32 mma.sync fp32",
     "group_norm_silu": "CUDA-core fp32",
-    "decode_attention": "CUDA-core split over the cache",
+    "decode_attention": "one launch: a CTA cluster per (sequence, kv head), "
+                        "per-warp cp.async rings, bf16 on mma.sync (q k^T; "
+                        "at d 128 p v with p split exactly into 3 bf16), "
+                        "DSMEM merge",
     "rwkv6_scan": "CUDA-core fp32 scan",
 }
 #: kernels whose fp32 work runs in 3xTF32 on the tensor cores: their
@@ -725,7 +731,9 @@ def lm_attention_checks(torch, log, state, totals, max_err):
                 lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
                     q, k, v, attn_mask=mask, enable_gqa=True)
         else:
-            lens = torch.tensor(shape["lengths"], device="cuda")
+            # int32, as the model's cache positions are: no cast kernel
+            lens = torch.tensor(shape["lengths"], device="cuda",
+                                dtype=torch.int32)
             run = lambda: ops.decode_attention(q, k, v, lens)      # noqa: E731
             plain = lambda: ref.decode_attention_ref(q, k, v, lens)  # noqa: E731
             mask = (torch.arange(shape["s"], device="cuda")[None, :]
@@ -743,6 +751,19 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         rel = 1e-4 if dtype == torch.float32 else 1e-2
         tol = rel * float(want.float().abs().max())
         need(err <= tol, f"{label}: max error {err} > {tol}")
+        per_seq = {}
+        if kernel == "decode_attention":
+            # each sequence also against its own largest output: a long
+            # sequence's outputs are far smaller than a short one's, so a
+            # fault in its share of the rows would hide under the batch's
+            seq_err = [float((got[i].float() - want[i].float()).abs().max())
+                       for i in range(n)]
+            seq_tol = [rel * float(want[i].float().abs().max())
+                       for i in range(n)]
+            for i, (e, t) in enumerate(zip(seq_err, seq_tol)):
+                need(e <= t, f"{label}: sequence {i} (length "
+                     f"{shape['lengths'][i]}) max error {e} > {t}")
+            per_seq = dict(seq_max_abs_err=seq_err, seq_tol=seq_tol)
         # a decode call's kernels take tens of microseconds, less than the
         # host needs to issue the wrapper, so CUDA events around one call
         # time the host; the profiler's device time is the kernels' own
@@ -759,12 +780,21 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         flops, nbytes = attention_work(kernel, shape, q.element_size())
         row = dict(times, flops=flops, ops_ms=ops_ms(state, kernel, flops, dt),
                    bytes=nbytes)
+        cold = {}
+        if kernel == "decode_attention":
+            cold = cold_decode_times(torch, q, k, v, lens, mask)
+            for key in ("cold_ms", "library_cold_ms"):
+                t = state["cold"].setdefault(kernel, {})
+                t[key] = t.get(key, 0.0) + sum(per_pass.values()) * (
+                    cold[key] or 0.0)
         emit(log, "kernel", name=kernel, design=DESIGN[kernel], arch=arch,
-             dtype=dt, shape=shape,
+             dtype=dt, shape=shape, **cold, **per_seq,
              calls=per_pass, max_abs_err=err, tol=tol,
              tol_reason=(f"{rel:g} relative to the output's max: fp32 "
                          "softmax and sums in another order"
-                         + ("; bf16 output rounding" if rel > 1e-4 else "")),
+                         + ("; bf16 output rounding" if rel > 1e-4 else "")
+                         + ("; seq_tol: the same, each sequence against its "
+                            "own max" if per_seq else "")),
              **row, timing="device time (torch.profiler), per call",
              event_times=event,
              bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
@@ -775,6 +805,35 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         add_to_totals(totals, kernel, per_pass, row)
         del q, k, v, got, want
         torch.cuda.empty_cache()
+
+
+def cold_decode_times(torch, q, k, v, lens, mask):
+    """Device ms per call of the decode-attention kernel and of SDPA with a
+    cold L2: each call takes the next of enough copies of q and the caches
+    that together they hold four times the L2, so the rows a call reads
+    were evicted since their last use, as in a decode step whose layers'
+    caches never fit in L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    per_copy = sum(t.numel() * t.element_size() for t in (q, k, v))
+    n = max(2, -(-4 * l2 // per_copy))
+    copies = [tuple(t.clone() for t in (q, k, v)) for _ in range(n)]
+    out = {"cold_copies": n, "l2_bytes": l2}
+    calls = {"cold_ms": lambda a: ops.decode_attention(*a, lens),
+             "library_cold_ms": lambda a: F.scaled_dot_product_attention(
+                 a[0][:, :, None], a[1], a[2], attn_mask=mask,
+                 enable_gqa=True)}
+    for key, call in calls.items():
+        it = itertools.cycle(copies)
+        try:
+            out[key] = device_ms(torch, lambda: call(next(it)), REPS) or None
+        except RuntimeError:             # no SDPA backend for this case
+            if key != "library_cold_ms":
+                raise
+            out[key] = None
+    del copies
+    return out
 
 
 def rwkv6_work(shape, elt):
@@ -1565,7 +1624,7 @@ def main() -> int:
               "and does not fall back to the CPU", file=sys.stderr)
         return 3
     OUT_DIR.mkdir(exist_ok=True)
-    state = {"np": np}
+    state = {"np": np, "cold": {}}
     with open(OUT_DIR / "chip_smoke.jsonl", "w") as log:
         run_phase(log, "device", phase_device, torch, log, state)
         run_phase(log, "kernels", phase_kernels, torch, log, state)
@@ -1588,7 +1647,7 @@ def main() -> int:
              "bound_by": totals[k]["bound_by"],
              "library_ms": (None if k in NO_LIBRARY
                             else totals[k]["library_ms"]),
-             "design": DESIGN[k]}
+             "design": DESIGN[k], **state["cold"].get(k, {})}
             for k, (src, rep) in KERNELS.items()]})
         print(line, flush=True)
         log.write(line + "\n")

@@ -49,8 +49,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
                                                     I, I, F, I, I, I, P]),
     "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
-    "decode_attention": ("decode_attention_launch", [P, P, P, P, P, P, P,
-                                                     I, I, I, I, I, I, F, I,
+    "decode_attention": ("decode_attention_launch", [P, P, P, P, P,
+                                                     I, I, I, I, I, F, I,
                                                      P]),
     "rwkv6_scan": ("rwkv6_scan_launch", [P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, P]),

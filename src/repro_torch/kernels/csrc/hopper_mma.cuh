@@ -2,8 +2,8 @@
 // and convolution kernels: the warpgroup products (wgmma) that read a bf16
 // A operand from registers and B from shared memory through a matrix
 // descriptor, the warp-level TF32 product (mma.sync.m16n8k8) with the
-// hi/lo split of 3xTF32, and the cp.async copies that stage tiles in
-// shared memory.
+// hi/lo split of 3xTF32, the bf16 one (mma.sync.m16n8k16) with ldmatrix,
+// and the cp.async copies that stage tiles in shared memory.
 //
 // Shared-memory operands of wgmma use the layout without swizzle: the unit
 // is an 8 x 8 "core matrix" of bf16 stored as 128 contiguous bytes, eight
@@ -118,6 +118,37 @@ __device__ __forceinline__ void mma_tf32_zero(float* d, const uint32_t* a, const
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8] in bf16 with fp32 accumulation (each
+// product exact); a: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+// a3 (g+8, 2t+8..); b: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); c as in
+// mma_tf32
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two 8 x 8 matrices of 16-bit values from shared memory, one row of 16
+// bytes per address (lanes 0-7 the first matrix's rows, 8-15 the
+// second's); lane i gets row i / 4, columns 2 (i % 4) and 2 (i % 4) + 1 of
+// each: the B fragment of mma_bf16 when the rows are B's columns
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(row)));
+}
+
+// four 8 x 8 matrices (lanes 8 m..8 m + 7 address matrix m) with .trans:
+// lane i gets rows 2 (i % 4) and 2 (i % 4) + 1 of column i / 4 of each,
+// the B fragment of mma_bf16 when the rows are B's rows (k)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
 }
 
 // c += a b in 3xTF32 within the tensor core's accumulator: the two small

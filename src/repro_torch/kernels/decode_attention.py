@@ -2,11 +2,19 @@
 (counterpart of the JAX package's ``kernels/decode_attention.py``): the
 LM serving step's attention.
 
-On CUDA: ``csrc/decode_attention.cu`` (a chunked pass over the cache
-rows below each sequence's length, then a merge of the chunks; one
-launch count per call), fp32 or bf16 inputs, fp32 softmax and
-accumulation, output in ``q.dtype``.  On the CPU: the plain version,
-``ref.decode_attention_ref``.
+On CUDA: ``csrc/decode_attention.cu``, one kernel launch per call
+(replacing the Pallas kernel ``_dec_kernel`` of the JAX package's
+``kernels/decode_attention.py``).  The call is bound by the bytes of the
+cache rows below each sequence's length.  Each (sequence, kv head) is a
+cluster of CTAs that split its rows; each warp streams its rows through
+its own ``cp.async`` ring in shared memory and keeps an fp32 online
+softmax; bf16 ``q k^T`` runs on ``mma.sync``, and so does ``p v`` at head
+dim 128 with grouped heads (``p`` split exactly into three bf16 parts;
+other shapes on the CUDA cores); the cluster merges its warps' parts in
+a fixed order through distributed shared memory.  No scratch in global
+memory, no atomics: a sequence's bits depend only on its own length and
+data.  fp32 or bf16 inputs, output in ``q.dtype``.  On the CPU: the plain
+version, ``ref.decode_attention_ref``.
 """
 
 from __future__ import annotations
@@ -21,8 +29,6 @@ from repro_torch.kernels.flash_attention import DTYPES
 #: kernel launches of :func:`decode_attention` in this process
 launches = 0
 
-#: cache rows one block of the kernel reads (``CHUNK`` in the source)
-CHUNK = 64
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 256
 
@@ -50,23 +56,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError(f"decode_attention: q and the caches must share a "
                         f"dtype, got {q.dtype}, {k_cache.dtype}, "
                         f"{v_cache.dtype}")
-    align = 4 * q.element_size()            # one 4-element load
-    if d % 4 or d > MAX_HEAD_DIM or \
-            any(t.data_ptr() % align for t in (q, k_cache, v_cache)):
-        raise ValueError(f"decode_attention: head dim {d} must be a multiple "
-                         f"of 4 and at most {MAX_HEAD_DIM}, q and the caches "
-                         f"{align}-byte aligned")
+    # cache rows are staged 16 bytes at a time: each row must be whole
+    # 16-byte units (d % 4 in fp32, d % 8 in bf16) and start aligned
+    if d * q.element_size() % 16 or d > MAX_HEAD_DIM or \
+            any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError(f"decode_attention: head dim {d} must fill whole "
+                         f"16-byte units in {q.dtype} and be at most "
+                         f"{MAX_HEAD_DIM}, q and the caches 16-byte aligned")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    splits = -(-s // CHUNK)
-    part_ml = torch.empty((n, hq, splits, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((n, hq, splits, d), dtype=torch.float32,
-                           device=q.device)
     out = torch.empty_like(q)
     build.check(build.lib("decode_attention").decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
-        part_acc.data_ptr(), n, hq, hkv, s, d, splits, scale,
+        lengths.data_ptr(), out.data_ptr(), n, hq, hkv, s, d, scale,
         DTYPES[q.dtype], build.stream_of(q)), "decode_attention")
     launches += 1
     return out

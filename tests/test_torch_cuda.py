@@ -7,7 +7,10 @@ tensors.  Also the batch invariance of the decode, the encoder and the
 engine on CUDA against the CPU, and regeneration bit-exact on the card.
 The four conv kernels' quantized-weight cases (bf16, and int8 with a
 per-Cout scale) at ragged shapes, their bits against the fp32 path on
-the same weight values, and the quantized decode and engine gate.
+the same weight values, and the quantized decode and engine gate.  The
+decode attention also at its serving shapes and at the edges of its row
+partition, its bits independent of the batch and of the cache length,
+and one device kernel per call.
 
 Marked ``cuda``: these skip where no NVIDIA GPU is present.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -138,7 +141,7 @@ def test_flash_attention_lm_cases(dev, n, hq, hkv, sq, skv, d, causal,
     assert max_err(got, want) <= tol * float(want.abs().max().float())
 
 
-# ragged lengths incl. 0, 1 and S; S not a multiple of the 128-row chunk;
+# ragged lengths incl. 0, 1 and S; S not a multiple of the 64-row tile;
 # rep 7, rep 1 and rep 12 (two groups of 8 heads); d 32, 64, 128, 256 and
 # zamba2's 80
 DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
@@ -146,7 +149,21 @@ DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
           (3, 8, 8, 64, 32, (64, 63, 2)),
           (2, 24, 2, 257, 256, (257, 100)),
           (1, 12, 1, 130, 128, (130,)),
-          (4, 32, 32, 200, 80, (200, 129, 64, 1))]
+          (4, 32, 32, 200, 80, (200, 129, 64, 1)),
+          # the serving shapes of chip_smoke.py: Qwen2-7B and zamba2-2.7b
+          (4, 28, 4, 2112, 128, (2049, 2080, 1500, 7)),
+          (4, 32, 32, 2112, 80, (2049, 2080, 1500, 7)),
+          # the partition's edges: a tile of 32 rows (fp32 d 128) or 64
+          # (bf16 d 128, d 80) +-1; a CTA's span of the 8-way split steps
+          # by 16 rows at len 128 k -> 128 k + 1; S itself; lengths that
+          # leave CTAs of the cluster empty (1, 33, 40, 129: 1-5 of 8)
+          (6, 14, 2, 1100, 128, (1, 31, 32, 33, 63, 64)),
+          (6, 14, 2, 1100, 128, (65, 127, 128, 129, 1023, 1024)),
+          (4, 7, 1, 1100, 128, (1025, 40, 1100, 1099)),
+          (6, 4, 4, 1030, 80, (1, 63, 65, 129, 1025, 1030)),
+          # more q heads per kv head than one pass of 8 takes
+          (1, 20, 1, 300, 64, (300,)),
+          (2, 34, 2, 200, 32, (200, 17))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -160,25 +177,37 @@ def test_decode_attention(dev, n, hq, hkv, s, d, lengths, dtype):
     assert got.dtype == dtype and got.shape == want.shape
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     assert max_err(got, want) <= tol * float(want.abs().max().float())
+    # each sequence also against its own largest output: a long sequence's
+    # outputs are far smaller than a short one's, so a fault in its share
+    # of the rows would hide under the whole batch's limit
+    for i in range(n):
+        assert max_err(got[i], want[i]) <= tol * float(
+            want[i].abs().max().float()), (i, lengths[i])
     assert torch.all(got[[i for i, n_ in enumerate(lengths) if n_ == 0]]
                      == 0)
 
 
 def test_decode_attention_independent_of_batch_and_cache_length(dev):
     """A sequence's result depends on its own rows and length only: the
-    same bits alone, in a batch, and in a longer cache."""
-    q, kc, vc = randn(dev, 18, (3, 14, 128), (3, 2, 400, 128),
-                      (3, 2, 400, 128))
-    lens = torch.tensor([400, 257, 33], device=dev)
-    batch = ops.decode_attention(q, kc, vc, lens)
-    for i in range(3):
-        one = ops.decode_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
-                                   lens[i:i + 1])
-        assert torch.equal(batch[i:i + 1], one)
-    longer = torch.zeros((3, 2, 700, 128), device=dev)
-    kl, vl = longer.clone(), longer.clone()
-    kl[:, :, :400], vl[:, :, :400] = kc, vc
-    assert torch.equal(ops.decode_attention(q, kl, vl, lens), batch)
+    same bits alone, in a batch, and in a longer cache.  Lengths 2049 and
+    1000 spread over all 8 CTAs of a cluster, 400 over 7, 33 over 3."""
+    for s, lengths, longer_s in ((400, (400, 257, 33), 700),
+                                 (2112, (2049, 1000, 33), 2400)):
+        q, kc, vc = randn(dev, 18, (3, 14, 128), (3, 2, s, 128),
+                          (3, 2, s, 128))
+        lens = torch.tensor(lengths, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = q.to(dtype), kc.to(dtype), vc.to(dtype)
+            batch = ops.decode_attention(qd, kd, vd, lens)
+            for i in range(3):
+                one = ops.decode_attention(qd[i:i + 1], kd[i:i + 1],
+                                           vd[i:i + 1], lens[i:i + 1])
+                assert torch.equal(batch[i:i + 1], one)
+            longer = torch.zeros((3, 2, longer_s, 128), device=dev,
+                                 dtype=dtype)
+            kl, vl = longer.clone(), longer.clone()
+            kl[:, :, :s], vl[:, :, :s] = kd, vd
+            assert torch.equal(ops.decode_attention(qd, kl, vl, lens), batch)
 
 
 def test_attention_kernels_count_one_launch_per_call(dev):
@@ -192,6 +221,47 @@ def test_attention_kernels_count_one_launch_per_call(dev):
     assert counts["decode_attention"] == 1
     assert counts["flash_attention"] == 1
     assert sum(counts.values()) == 2
+
+
+def test_decode_attention_issues_one_device_kernel(dev):
+    """One call is one kernel on the device: no second merge launch, no
+    scratch to fill (counted by torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for dtype, shape in ((torch.bfloat16, (4, 28, 4, 128)),
+                         (torch.bfloat16, (4, 32, 32, 80)),
+                         (torch.float32, (2, 12, 1, 256))):
+        n, hq, hkv, d = shape
+        q, kc, vc = (a.to(dtype) for a in randn(
+            dev, 20, (n, hq, d), (n, hkv, 700, d), (n, hkv, 700, d)))
+        lens = torch.tensor([700, 513, 2, 0][:n], device=dev,
+                            dtype=torch.int32)
+        ops.decode_attention(q, kc, vc, lens)          # build, warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.decode_attention(q, kc, vc, lens)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation)
+        assert kernels == 1, [e.key for e in prof.key_averages()]
+
+
+def test_decode_attention_refuses_partial_16_byte_rows(dev):
+    """The kernel stages cache rows 16 bytes at a time: bf16 needs d % 8
+    (fp32 d % 4), and the wrapper raises for other head dims."""
+    for dtype, d in ((torch.bfloat16, 36), (torch.bfloat16, 4),
+                     (torch.float32, 6)):
+        kc = torch.zeros((1, 1, 8, d), device=dev, dtype=dtype)
+        with pytest.raises(ValueError):
+            ops.decode_attention(torch.zeros((1, 2, d), device=dev,
+                                             dtype=dtype), kc, kc,
+                                 torch.tensor([8], device=dev))
+    kc = torch.zeros((1, 1, 8, 40), device=dev, dtype=torch.bfloat16)
+    out = ops.decode_attention(torch.ones((1, 2, 40), device=dev,
+                                          dtype=torch.bfloat16), kc, kc,
+                               torch.tensor([8], device=dev))
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 def test_lm_on_card_matches_cpu(dev):
