@@ -29,8 +29,12 @@ wall seconds (any failure exits non-zero):
                 work in 3xTF32, three TF32 products per fp32 one at the
                 TF32 peak), and what the kernel runs on (``design``); then
                 the totals of each pass, and the plain
-                ``downsample``'s ms per encode.  The four conv kernels'
-                bf16 and int8 weight cases at every decode shape, each
+                ``downsample``'s ms per encode.  The upsampler's lines
+                also carry its two costs apart: ``phase_collapse_ms``
+                (the wrapper's per-call tap collapse) and ``kernel_ms``
+                (the launch alone, from taps collapsed beforehand).  The
+                four conv kernels' bf16 and int8 weight cases at every
+                decode shape, each
                 against its plain version at the fp32 tolerance, with
                 its ms beside the fp32 case's, and their totals over one
                 uint8 decode per weight dtype;
@@ -159,9 +163,14 @@ KERNELS = {
 }
 #: kernel -> what its CUDA source runs on
 DESIGN = {
-    "conv3x3": "CUDA-core fp32 implicit GEMM",
-    "gn_silu_conv3x3": "3xTF32 mma.sync implicit GEMM",
-    "upsample_conv3x3": "CUDA-core fp32 implicit GEMM",
+    "conv3x3": "3xTF32 mma.sync implicit GEMM (tc_conv_tile.cuh): Cout > 32 "
+               "on the 128-wide tile, 4 < Cout <= 32 on the 32-wide tile with "
+               "K split over a CTA cluster and a DSMEM merge; Cout <= 4 on the "
+               "CUDA-core fp32 tile",
+    "gn_silu_conv3x3": "3xTF32 mma.sync implicit GEMM (tc_conv_tile.cuh)",
+    "upsample_conv3x3": "3xTF32 mma.sync implicit GEMM (tc_conv_tile.cuh), "
+                        "phase form: a block per phase, its 4 collapsed "
+                        "2x2 taps, 128-wide tile",
     "output_epilogue": "CUDA-core fp32 implicit GEMM",
     "flash_attention": "wgmma bf16, 3xTF32 mma.sync fp32",
     "group_norm_silu": "CUDA-core fp32",
@@ -172,8 +181,11 @@ DESIGN = {
     "rwkv6_scan": "CUDA-core fp32 scan",
 }
 #: kernels whose fp32 work runs in 3xTF32 on the tensor cores: their
-#: bound counts three TF32 products per fp32 one at the TF32 peak
-TENSOR_CORE = ("gn_silu_conv3x3", "flash_attention")
+#: bound counts three TF32 products per fp32 one at the TF32 peak (a conv
+#: with Cout <= CUDA_CORE_COUT runs on the CUDA cores, at the fp32 peak)
+TENSOR_CORE = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
+               "flash_attention")
+CUDA_CORE_COUT = 4
 #: the conv kernels that take quantized weights, and the storage dtypes
 QUANT_KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
                  "output_epilogue")
@@ -220,15 +232,16 @@ def card_peaks(name: str):
             "and 495 TF32 dense tensor, 3.35 TB/s", 989e12, 495e12)
 
 
-def ops_ms(state, kernel, flops, dtype="float32"):
+def ops_ms(state, kernel, flops, dtype="float32", cout=None):
     """The least time (ms) of ``flops`` on what ``kernel`` runs them on:
     bf16 at the bf16 tensor-core peak; fp32 at the TF32 peak, three
-    products per fp32 one, for a kernel in ``TENSOR_CORE``, else at the
-    fp32 peak of the CUDA cores."""
+    products per fp32 one, for a kernel in ``TENSOR_CORE`` (a conv's
+    ``cout`` above ``CUDA_CORE_COUT``), else at the fp32 peak of the CUDA
+    cores."""
     fp32_peak, _, _, bf16_peak, tf32_peak = state["peaks"]
     if dtype == "bfloat16":
         return flops / bf16_peak * 1e3
-    if kernel in TENSOR_CORE:
+    if kernel in TENSOR_CORE and (cout is None or cout > CUDA_CORE_COUT):
         return 3.0 * flops / tf32_peak * 1e3
     return flops / fp32_peak * 1e3
 
@@ -397,11 +410,18 @@ def kernel_error(kernel, got, want):
             "a group's statistics): 1e-4 relative to the output's max")
 
 
-def collapse_ms(torch, w):
-    """ms of the upsampler wrapper's per-call phase collapse of a stored
-    filter alone (tensor additions on the card, part of its ``ms``)."""
+def collapse_ms(torch, x, w, b, w_scale=None):
+    """The upsampler's two costs apart: ms of the wrapper's per-call phase
+    collapse of a stored filter alone (tensor additions on the card, part
+    of its ``ms``), and of the kernel launch alone from taps collapsed
+    beforehand (``upsample_conv3x3_taps``)."""
     from repro_torch.kernels import ref
-    return cuda_ms(torch, lambda: ref.storage_phase_weights(w), REPS)
+    from repro_torch.kernels.upsample_conv import upsample_conv3x3_taps
+    wc = ref.storage_phase_weights(w).contiguous()
+    return {"phase_collapse_ms": cuda_ms(
+                torch, lambda: ref.storage_phase_weights(w), REPS),
+            "kernel_ms": cuda_ms(
+                torch, lambda: upsample_conv3x3_taps(x, wc, b, w_scale), REPS)}
 
 
 def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
@@ -433,7 +453,7 @@ def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
         need(err <= tol, f"{kernel}{args} {wd}: max error {err} > {tol}")
         ms = cuda_ms(torch, lambda: wrappers[kernel](qa), REPS)
         plain_ms = cuda_ms(torch, lambda: plains[kernel](pa, w_scale), REPS)
-        extra = ({"phase_collapse_ms": collapse_ms(torch, w_store)}
+        extra = (collapse_ms(torch, a[0], w_store, a[-1], w_scale)
                  if kernel == "upsample_conv3x3" else {})
         emit(log, "kernel_quant", name=kernel, weight_dtype=wd,
              shape=list(args), calls_per_decode=calls, max_abs_err=err,
@@ -515,6 +535,8 @@ def phase_kernels(torch, log, state):
     totals = {p: {k: dict.fromkeys(TOTAL_FIELDS, 0.0) for k in KERNELS}
               for p in PASSES}
     max_err = dict.fromkeys(KERNELS, 0.0)
+    # the upsampler's launches alone (taps collapsed beforehand), per pass
+    kernel_alone = dict.fromkeys(VAE_PASSES, 0.0)
     # weight dtype -> kernel -> ms and calls over one uint8 decode
     quant_totals = {wd: {k: {"ms": 0.0, "calls": 0} for k in QUANT_KERNELS}
                     for wd in WEIGHT_DTYPES}
@@ -540,9 +562,13 @@ def phase_kernels(torch, log, state):
             extra["stats_pass_ms"] = cuda_ms(
                 torch, lambda: gn_stats(a[0], groups, 1e-6), REPS)
         if kernel == "upsample_conv3x3":
-            extra["phase_collapse_ms"] = collapse_ms(torch, a[1])
+            extra.update(collapse_ms(torch, a[0], a[1], a[2]))
+            for p, n in per_pass.items():
+                kernel_alone[p] += n * extra["kernel_ms"]
+        cout = None if kernel == "flash_attention" else args[-1]
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                   ops_ms=ops_ms(state, kernel, flops), bytes=nbytes)
+                   ops_ms=ops_ms(state, kernel, flops, cout=cout),
+                   bytes=nbytes)
         emit(log, "kernel", name=kernel, design=DESIGN[kernel],
              shape=list(args), calls=per_pass,
              max_abs_err=err, tol=tol, tol_reason=why, **row,
@@ -571,6 +597,7 @@ def phase_kernels(torch, log, state):
         extra = {"plain_downsample": down} if p == "encode" else {}
         if p in VAE_PASSES:
             extra["image"] = [image_hw] * 2
+            extra["upsample_conv3x3_kernel_ms"] = kernel_alone[p]
         emit(log, f"kernels_per_{p}",
              total_flops=sum(t["flops"] for t in totals[p].values()),
              total_ms=sum(t["ms"] for t in totals[p].values()),

@@ -41,7 +41,7 @@ F = ctypes.c_float
 SIGNATURES = {
     "gn_stats": ("gn_stats_launch", [P, P, P, I, I, I, I, I, F, P]),
     "conv3x3": ("conv3x3_launch", [P, P, P, P, P, P, P, P,
-                                   I, I, I, I, I, I, I, I, I, P]),
+                                   I, I, I, I, I, I, I, I, I, I, P]),
     "gn_silu_conv": ("gn_silu_conv3x3_launch", [P, P, P, P, P, P, P, P,
                                                  I, I, I, I, I, I, I, P]),
     "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P, P,

@@ -1,38 +1,72 @@
-// 3x3 SAME convolution with an optional GroupNorm + SiLU prologue and an
-// fp32 or uint8 epilogue, on the CUDA cores: one kernel template for two TPU
-// kernels.
+// 3x3 SAME convolution, and the decode's fused uint8 output epilogue: two
+// TPU kernels.
 //
 // Replaces, from src/repro/kernels/:
-//   conv3x3.py::conv3x3 (_conv_kernel)                     PRO none, EPI f32
-//   output_epilogue.py::output_epilogue (_epilogue_kernel)  PRO gn+silu, EPI u8
-// The GroupNorm statistics pass of the fused kernel runs first, in
-// gn_stats.cu.  gn_silu_conv.py::gn_silu_conv3x3 has a tensor-core kernel of
-// its own, gn_silu_conv.cu.
+//   conv3x3.py::conv3x3 (_conv_kernel)                     no prologue, fp32 out
+//   output_epilogue.py::output_epilogue (_epilogue_kernel)  GN + SiLU, uint8 out
+// The GroupNorm statistics pass of the epilogue runs first, in gn_stats.cu.
 //
-// Bound on the H100: operations.  At the decoder's widths (Cin, Cout of
-// 128-512) a 3x3 conv does 9*Cin FMAs per output element against a few
-// bytes, far above the card's fp32 ridge; only conv_out (Cout = 3, the
-// uint8 epilogue) moves more bytes than it computes.  Design: the tile in
-// conv_tile.cuh, an implicit GEMM on the CUDA cores in full fp32 (no TF32,
-// so the decode keeps the fp32 contract of the JAX package) with an 8x8
-// register tile per thread, the input halo and the weights of every tap
-// staged once per 8-channel chunk in shared memory, and each halo row
-// reused by the three taps of a filter row.  The normalised activation
-// exists only in shared memory; the uint8 epilogue writes a quarter of the
-// fp32 bytes.  The 3xTF32 tile of gn_silu_conv.cu is the way to the tensor
-// cores for these two as well.
+// conv3x3 with Cout > 4: the 3xTF32 tensor-core tile of tc_conv_tile.cuh
+// with no prologue and 3x3 taps.  Its callers (ms per call by
+// chip_smoke.py on an H100 80GB HBM3 at 700 W, F.conv2d's in brackets):
+//   the decoder's conv_in, 16 -> 512 on the latent, one 16-channel chunk:
+//     0.048-0.068 (0.071-0.072);
+//   the encoder's conv_in, 3 -> 128 at full resolution: Cin = 3 is read
+//     one channel at a time and zero-padded to the chunk, the 8-deep half
+//     past Cin skipped; its bound is its 134 MB of output (each thread
+//     stores float4s), but it runs at a fifth of that, held like every
+//     shape of the tile by the rate of its products: 0.211-0.216
+//     (0.299-0.307);
+//   the encoder's conv_out, 512 -> 32 on the latent: the 32-wide Cout tile,
+//     whose 32 blocks per image would leave 100 of 132 SMs idle, so its K
+//     is split over a cluster of ks blocks (ks from the wrapper, 8 here),
+//     merged in rank order through distributed shared memory: 0.088-0.128
+//     (0.140-0.159), where the 128-wide CUDA-core tile took 0.878.
+// Bound on the H100: operations for the latent-sized convs, bytes for the
+// full-resolution conv_in.
+//
+// Cout <= 4 (the float decode's conv_out, 128 -> 3) and the output
+// epilogue (Cout = 3, uint8) stay on the narrow CUDA-core tile of
+// conv_tile.cuh in full fp32: a matrix tile would be 97 % idle, and those
+// shapes move more bytes than they compute (conv_out: 0.345-0.362 ms,
+// F.conv2d 0.803-0.835).
 
-#include "conv_tile.cuh"
+#include "tc_conv_tile.cuh"
 
-// w in its storage type wtype (0 fp32, 1 bf16, 2 int8 with wscale [Cout])
+namespace {
+
+template <class WT>
+int launch_tc(const rt::ConvArgs& a, int ksplit, cudaStream_t stream) {
+  if (a.Cout <= tcc::Narrow::BN) return tcc::launch_narrow<WT>(a, ksplit, stream);
+  if (ksplit != 1) return (int)cudaErrorInvalidValue;
+  return tcc::launch_wide<tcc::kRaw, 9, WT>(a, stream);
+}
+
+}  // namespace
+
+// x [N, H, W, Cin], w [3, 3, Cin, Cout] in its storage type wtype (0 fp32,
+// 1 bf16, 2 int8 with wscale [Cout]), b [Cout], out [N, H, W, Cout], all
+// contiguous.  pro = epi = 0: conv3x3, fp32 out, K split over ksplit
+// blocks where 4 < Cout <= 32 (else 1); pro = epi = 1: output_epilogue
+// (stats [N, G, 2], gamma/beta [Cin], uint8 out, ksplit 1).
 extern "C" int conv3x3_launch(const float* x, const float* stats,
                               const float* gamma, const float* beta,
                               const void* w, const float* wscale,
                               const float* b, void* out, int N, int H, int W,
                               int Cin, int Cout, int G, int pro, int epi,
-                              int wtype, cudaStream_t stream) {
+                              int ksplit, int wtype, cudaStream_t stream) {
   rt::ConvArgs a{x, stats, gamma, beta, w, wscale, b, out, N, H, W, Cin, Cout, G};
-  if (pro == 0 && epi == 0) return rt::launch_conv_typed<0, 0, 0>(a, wtype, stream);
-  if (pro == 1 && epi == 1) return rt::launch_conv_typed<1, 1, 0>(a, wtype, stream);
+  if (pro == 1 && epi == 1 && ksplit == 1) return rt::launch_conv_typed<1, 1>(a, wtype, stream);
+  if (pro != 0 || epi != 0) return (int)cudaErrorInvalidValue;
+  if (Cout <= 4) {
+    if (ksplit != 1) return (int)cudaErrorInvalidValue;
+    return rt::launch_conv_typed<0, 0>(a, wtype, stream);
+  }
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
+  switch (wtype) {
+    case rt::kF32: return launch_tc<float>(a, ksplit, stream);
+    case rt::kBF16: return launch_tc<rt::bf16w>(a, ksplit, stream);
+    case rt::kI8: return launch_tc<int8_t>(a, ksplit, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

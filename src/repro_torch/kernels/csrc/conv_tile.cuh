@@ -1,14 +1,17 @@
-// The direct 3x3 convolution tile shared by conv3x3.cu and
-// upsample_conv.cu (and gn_silu_conv.cu for Cout <= 4): NHWC fp32
-// activations, HWIO weights in their storage type, fp32 accumulation on
-// the CUDA cores.
+// The direct 3x3 convolution tile on the CUDA cores, for the shapes a
+// matrix tile would leave almost idle: conv3x3.cu's Cout <= 4 (the float
+// decode's conv_out, 128 -> 3) and output_epilogue, and gn_silu_conv.cu's
+// Cout <= 4.  NHWC fp32 activations, HWIO weights in their storage type,
+// fp32 accumulation.  Every conv with Cout > 4 runs on the tensor-core tile
+// of tc_conv_tile.cuh, which takes its argument block and weight types
+// from here.
 //
-// Weights (WT): fp32, bf16, int8 codes, or int16 (the upsampler's int8
-// taps collapsed per phase).  Each is converted to fp32 as the chunk's
-// weights are staged in shared memory; every one of these types is exact
-// in fp32, so the products and the sum order are those of an fp32 weight
-// of the same value, and the dequantized weight never exists in device
-// memory.  An integer weight's per-output-channel scale multiplies the
+// Weights (WT): fp32, bf16 or int8 codes (int16, the upsampler's
+// collapsed int8 taps, only on the tensor-core tile).  Each is converted
+// to fp32 as the chunk's weights are staged in shared memory; every one of
+// these types is exact in fp32, so the products and the sum order are
+// those of an fp32 weight of the same value, and the dequantized weight
+// never exists in device memory.  An integer weight's per-output-channel scale multiplies the
 // fp32 sum in the epilogue, before the bias (the order of the TPU
 // kernels, conv3x3.py:102-108).
 //
@@ -27,10 +30,6 @@
 // statistics, applied once per halo element as it is loaded.
 // Epilogue (EPI): bias -> fp32, or bias -> clamp to [-1, 1] ->
 // rint((y + 1) * 127.5) -> uint8 (round half to even, as jnp.round).
-// UPS: the nearest-2x-upsample phase form (upsample_conv.py): blockIdx.y
-// also selects the output phase (pi, pj); the block runs the phase's 2x2
-// collapsed taps on the pre-upsample halo and writes the strided output
-// pixels (2y + pi, 2x + pj) of the [2H, 2W] result.
 //
 // Every output element is summed in one fixed order (channel chunk, tap
 // row, channel, tap column) by one thread, with no split over images or
@@ -69,7 +68,6 @@ __device__ __forceinline__ float ldg_f32(const bf16w* p) {
   return __uint_as_float((uint32_t)__ldg(&p->bits) << 16);
 }
 __device__ __forceinline__ float ldg_f32(const int8_t* p) { return (float)__ldg(p); }
-__device__ __forceinline__ float ldg_f32(const int16_t* p) { return (float)__ldg(p); }
 
 template <int TH_, int TW_, int BN_, int TPM_, int TPN_>
 struct ConvCfg {
@@ -84,10 +82,11 @@ struct ConvCfg {
   static_assert(TPN % 4 == 0, "channel groups are float4");
 };
 
-// Cout >= 8: 128 pixels (4 rows x 32) x 128 channels, 8x8 per thread.
+// Cout > 4 (output_epilogue only): 128 pixels (4 rows x 32) x 128
+// channels, 8x8 per thread.
 using WideCfg = ConvCfg<4, 32, 128, 8, 8>;
 // Cout <= 4 (the decoder's conv_out): 512 pixels x 4 channels, 4x4 per
-// thread; too narrow for a matrix unit, so CUDA-core FMAs as everywhere.
+// thread; too narrow for a matrix unit, so CUDA-core FMAs.
 using NarrowCfg = ConvCfg<16, 32, 4, 4, 4>;
 
 struct ConvArgs {
@@ -95,22 +94,20 @@ struct ConvArgs {
   const float* stats;  // [N, G, 2] (mean, rstd) for PRO == 1
   const float* gamma;  // [Cin] for PRO == 1
   const float* beta;   // [Cin] for PRO == 1
-  const void* w;       // [3, 3, Cin, Cout], or [2, 2, 2, 2, Cin, Cout] (UPS)
+  const void* w;       // [3, 3, Cin, Cout], or the upsampler's [2, 2, 2, 2, Cin, Cout]
   const float* wscale; // [Cout] dequant scale of an integer weight, else null
   const float* bias;   // [Cout]
-  void* out;           // [N, H, W, Cout] f32/u8, or [N, 2H, 2W, Cout] (UPS)
+  void* out;           // [N, H, W, Cout] f32/u8, or the upsampler's [N, 2H, 2W, Cout]
   int N, H, W, Cin, Cout, G;
 };
 
-template <class Cfg, int PRO, int EPI, int UPS, class WT>
+template <class Cfg, int PRO, int EPI, class WT>
 __global__ void __launch_bounds__(Cfg::THREADS, Cfg::THREADS >= 256 ? 2 : 4)
 conv_tile_kernel(ConvArgs a) {
   constexpr int TH = Cfg::TH, TW = Cfg::TW, BN = Cfg::BN, BK = Cfg::BK;
   constexpr int TPM = Cfg::TPM, TPN = Cfg::TPN, NG = Cfg::NG;
   constexpr int THREADS = Cfg::THREADS;
-  constexpr int RT = UPS ? 2 : 3;          // tap rows
-  constexpr int CT = UPS ? 2 : 3;          // tap columns
-  constexpr int NT = RT * CT;
+  constexpr int RT = 3, CT = 3, NT = 9;   // tap rows, columns, taps
   constexpr int HH = TH + 2, HWD = TW + 2;
   constexpr int AV = TPM + CT - 1;         // halo columns a thread reads
 
@@ -122,15 +119,13 @@ conv_tile_kernel(ConvArgs a) {
   const int tiles_w = (a.W + TW - 1) / TW;
   const int y0 = (blockIdx.x / tiles_w) * TH;
   const int x0 = (blockIdx.x % tiles_w) * TW;
-  const int phase = UPS ? (int)(blockIdx.y & 3) : 0;
-  const int pi = phase >> 1, pj = phase & 1;
-  const int n0 = (UPS ? (int)(blockIdx.y >> 2) : (int)blockIdx.y) * BN;
+  const int n0 = blockIdx.y * BN;
   const int img = blockIdx.z;
   const int p0 = ty * TPM;
   const int r = p0 / TW, c0 = p0 % TW;
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
   const float* __restrict__ x = a.x + (size_t)img * H * W * Cin;
-  const WT* __restrict__ w = static_cast<const WT*>(a.w) + (size_t)phase * NT * Cin * Cout;
+  const WT* __restrict__ w = static_cast<const WT*>(a.w);
   const int cpg = PRO ? Cin / a.G : 1;
 
   float acc[TPM][TPN];
@@ -170,12 +165,12 @@ conv_tile_kernel(ConvArgs a) {
 
 #pragma unroll
     for (int ry = 0; ry < RT; ++ry) {
-      const int hr = r + (UPS ? pi : 0) + ry;
+      const int hr = r + ry;
 #pragma unroll
       for (int k = 0; k < BK; ++k) {
         float av[AV];
 #pragma unroll
-        for (int i = 0; i < AV; ++i) av[i] = As[k][hr][c0 + (UPS ? pj : 0) + i];
+        for (int i = 0; i < AV; ++i) av[i] = As[k][hr][c0 + i];
 #pragma unroll
         for (int cx = 0; cx < CT; ++cx) {
           float bv[TPN];
@@ -202,13 +197,11 @@ conv_tile_kernel(ConvArgs a) {
   // -- epilogue -------------------------------------------------------------
   const int y = y0 + r;
   if (y >= H) return;
-  const int OH = UPS ? 2 * H : H, OW = UPS ? 2 * W : W;
 #pragma unroll
   for (int i = 0; i < TPM; ++i) {
     const int xx = x0 + c0 + i;
     if (xx >= W) continue;
-    const int oy = UPS ? 2 * y + pi : y, ox = UPS ? 2 * xx + pj : xx;
-    const size_t opix = ((size_t)img * OH + oy) * OW + ox;
+    const size_t opix = ((size_t)img * H + y) * W + xx;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int cb = n0 + g * (BN / NG) + tx * 4;
@@ -243,40 +236,34 @@ conv_tile_kernel(ConvArgs a) {
   }
 }
 
-template <class Cfg, int PRO, int EPI, int UPS, class WT>
+template <class Cfg, int PRO, int EPI, class WT>
 int launch_conv_tile(const ConvArgs& a, cudaStream_t stream) {
   if (Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
   const int tiles = ((a.H + Cfg::TH - 1) / Cfg::TH) *
                     ((a.W + Cfg::TW - 1) / Cfg::TW);
   const int ntiles = (a.Cout + Cfg::BN - 1) / Cfg::BN;
-  const dim3 grid(tiles, ntiles * (UPS ? 4 : 1), a.N);
-  conv_tile_kernel<Cfg, PRO, EPI, UPS, WT><<<grid, Cfg::THREADS, 0, stream>>>(a);
+  const dim3 grid(tiles, ntiles, a.N);
+  conv_tile_kernel<Cfg, PRO, EPI, WT><<<grid, Cfg::THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Wide tiles for real channel counts, narrow ones for conv_out's 3.
-template <int PRO, int EPI, int UPS, class WT>
+template <int PRO, int EPI, class WT>
 int launch_conv(const ConvArgs& a, cudaStream_t stream) {
   if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.Cin <= 0 || a.Cout <= 0 ||
       a.N > 65535 || (PRO && (a.G <= 0 || a.Cin % a.G != 0)))
     return (int)cudaErrorInvalidValue;
-  if (a.Cout <= 4) return launch_conv_tile<NarrowCfg, PRO, EPI, UPS, WT>(a, stream);
-  return launch_conv_tile<WideCfg, PRO, EPI, UPS, WT>(a, stream);
+  if (a.Cout <= 4) return launch_conv_tile<NarrowCfg, PRO, EPI, WT>(a, stream);
+  return launch_conv_tile<WideCfg, PRO, EPI, WT>(a, stream);
 }
 
-// launch_conv for the storage type code wtype (fp32, bf16 or int8; int16
-// only where I16 is set: the upsampler's collapsed int8 taps)
-template <int PRO, int EPI, int UPS, int I16 = 0>
+// launch_conv for the storage type code wtype (fp32, bf16 or int8)
+template <int PRO, int EPI>
 int launch_conv_typed(const ConvArgs& a, int wtype, cudaStream_t stream) {
   switch (wtype) {
-    case kF32: return launch_conv<PRO, EPI, UPS, float>(a, stream);
-    case kBF16: return launch_conv<PRO, EPI, UPS, bf16w>(a, stream);
-    case kI8:
-      if constexpr (!I16) return launch_conv<PRO, EPI, UPS, int8_t>(a, stream);
-      break;
-    case kI16:
-      if constexpr (I16 != 0) return launch_conv<PRO, EPI, UPS, int16_t>(a, stream);
-      break;
+    case kF32: return launch_conv<PRO, EPI, float>(a, stream);
+    case kBF16: return launch_conv<PRO, EPI, bf16w>(a, stream);
+    case kI8: return launch_conv<PRO, EPI, int8_t>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -161,35 +161,50 @@ __device__ __forceinline__ void mma_3xtf32_chain(float* c, const uint32_t* ahi, 
   mma_tf32(c, ahi, bhi);
 }
 
-// c += a b in 3xTF32: the two small cross terms, then hi * hi, summed in a
-// fresh fragment that is then added to c on the CUDA cores.  The tensor
-// core does not round to nearest when it adds into its accumulator: chained
-// there over the thousands of steps of a wide conv, the sum drifts all one
-// way, by up to an ulp of c per step, far enough to fail the 1e-4 fp32
-// tolerance (the Cin = 520 conv case of tests/test_torch_cuda.py); a
-// round-to-nearest add after each short chain does not drift.
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
-                                           const uint32_t* bhi, const uint32_t* blo) {
-  float d[4];
-  mma_tf32_zero(d, alo, bhi);
-  mma_tf32(d, ahi, blo);
-  mma_tf32(d, ahi, bhi);
+// c[j] += a b[j] in 3xTF32 for N fragments that share the A operand: the
+// two small cross terms, then hi * hi, summed in a fresh fragment that is
+// then added to c[j] on the CUDA cores.  The tensor core does not round to
+// nearest when it adds into its accumulator: chained there over the
+// thousands of steps of a wide conv, the sum drifts all one way, by up to
+// an ulp of c per step, far enough to fail the 1e-4 fp32 tolerance (the
+// Cin = 520 conv case of tests/test_torch_cuda.py); a round-to-nearest add
+// after each short chain does not drift.  Each MMA waits for the one
+// before it in its chain, so the N chains are issued side by side, one
+// product of each in turn; each fragment's own order is unchanged.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[N][2],
+                                           const uint32_t (&blo)[N][2]) {
+  float d[N][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += d[i];
+  for (int j = 0; j < N; ++j) mma_tf32_zero(d[j], alo, bhi[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], ahi, blo[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], ahi, bhi[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += d[j][i];
 }
 
-// c += a b in 3xTF32 where b is exact in TF32 (a bf16 weight, or an
+// mma_3xtf32 where each b[j] is exact in TF32 (a bf16 weight, or an
 // integer code of at most 11 bits): b's lo half is zero, so of the three
 // products only a_lo b and a_hi b remain, and dropping a_hi b_lo changes
-// no bit (it adds exact zeros).  Same fresh fragment and round-to-nearest
-// add as mma_3xtf32.
-__device__ __forceinline__ void mma_2xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
-                                           const uint32_t* b) {
-  float d[4];
-  mma_tf32_zero(d, alo, b);
-  mma_tf32(d, ahi, b);
+// no bit (it adds exact zeros).  Same fresh fragments, order and
+// round-to-nearest adds.
+template <int N>
+__device__ __forceinline__ void mma_2xtf32(float (&c)[N][4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&b)[N][2]) {
+  float d[N][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += d[i];
+  for (int j = 0; j < N; ++j) mma_tf32_zero(d[j], alo, b[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], ahi, b[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += d[j][i];
 }
 
 // ---------------------------------------------------------------------------

@@ -3,29 +3,38 @@
 // Replaces src/repro/kernels/upsample_conv.py::upsample_conv3x3
 // (_upsample_conv_kernel, with its weights collapsed by phase_weights).
 //
-// Bound on the H100: operations (fp32 FMAs; the decoder's upsamplers run
-// at 512 and 256 channels).  Design: the phase decomposition of the TPU
-// kernel.  Output pixel (2i+pi, 2j+pj) of conv3x3(upsample2x(x)) reads only
-// a 2x2 neighbourhood of x, so with the taps collapsed per phase (done once
-// per call in the Python wrapper, the torch phase_weights) each phase is a
-// 2x2 convolution of the pre-upsample tensor: 16 taps over H*W pixels
-// instead of 9 over 4*H*W, 2.25x fewer FMAs, and the 4x upsampled tensor
-// is never written to device memory.  The tile is conv_tile.cuh's with
-// UPS = 1: blockIdx.y carries the phase, the block reads the pre-upsample
-// halo and writes its phase's pixels of the interleaved [2H, 2W] output.
-// The zero halo at the image edge is exactly the SAME padding of the
-// upsampled image (the input is pre-activation), so no ring masking.
+// Bound on the H100: operations (the decoder's upsamplers run at 512 and
+// 256 channels).  Design: the phase decomposition of the TPU kernel.
+// Output pixel (2i+pi, 2j+pj) of conv3x3(upsample2x(x)) reads only a 2x2
+// neighbourhood of x, so with the taps collapsed per phase (the wrapper's
+// storage_phase_weights, or taps collapsed beforehand) each phase is a 2x2
+// convolution of the pre-upsample tensor: 16 taps over H*W pixels instead
+// of 9 over 4*H*W, 2.25x fewer products, and the 4x upsampled tensor is
+// never written to device memory.  The tile is tc_conv_tile.cuh's in
+// 3xTF32 with no prologue, the phase form's taps (TAPS = 4) and the
+// 128-wide Cout tile: blockIdx.y carries the phase and the Cout tile, the
+// block reads the pre-upsample halo at the phase's offsets and writes its
+// phase's pixels of the interleaved [2H, 2W] output.  The zero halo at the
+// image edge is exactly the SAME padding of the upsampled image (the input
+// is pre-activation), so no ring masking.  The launch alone takes
+// 0.718-0.735, 2.784-2.803 and 2.813-2.868 ms at the decoder's 64 x 64 x
+// 512, 128 x 128 x 512 and 256 x 256 x 256 (F.conv2d on the upsampled
+// input: 1.873-1.896, 7.480-7.490, 7.842-7.929): 29-30 % of its 3xTF32
+// bound at the two larger shapes, as the fused GN conv (chip_smoke.py on
+// an H100 80GB HBM3 at 700 W).
 //
 // Weights (the TPU kernel's quantized operand forms, upsample_conv.py:
 // 66-97, 126-144): fp32; bf16 collapsed in bf16 (each add rounded, as the
 // reference collapses them); int8 codes collapsed in int16, exact since a
-// collapsed tap sums at most four codes, with the per-Cout scale applied
-// to the fp32 sum before the bias.  Each is widened to fp32 as it is
-// staged in shared memory.
+// collapsed tap sums at most four codes (|tap| <= 508), with the per-Cout
+// scale applied to the fp32 sum before the bias.  bf16 and int16 taps are
+// exact in TF32: two TF32 products per product, the fp32 path's bits.
 
-#include "conv_tile.cuh"
+#include "tc_conv_tile.cuh"
 
-// wc in its storage type wtype (0 fp32, 1 bf16, 3 int16 with wscale [Cout])
+// x [N, H, W, Cin], wc [2, 2, 2, 2, Cin, Cout] in its storage type wtype
+// (0 fp32, 1 bf16, 3 int16 with wscale [Cout]), b [Cout], out [N, 2H, 2W,
+// Cout], all contiguous
 extern "C" int upsample_conv3x3_launch(const float* x, const void* wc,
                                        const float* wscale, const float* b,
                                        float* out, int N, int H, int W,
@@ -33,5 +42,12 @@ extern "C" int upsample_conv3x3_launch(const float* x, const void* wc,
                                        cudaStream_t stream) {
   rt::ConvArgs a{x, nullptr, nullptr, nullptr, wc, wscale, b, out,
                  N, H, W, Cin, Cout, 1};
-  return rt::launch_conv_typed<0, 0, 1, 1>(a, wtype, stream);
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (wtype) {
+    case rt::kF32: return tcc::launch_wide<tcc::kRaw, 4, float>(a, stream);
+    case rt::kBF16: return tcc::launch_wide<tcc::kRaw, 4, rt::bf16w>(a, stream);
+    case rt::kI16: return tcc::launch_wide<tcc::kRaw, 4, int16_t>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 (counterpart of the JAX package's ``kernels/output_epilogue.py``).
 
 On CUDA: ``csrc/gn_stats.cu`` then ``csrc/conv3x3.cu`` with the uint8
-epilogue (the weight read in its storage dtype, as in ``conv3x3``), so
-the decode's last write is the displayable image itself.
+epilogue on its CUDA-core tile (the weight read in its storage dtype, as
+in ``conv3x3``), so the decode's last write is the displayable image
+itself.
 On the CPU: the plain version, ``ref.output_epilogue_ref``.
 """
 
@@ -40,6 +41,7 @@ def output_epilogue(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     build.check(build.lib("conv3x3").conv3x3_launch(
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         w.data_ptr(), sptr, b.data_ptr(), out.data_ptr(), n, h, wd, cin,
-        cout, groups, 1, 1, wcode, build.stream_of(x)), "output_epilogue")
+        cout, groups, 1, 1, 1, wcode, build.stream_of(x)),
+        "output_epilogue")
     launches += 1
     return out

@@ -124,14 +124,24 @@ def upsample_conv3x3_ref(x: torch.Tensor, w: torch.Tensor,
     if w.dtype != torch.bfloat16:
         x2 = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return conv3x3_ref(x2, w, b, w_scale)
+    return upsample_conv3x3_phase_ref(x, phase_weights(w), b, w_scale)
+
+
+def upsample_conv3x3_phase_ref(x: torch.Tensor, wc: torch.Tensor,
+                               b: Optional[torch.Tensor] = None,
+                               w_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The upsampler's phase form from taps already collapsed by
+    :func:`storage_phase_weights` (``wc [2, 2, 2, 2, Cin, Cout]``, fp32,
+    bf16, or int16 codes with ``w_scale``): four 2x2 convs of the
+    pre-upsample tensor, interleaved into ``[N, 2H, 2W, Cout]``."""
     n, h, wd, _ = x.shape
-    wc = phase_weights(w)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    out = torch.empty((n, 2 * h, 2 * wd, w.shape[-1]), dtype=x.dtype,
+    out = torch.empty((n, 2 * h, 2 * wd, wc.shape[-1]), dtype=x.dtype,
                       device=x.device)
     for pi in (0, 1):
         for pj in (0, 1):
-            acc = torch.zeros((n, h, wd, w.shape[-1]), dtype=x.dtype,
+            acc = torch.zeros((n, h, wd, wc.shape[-1]), dtype=x.dtype,
                               device=x.device)
             for a in (0, 1):
                 for c in (0, 1):

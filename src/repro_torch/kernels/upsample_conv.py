@@ -6,8 +6,10 @@ storage dtype (``ref.storage_phase_weights``, a few tensor additions per
 call: int8 codes in int16, which holds their sums exactly, bf16 in bf16,
 rounding as the JAX package's collapse does), then
 ``csrc/upsample_conv.cu`` computes the four phases from the
-pre-upsample tensor; the 4x upsampled intermediate never exists.  On
-the CPU: the plain version, ``ref.upsample_conv3x3_ref``.
+pre-upsample tensor in 3xTF32 on the tensor cores; the 4x upsampled
+intermediate never exists.  :func:`upsample_conv3x3_taps` is the launch
+alone, from taps collapsed beforehand.  On the CPU: the plain versions,
+``ref.upsample_conv3x3_ref`` and ``ref.upsample_conv3x3_phase_ref``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: kernel launches of :func:`upsample_conv3x3` in this process
+#: kernel launches of :func:`upsample_conv3x3` (and of
+#: :func:`upsample_conv3x3_taps`, which it calls) in this process
 launches = 0
 
 
@@ -27,22 +30,38 @@ def upsample_conv3x3(x: torch.Tensor, w: torch.Tensor,
                      w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [N, H, W, Cin], w [3, 3, Cin, Cout] (fp32, bf16, or int8 with
     w_scale [Cout]), b [Cout] -> [N, 2H, 2W, Cout]."""
-    global launches
     if x.device.type == "cpu":
         return ref.upsample_conv3x3_ref(x, w, b, w_scale)
+    cin = x.shape[-1]
+    build.conv_weight("upsample_conv3x3", w, w_scale)
+    if tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"upsample_conv3x3: w must be [3, 3, {cin}, Cout], "
+                         f"got {tuple(w.shape)}")
+    wc = ref.storage_phase_weights(w).contiguous()   # [2, 2, 2, 2, Cin, Cout]
+    return upsample_conv3x3_taps(x, wc, b, w_scale)
+
+
+def upsample_conv3x3_taps(x: torch.Tensor, wc: torch.Tensor,
+                          b: Optional[torch.Tensor] = None,
+                          w_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The upsampler from collapsed taps: x [N, H, W, Cin], wc [2, 2, 2, 2,
+    Cin, Cout] (``ref.storage_phase_weights`` of the filter: fp32, bf16,
+    or int16 with w_scale [Cout]), b [Cout] -> [N, 2H, 2W, Cout]."""
+    global launches
+    if x.device.type == "cpu":
+        return ref.upsample_conv3x3_phase_ref(x, wc, b, w_scale)
     n, h, wd, cin = x.shape
-    cout = w.shape[-1]
+    cout = wc.shape[-1]
     if b is None:
         b = torch.zeros(cout, dtype=torch.float32, device=x.device)
     build.require("upsample_conv3x3", x=x, b=b)
-    build.conv_weight("upsample_conv3x3", w, w_scale)
-    if tuple(w.shape[:3]) != (3, 3, cin) or tuple(b.shape) != (cout,):
-        raise ValueError(f"upsample_conv3x3: w must be [3, 3, {cin}, Cout] "
-                         f"and b [Cout], got {tuple(w.shape)}, "
-                         f"{tuple(b.shape)}")
-    wc = ref.storage_phase_weights(w).contiguous()   # [2, 2, 2, 2, Cin, Cout]
     wcode, sptr = build.conv_weight("upsample_conv3x3", wc, w_scale,
                                     torch.int16)
+    if tuple(wc.shape[:5]) != (2, 2, 2, 2, cin) or tuple(b.shape) != (cout,):
+        raise ValueError(f"upsample_conv3x3: wc must be [2, 2, 2, 2, {cin}, "
+                         f"Cout] and b [Cout], got {tuple(wc.shape)}, "
+                         f"{tuple(b.shape)}")
     out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.float32,
                       device=x.device)
     build.check(build.lib("upsample_conv").upsample_conv3x3_launch(

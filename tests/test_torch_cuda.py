@@ -223,11 +223,36 @@ def test_attention_kernels_count_one_launch_per_call(dev):
     assert sum(counts.values()) == 2
 
 
+def device_nodes_of(call):
+    """The device work one ``call()`` issues: the node types of a CUDA graph
+    captured from it, as the driver lists them (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``; a kernel is 0).  Capture records every launch
+    on the stream, where a profiler window on the card now and then
+    reports no device activity at all."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    call()                                              # build, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        call()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds
+
+
 def test_decode_attention_issues_one_device_kernel(dev):
     """One call is one kernel on the device: no second merge launch, no
-    scratch to fill (counted by torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    scratch to fill (counted in a CUDA graph captured from the call)."""
     for dtype, shape in ((torch.bfloat16, (4, 28, 4, 128)),
                          (torch.bfloat16, (4, 32, 32, 80)),
                          (torch.float32, (2, 12, 1, 256))):
@@ -236,15 +261,8 @@ def test_decode_attention_issues_one_device_kernel(dev):
             dev, 20, (n, hq, d), (n, hkv, 700, d), (n, hkv, 700, d)))
         lens = torch.tensor([700, 513, 2, 0][:n], device=dev,
                             dtype=torch.int32)
-        ops.decode_attention(q, kc, vc, lens)          # build, warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ops.decode_attention(q, kc, vc, lens)
-            torch.cuda.synchronize()
-        kernels = sum(e.count for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation)
-        assert kernels == 1, [e.key for e in prof.key_averages()]
+        assert device_nodes_of(
+            lambda: ops.decode_attention(q, kc, vc, lens)) == [0]
 
 
 def test_decode_attention_refuses_partial_16_byte_rows(dev):
@@ -737,3 +755,92 @@ def test_quantized_demo_decode_on_card(dev, weight_dtype):
     box.put(0, latent=z[0].astype(np.float16))
     assert box.get(0).payload.dtype == np.uint8
     assert box.summary()["quantize_gate_lsb"] == gate
+
+
+# -- conv3x3 and upsample_conv3x3 on the tensor-core tile -------------------
+# Cout 32 takes the 32-wide tile with its K split over a cluster (the split
+# from conv3x3.k_split: 2 for Cin 24 on 6 tiles, 8 for Cin 512 and 520 on
+# a few tiles, 1 for Cin 3), Cout 40 and 136 the 128-wide tile; Cin 3 the
+# one-channel halo path; H and W multiples of neither 4 nor 32
+TC_RAGGED = [(2, 9, 45, 3, 32), (1, 13, 37, 24, 40), (2, 7, 70, 24, 32),
+             (1, 5, 33, 512, 32), (1, 6, 40, 520, 24), (3, 11, 9, 3, 8),
+             (1, 10, 66, 24, 136)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", TC_RAGGED)
+def test_conv3x3_tensor_core_ragged(dev, n, h, w, cin, cout):
+    x, wt, b = randn(dev, 31, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wt *= (9 * cin) ** -0.5
+    got = ops.conv3x3(x, wt, b)
+    want = ref.conv3x3_ref(x, wt, b)
+    assert max_err(got, want) <= 2e-5 * max(1.0, float(want.abs().max()))
+    assert torch.equal(ops.conv3x3(x, wt, b), got)     # the split's order is fixed
+
+
+@pytest.mark.parametrize("weight_dtype", QUANT)
+@pytest.mark.parametrize("n,h,w,cin,cout", TC_RAGGED)
+def test_conv3x3_tensor_core_ragged_quantized(dev, weight_dtype, n, h, w,
+                                              cin, cout):
+    x, wt, b = randn(dev, 32, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wq = stored(wt * (9 * cin) ** -0.5, weight_dtype)
+    wp, s = plain_args(wq)
+    assert rel_err(ops.conv3x3(x, wq, b),
+                   ref.conv3x3_ref(x, wp, b, s)) <= 2e-5
+    assert torch.equal(ops.conv3x3(x, wq, b),
+                       ops.conv3x3(x, wp.float(), torch.zeros_like(b))
+                       * (1.0 if s is None else s) + b)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 5, 37, 3, 40), (2, 6, 35, 24, 136), (1, 9, 33, 520, 32),
+    (1, 3, 70, 256, 256)])
+def test_upsample_conv3x3_tensor_core_ragged(dev, n, h, w, cin, cout):
+    x, wt, b = randn(dev, 33, (n, h, w, cin), (3, 3, cin, cout), (cout,))
+    wt *= (9 * cin) ** -0.5
+    got = ops.upsample_conv3x3(x, wt, b)
+    want = ref.upsample_conv3x3_ref(x, wt, b)
+    assert tuple(got.shape) == (n, 2 * h, 2 * w, cout)
+    assert max_err(got, want) <= 2e-5 * max(1.0, float(want.abs().max()))
+
+
+# every conv3x3 and upsample_conv3x3 shape the SD3.5 VAE runs: (kernel, H,
+# W, Cin, Cout)
+VAE_CONVS = [("conv3x3", 64, 64, 16, 512), ("conv3x3", 512, 512, 3, 128),
+             ("conv3x3", 64, 64, 512, 32), ("conv3x3", 512, 512, 128, 3),
+             ("upsample_conv3x3", 64, 64, 512, 512),
+             ("upsample_conv3x3", 128, 128, 512, 512),
+             ("upsample_conv3x3", 256, 256, 256, 256)]
+
+
+@pytest.mark.parametrize("kernel,h,w,cin,cout", VAE_CONVS)
+def test_vae_convs_batch_invariant(dev, kernel, h, w, cin, cout):
+    """Image i of a batch of 3 is bit-identical to that image alone (a
+    batch of one 64 x 64 latent fills the SMs once over, and the 128-wide
+    tile then runs sixteen warps per block where the batch runs eight)."""
+    fn = getattr(ops, kernel)
+    x, wt, b = randn(dev, 34, (3, h, w, cin), (3, 3, cin, cout), (cout,))
+    wt *= (9 * cin) ** -0.5
+    batch = fn(x, wt, b)
+    for i in range(3):
+        assert torch.equal(fn(x[i:i + 1], wt, b), batch[i:i + 1]), i
+
+
+def test_tensor_core_convs_issue_one_device_kernel(dev):
+    """conv3x3 (with and without its K split) and the upsampler's launch
+    from collapsed taps are one device kernel per call, and each wrapper
+    call adds one to its launch count."""
+    from repro_torch.kernels import upsample_conv
+    x, wt, w32, b, b32 = randn(dev, 35, (2, 16, 16, 64), (3, 3, 64, 64),
+                               (3, 3, 64, 32), (64,), (32,))
+    wc = ref.storage_phase_weights(wt).contiguous()
+    calls = [lambda: ops.conv3x3(x, wt, b), lambda: ops.conv3x3(x, w32, b32),
+             lambda: upsample_conv.upsample_conv3x3_taps(x, wc, b)]
+    for call in calls:
+        assert device_nodes_of(call) == [0]
+        ops.reset_launch_counts()
+        call()
+        assert sum(ops.launch_counts().values()) == 1
+    ops.reset_launch_counts()
+    ops.upsample_conv3x3(x, wt, b)
+    assert ops.launch_counts()["upsample_conv3x3"] == 1
+    assert sum(ops.launch_counts().values()) == 1
