@@ -18,8 +18,9 @@ wall seconds (any failure exits non-zero):
                 and fp32, with a sliding-window case), at zamba2-2.7b's
                 shared-block attention shapes (head_dim 80), and
                 ``rwkv6_scan`` at the rwkv6-7b prefill's shape (with and
-                without an initial state) and decode step's (t = 1, the
-                state updated in place): max error and tolerance, median
+                without an initial state, and with decays from w = -10 to
+                w = 4) and decode step's (t = 1, the state updated in
+                place): max error and tolerance, median
                 ms (CUDA events; for the LM shapes the kernels' device
                 time under ``torch.profiler``; for the decode attention
                 also with a cold L2, ``cold_ms``, beside SDPA's), the
@@ -178,13 +179,19 @@ DESIGN = {
                         "per-warp cp.async rings, bf16 on mma.sync (q k^T; "
                         "at d 128 p v with p split exactly into 3 bf16), "
                         "DSMEM merge",
-    "rwkv6_scan": "CUDA-core fp32 scan",
+    "rwkv6_scan": "prefill (t > DECODE_MAX_T): chunked and state-resident, "
+                  "a block per (sequence, head, 64 value columns), 16-token "
+                  "sub-chunks, the inter, intra and state products in 3xTF32 "
+                  "on mma.sync, pairwise decay products on the CUDA cores, "
+                  "cp.async staging; decode: the whole state in the "
+                  "registers of 8 warps, 16-byte loads, fixed-order "
+                  "shuffles (CUDA-core fp32)",
 }
 #: kernels whose fp32 work runs in 3xTF32 on the tensor cores: their
 #: bound counts three TF32 products per fp32 one at the TF32 peak (a conv
 #: with Cout <= CUDA_CORE_COUT runs on the CUDA cores, at the fp32 peak)
 TENSOR_CORE = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
-               "flash_attention")
+               "flash_attention", "rwkv6_scan")
 CUDA_CORE_COUT = 4
 #: the conv kernels that take quantized weights, and the storage dtypes
 QUANT_KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
@@ -232,16 +239,19 @@ def card_peaks(name: str):
             "and 495 TF32 dense tensor, 3.35 TB/s", 989e12, 495e12)
 
 
-def ops_ms(state, kernel, flops, dtype="float32", cout=None):
+def ops_ms(state, kernel, flops, dtype="float32", cout=None,
+           cuda_cores=False):
     """The least time (ms) of ``flops`` on what ``kernel`` runs them on:
     bf16 at the bf16 tensor-core peak; fp32 at the TF32 peak, three
     products per fp32 one, for a kernel in ``TENSOR_CORE`` (a conv's
-    ``cout`` above ``CUDA_CORE_COUT``), else at the fp32 peak of the CUDA
+    ``cout`` above ``CUDA_CORE_COUT``; not ``cuda_cores``, the
+    ``rwkv6_scan`` decode kernel), else at the fp32 peak of the CUDA
     cores."""
     fp32_peak, _, _, bf16_peak, tf32_peak = state["peaks"]
     if dtype == "bfloat16":
         return flops / bf16_peak * 1e3
-    if kernel in TENSOR_CORE and (cout is None or cout > CUDA_CORE_COUT):
+    if kernel in TENSOR_CORE and not cuda_cores and (
+            cout is None or cout > CUDA_CORE_COUT):
         return 3.0 * flops / tf32_peak * 1e3
     return flops / fp32_peak * 1e3
 
@@ -882,12 +892,15 @@ def rwkv6_checks(torch, log, state, totals, max_err):
     """``rwkv6_scan`` at the rwkv6-7b serving run's shapes: the prefill of
     4 x 2048 tokens over 64 heads of 64 (r/k/v bf16 as the model gives
     them, w fp32; with the zeroed cache state the prefill passes, 32 calls
-    per prefill, and with a random state and none, checked), and the decode
-    step (t = 1, the state updated in place, 32 calls per step).  Against
-    the sequential plain version on the same inputs; device time under
-    ``torch.profiler``, the plain version by CUDA events."""
+    per prefill, and with a random state, none, and decays from w = -10,
+    dec = 1 - 4.5e-5, to w = 4, a log-decay of -54.6 a token, checked), and
+    the decode step (t = 1, the state updated in place, 32 calls per step;
+    the decode kernel, ``DECODE_MAX_T``).  Against the sequential plain
+    version on the same inputs; device time under ``torch.profiler``, the
+    plain version by CUDA events."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rwkv6_scan import DECODE_MAX_T
     cfg = get_config(SSM_ARCH)
     d = cfg.ssm_head_dim
     h = cfg.d_model // d
@@ -898,6 +911,7 @@ def rwkv6_checks(torch, log, state, totals, max_err):
               {"ssm_prefill": cfg.n_layers}),
              (dict(base, t=LM_PROMPT, state="random"), {}),
              (dict(base, t=LM_PROMPT, state=None), {}),
+             (dict(base, t=LM_PROMPT, state="random", w=[-10.0, 4.0]), {}),
              (dict(base, t=1, state="random", in_place=True),
               {"ssm_decode_step": cfg.n_layers})]
     for shape, per_pass in cases:
@@ -906,7 +920,12 @@ def rwkv6_checks(torch, log, state, totals, max_err):
         def randn(*dims, scale=1.0):
             return torch.randn(dims, generator=gen, device="cuda") * scale
         r, k, v = (randn(n, h, t, d).to(torch.bfloat16) for _ in range(3))
-        w = randn(n, h, t, d, scale=0.3) - 2.0    # w0 = -2 plus the LoRA
+        if "w" in shape:                          # uniform in [lo, hi]
+            lo, hi = shape["w"]
+            w = lo + (hi - lo) * torch.rand((n, h, t, d), generator=gen,
+                                            device="cuda")
+        else:
+            w = randn(n, h, t, d, scale=0.3) - 2.0    # w0 = -2 plus the LoRA
         u = randn(h, d, scale=0.1)
         s0 = {"zeros": torch.zeros((n, h, d, d), device="cuda"),
               "random": randn(n, h, d, d, scale=0.5),
@@ -943,7 +962,8 @@ def rwkv6_checks(torch, log, state, totals, max_err):
             r, k, v, w, u, s0), 3 if t > 1 else REPS)
         flops, nbytes = rwkv6_work(shape, r.element_size())
         row = dict(ms=ms or event_ms, plain_ms=plain_ms, library_ms=0.0,
-                   flops=flops, ops_ms=ops_ms(state, "rwkv6_scan", flops),
+                   flops=flops, ops_ms=ops_ms(state, "rwkv6_scan", flops,
+                                              cuda_cores=t <= DECODE_MAX_T),
                    bytes=nbytes)
         bound = with_bound(dict(row), byte_peak)
         emit(log, "kernel", name="rwkv6_scan", design=DESIGN["rwkv6_scan"],

@@ -53,7 +53,7 @@ SIGNATURES = {
                                                      I, I, I, I, I, F, I,
                                                      P]),
     "rwkv6_scan": ("rwkv6_scan_launch", [P, P, P, P, P, P, P, P,
-                                         I, I, I, I, I, P]),
+                                         I, I, I, I, I, I, P]),
 }
 
 

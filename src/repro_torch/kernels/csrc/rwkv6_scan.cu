@@ -1,185 +1,737 @@
-// RWKV-6 (Finch) linear-attention recurrence, per (sequence, head):
+// RWKV-6 (Finch) linear-attention recurrence, per (sequence, head) pair:
 //
 //   out_t = r_t . (S + u (x) (k_t (x) v_t)),   S <- diag(exp(-exp(w_t))) S + k_t (x) v_t
 //
-// with the [d, d] state S in fp32.  r/k/v fp32 or bf16, w and u fp32, the
-// output in r's type (bf16 rounded to nearest even), the final state fp32.
+// with the [d, d] state S in fp32 (row i = key, column j = value).  r/k/v
+// fp32 or bf16, w and u fp32, the output in r's type (bf16 rounded to
+// nearest even), the final state fp32.
 //
 // Replaces src/repro/kernels/rwkv6_scan.py::rwkv6_scan (_rwkv_kernel), the
 // time mix of every RWKV-6 layer (the JAX model reaches the same function
-// through its chunked XLA form, models/ssm.py::rwkv6_chunked).
+// through its chunked XLA form, models/ssm.py::rwkv6_chunked, whose
+// factoring the prefill kernel below brings onto the tensor cores).
 //
-// Bound on the H100: at the prefill, fp32 operations (about 5 d^2 per token
-// and head against 4 d elements read); at a decode step (t = 1), reading and
-// writing the state.  The work is a long sequential recurrence, so the
-// parallelism is across (sequence, head) pairs and across the d value
-// columns of one pair.  Design: thread j of a pair owns column j of S in d
-// registers for the whole sequence, so out_t[j] = sum_i r_i S_ij + a_t v_j
-// (a_t = sum_i r_i u_i k_i, one scalar per token) and S_ij <- dec_i S_ij +
-// k_i v_j need no cross-thread reduction.  A block holds 128 / DP pairs (DP:
-// d rounded up to a power of two >= 8), 128 threads; at d = 64 and batch 4
-// that is 128 blocks for 256 pairs on 132 SMs.  Tokens are taken CH = 8 at a
-// time: each thread loads one column of the next chunk's r, k, v, w into
-// registers while the current chunk computes, so device-memory latency is
-// off the serial path; r, k and dec = exp(-exp(w)) go through shared memory
-// (every thread of the pair reads all d of them), v stays in the registers
-// of the thread that owns its column.  a_t is summed in two fixed-order
-// steps (CH-term partials, then the DP / CH partials).  Tokens past t are
-// padded with r = k = v = 0 and dec = 1, which leaves S exactly unchanged,
-// so the token loop has no branch.  Each thread reads its column of the
-// initial state before it writes any of the final state, and no other
-// thread touches that column: the final state may alias the initial one
-// (decode updates its cache in place).  A pair's arithmetic does not depend
-// on which block or slot runs it: results are independent of the batch.
+// Two kernels, chosen by the wrapper from the token count alone.
+//
+// rwkv6_chunk_kernel (the prefill).  Bound on the H100: its bytes (r, k, v,
+// w read once, the output written once) once its d^2 work runs on the
+// tensor cores.  A block owns one pair and a tile of NT value columns (NT =
+// 64 at d = 64: one block per pair, 256 blocks at rwkv6-7b's prefill) and
+// keeps its [d x NT] slice of S in fp32 registers for the whole sequence,
+// walking the tokens in sub-chunks of C = 16.  With dec = exp(-exp(w)) and, inside a sub-chunk, D_t the product
+// of dec over tokens < t (= exp(Lp_t - L_start) of rwkv6_chunked), each
+// sub-chunk is
+//
+//   y_t  = (r_t (.) D_t) S                                   inter, on the MMA
+//        + sum_{s<t} A_ts v_s + A_tt v_t                      intra, on the MMA
+//   A_ts = sum_i r_ti k_si prod_{s<m<t} dec_mi  (s < t),   A_tt = sum_i r_ti u_i k_ti
+//   S   <- D_16 (.)rows S + (k (.) prod_{m>s} dec_m)^T v     state, on the MMA
+//
+// Every decay factor is a product of decays (each <= 1) between two tokens
+// of the sub-chunk, formed pair by pair on the CUDA cores: nothing can
+// overflow however strong the decay, a factor underflows only where the true
+// product does, and no exponential is taken beyond dec itself (the exact
+// pairwise block costs 120 d multiplies per sub-chunk, not 120 d exp).
+// The three products run in 3xTF32 on mma.sync.m16n8k8 (hopper_mma.cuh): S
+// is held transposed, S^T [NT x d], as the accumulator of the state product,
+// and that same fragment is the A operand of y^T = S^T (r (.) D)^T with the
+// k index permuted within each 8-wide slice (the accumulator's column pair
+// 2t, 2t+1 read as the A fragment's k = t, t + 4; the B operand is read in
+// the same order), so S never leaves the registers.  Two warps own each 16
+// value columns, one per half of the keys (8 warps at d = 64): each holds
+// its half of S^T, and adds the inter term over its keys and the intra term
+// over its 8 tokens s to its part of y; the two parts are added in a fixed
+// order as the output is stored, 16 bytes a thread.  The sub-chunk's
+// CUDA-core work is done once per block between barriers: dec and fp32
+// copies of r, k, v; the two decay scans, a thread per key column; A, a
+// warp per pair of rows s and 15 - s (15 pairs (t, s), each lane d / 32 key
+// columns, the 15 sums reduced over the lanes by a fixed-order
+// reduce-scatter), and its diagonal.  The next sub-chunk's r, k, v, w are
+// staged with cp.async while the current one computes.  Tokens past t are
+// padded with r = k = v = 0 and dec = 1, which leaves S exactly unchanged;
+// key rows and value columns past d are zero.
+//
+// rwkv6_decode_kernel (a decode step, t <= DECODE_MAX_T of the wrapper).
+// Bound: reading and writing the state.  A block of 8 warps per pair holds
+// the whole [d x d] state in registers, 16-byte loads, eight lanes along a
+// row so a warp reads four whole 128-byte rows at once, each thread 4 x 4
+// values at d = 64; out_j = sum_i r_i S_ij is summed over the rows by warp
+// shuffles and then over the warps' row groups through shared memory, both
+// in a fixed order; the next token's inputs are loaded while one computes.
+//
+// Both kernels: every block reads its elements of the initial state before
+// it writes the same elements of the final state, and no two threads share
+// an element, so the final state may alias the initial one (decode updates
+// its cache in place).  A pair's arithmetic does not depend on which block
+// runs it or on the other pairs: results are independent of the batch.
+
+#include <type_traits>
 
 #include "attn_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 128, CH = 8;
+using tc::Split;
+using tc::split_tf32;
+
+constexpr int C = 16;      // tokens per sub-chunk
+constexpr int AS = 20;     // row stride of A in shared memory (conflict-free B fragments)
 
 template <typename T>
-__device__ __forceinline__ float ld(const T* p);
+__device__ __forceinline__ float to_f(T x);
 template <>
-__device__ __forceinline__ float ld<float>(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ float ld(const T* p) { return to_f(*p); }
+
+// block shape of the chunked kernel for a padded head dim DP: NT value
+// columns per block, 16 per warp, and the key dim split in two halves over
+// two warps per 16 columns
+template <int DP>
+struct Tile {
+  static constexpr int NT = DP < 64 ? DP : 64;
+  static constexpr int JW = NT / 16;          // warps along the value columns
+  static constexpr int WARPS = 2 * JW;        // x 2 key halves
+  static constexpr int THREADS = 32 * WARPS;
+};
+
+template <typename T, int DP>
+struct Smem {
+  static constexpr int NT = Tile<DP>::NT;
+  T r[2][C * DP], k[2][C * DP], v[2][C * DP];   // staged spans [t * d + i]
+  float w[2][C * DP];
+  float rf[C][DP], kf[C][DP], dec[C][DP];
+  uint32_t rdh[C][DP + 8], rdl[C][DP + 8];      // r (.) D, hi / lo
+  uint32_t krh[C][DP + 8], krl[C][DP + 8];      // k (.) decay to the sub-chunk end
+  uint32_t vh[C][NT + 8], vl[C][NT + 8];        // this block's columns of v
+  uint32_t ah[C][AS], al[C][AS];                // A [t][s]
+  float dl[DP], us[DP];                         // D_16, u
+  float ys[2][C][NT + 4];                       // the output tile, per key half
+};
+
+// c[j] += a b[j] where a is exact in TF32 (a bf16 value: its lo half is
+// zero): a b_lo then a b_hi in a fresh fragment, added to c[j] -- the
+// products of 3xTF32 that are not zero, in its order
+template <int N>
+__device__ __forceinline__ void mma_exact_a(float (&c)[N][4], const uint32_t (&a)[4],
+                                            const uint32_t (&bhi)[N][2],
+                                            const uint32_t (&blo)[N][2]) {
+  float d[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j) tc::mma_tf32_zero(d[j], a, blo[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) tc::mma_tf32(d[j], a, bhi[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += d[j][i];
+}
+
+// N consecutive floats of shared memory (N = 1, 2, 4; aligned to N)
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x;
+    x[1] = a.y;
+    x[2] = a.z;
+    x[3] = a.w;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x;
+    x[1] = a.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// one halving step of reduce_scatter16: the first N values, lane bit N
+// choosing the half a lane keeps and adds its partner's to
+template <int N>
+__device__ __forceinline__ void halve(float (&x)[16], int lane) {
+  const bool up = lane & N;
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float send = up ? x[j] : x[j + N / 2];
+    const float keep = up ? x[j + N / 2] : x[j];
+    x[j] = keep + __shfl_xor_sync(0xffffffffu, send, N);
+  }
+}
+
+// sum of 16 values over the 32 lanes of a warp, scattered: lane l ends with
+// the full sum of value l >> 1 (halving exchanges over lane bits 16, 8, 4,
+// 2, then the pair over bit 1; a fixed order)
+__device__ __forceinline__ float reduce_scatter16(float (&x)[16], int lane) {
+  halve<16>(x, lane);
+  halve<8>(x, lane);
+  halve<4>(x, lane);
+  halve<2>(x, lane);
+  return x[0] + __shfl_xor_sync(0xffffffffu, x[0], 1);
 }
 
 template <typename T>
-__device__ __forceinline__ void fetch(const T* r, const T* k, const T* v,
-                                      const float* w, size_t seq, int t0,
-                                      int Tn, int D, int j, bool live,
-                                      float (&pr)[CH], float (&pk)[CH],
-                                      float (&pv)[CH], float (&pw)[CH]) {
+__device__ __forceinline__ void store4(T* p, float4 y);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float4 y) {
+  *reinterpret_cast<float4*>(p) = y;
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float4 y) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(attn::pack_bf16x2(y.x, y.y), attn::pack_bf16x2(y.z, y.w));
+}
+
+// r, k, v, w of `rows` tokens (the span at element `at`) into buffer `buf`:
+// cp.async in 16-byte pieces where every row starts 16-byte aligned, else
+// plain loads
+template <typename T, int DP>
+__device__ __forceinline__ void stage(Smem<T, DP>& sm, int buf, const T* r, const T* k,
+                                      const T* v, const float* w, size_t at, int rows, int D,
+                                      int vec) {
+  constexpr int THREADS = Tile<DP>::THREADS;
+  const int n = rows * D;
+  if (vec) {
+    constexpr int TE = 16 / sizeof(T);
+    for (int p = threadIdx.x * TE; p < n; p += THREADS * TE) {
+      tc::cp_async16(&sm.r[buf][p], r + at + p, true);
+      tc::cp_async16(&sm.k[buf][p], k + at + p, true);
+      tc::cp_async16(&sm.v[buf][p], v + at + p, true);
+    }
+    for (int p = threadIdx.x * 4; p < n; p += THREADS * 4)
+      tc::cp_async16(&sm.w[buf][p], w + at + p, true);
+  } else {
+    for (int e = threadIdx.x; e < n; e += THREADS) {
+      sm.r[buf][e] = r[at + e];
+      sm.k[buf][e] = k[at + e];
+      sm.v[buf][e] = v[at + e];
+      sm.w[buf][e] = w[at + e];
+    }
+  }
+}
+
+// a sub-chunk's output (`rows` tokens at element `at`): the two key halves'
+// parts added in order, four columns of one token per thread
+template <typename T, int DP>
+__device__ __forceinline__ void store_out(const Smem<T, DP>& sm, T* out, size_t at, int col0,
+                                          int rows, int D, int vec) {
+  constexpr int NT = Tile<DP>::NT;
+  const int tok = threadIdx.x / (NT / 4), jj = 4 * (threadIdx.x % (NT / 4)), j = col0 + jj;
+  if (tok >= rows) return;
+  const float4 a = *reinterpret_cast<const float4*>(&sm.ys[0][tok][jj]);
+  const float4 b = *reinterpret_cast<const float4*>(&sm.ys[1][tok][jj]);
+  const float4 y = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  T* o = out + at + (size_t)tok * D + j;
+  if (vec) {
+    if (j < D) store4(o, y);
+  } else {
+    const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-  for (int m = 0; m < CH; ++m) {
-    const bool in = live && t0 + m < Tn;
-    const size_t at = seq + (size_t)(t0 + m) * D + j;
-    pr[m] = in ? ld(r + at) : 0.f;
-    pk[m] = in ? ld(k + at) : 0.f;
-    pv[m] = in ? ld(v + at) : 0.f;
-    pw[m] = in ? __ldg(w + at) : -INFINITY;   // dec = exp(-exp(-inf)) = 1
+    for (int c = 0; c < 4; ++c)
+      if (j + c < D) attn::store1(o + c, yv[c]);
   }
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
-rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ w,
-             const float* __restrict__ u, const float* s0, T* __restrict__ out,
-             float* sT, int NH, int H, int Tn, int D) {
-  constexpr int PAIRS = THREADS / DP, SEGS = DP / CH;
-  static_assert(PAIRS * DP == THREADS && SEGS * CH == DP, "tiling");
-  __shared__ __align__(16) float rs[PAIRS][CH][DP];
-  __shared__ __align__(16) float ks[PAIRS][CH][DP];
-  __shared__ __align__(16) float ds[PAIRS][CH][DP];
-  __shared__ float us[PAIRS][DP];
-  __shared__ float part[PAIRS][SEGS][CH];
-  __shared__ float bonus[PAIRS][CH];
+__global__ void __launch_bounds__(Tile<DP>::THREADS, 2)
+rwkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ w, const float* __restrict__ u, const float* s0,
+                   T* __restrict__ out, float* sT, int H, int Tn, int D, int vec) {
+  using TL = Tile<DP>;
+  constexpr int NT = TL::NT, THREADS = TL::THREADS, WARPS = TL::WARPS;
+  constexpr int NQ = DP / 16;                   // 8-wide key slices per key half
+  constexpr int QG = NQ < 2 ? NQ : 2;           // slices per group of the inter product
+  constexpr int CPL = DP >= 32 ? DP / 32 : 1;   // key columns per lane in A
+  constexpr bool FP32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T, DP>& sm = *reinterpret_cast<Smem<T, DP>*>(smem_raw);
 
-  const int slot = threadIdx.x / DP, j = threadIdx.x % DP;
-  const int pair = blockIdx.x * PAIRS + slot;
-  const bool pair_live = pair < NH;
-  const bool live = pair_live && j < D;   // this thread owns column j
-  const size_t seq = (size_t)(pair_live ? pair : 0) * Tn * D;
+  const int tiles = (D + NT - 1) / NT;
+  const int pair = blockIdx.x / tiles, col0 = (blockIdx.x % tiles) * NT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = (warp % TL::JW) * 16;      // the warp's first column in the tile
+  const int hw = warp / TL::JW;             // its key half, keys [8 q0, 8 (q0 + NQ))
+  const int q0 = hw * NQ;
+  const int i0 = lane * CPL;                // A's key columns of this lane
+  const int ia = i0 < DP ? i0 : 0;
+  const size_t seq = (size_t)pair * Tn * D;
+  const size_t sbase = (size_t)pair * D * D;
+  const int nchunks = (Tn + C - 1) / C;
 
-  us[slot][j] = live ? __ldg(u + (size_t)(pair % H) * D + j) : 0.f;
+  for (int i = tid; i < DP; i += THREADS)
+    sm.us[i] = i < D ? u[(size_t)(pair % H) * D + i] : 0.f;
+  for (int e = tid; e < C * AS; e += THREADS) {   // A's upper triangle stays 0
+    sm.ah[e / AS][e % AS] = 0u;
+    sm.al[e / AS][e % AS] = 0u;
+  }
 
-  float S[DP];
+  // S^T in the accumulator layout of the state product: S[q][e] holds
+  // S[i][j] at i = 8 (q0 + q) + 2 t4 + (e & 1), j = col0 + m0 + g + 8 (e >> 1)
+  float S[NQ][4];
 #pragma unroll
-  for (int i = 0; i < DP; ++i)
-    S[i] = (live && s0 != nullptr && i < D)
-               ? s0[((size_t)pair * D + i) * D + j] : 0.f;
-
-  // this thread's column of the next chunk: CH tokens of r, k, v, w
-  float pr[CH], pk[CH], pv[CH], pw[CH];
-  fetch(r, k, v, w, seq, 0, Tn, D, j, live, pr, pk, pv, pw);
-
-  for (int t0 = 0; t0 < Tn; t0 += CH) {
-    __syncthreads();                 // the last chunk's reads are done
-    float vc[CH];
+  for (int q = 0; q < NQ; ++q)
 #pragma unroll
-    for (int m = 0; m < CH; ++m) {
-      rs[slot][m][j] = pr[m];
-      ks[slot][m][j] = pk[m];
-      ds[slot][m][j] = expf(-expf(pw[m]));
-      vc[m] = pv[m];
+    for (int e = 0; e < 4; ++e) {
+      const int i = 8 * (q0 + q) + 2 * t4 + (e & 1), j = col0 + m0 + g + 8 * (e >> 1);
+      S[q][e] = (s0 != nullptr && i < D && j < D) ? s0[sbase + (size_t)i * D + j] : 0.f;
     }
-    __syncthreads();
-    if (t0 + CH < Tn)                  // in flight while this chunk computes
-      fetch(r, k, v, w, seq, t0 + CH, Tn, D, j, live, pr, pk, pv, pw);
-    {                                   // a_t: CH-term partials
-      const int tok = j % CH, seg = j / CH;
-      float p = 0.f;
-#pragma unroll
-      for (int q = 0; q < CH; ++q) {
-        const int i = seg * CH + q;
-        p = fmaf(rs[slot][tok][i] * us[slot][i], ks[slot][tok][i], p);
+
+  stage(sm, 0, r, k, v, w, seq, min(C, Tn), D, vec);
+  tc::cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    const int t0 = c * C, buf = c & 1, rows = min(C, Tn - t0);
+    tc::cp_async_wait<0>();
+    __syncthreads();   // this sub-chunk is staged; every warp is done with the last one
+    if (c + 1 < nchunks)
+      stage(sm, buf ^ 1, r, k, v, w, seq + (size_t)(t0 + C) * D, min(C, Tn - t0 - C), D, vec);
+    tc::cp_async_commit();
+    if (c > 0) store_out(sm, out, seq + (size_t)(t0 - C) * D, col0, C, D, vec);
+
+    // decays, and r, k, v in fp32 (padded tokens and columns: 0, dec 1)
+    for (int e = tid; e < C * DP; e += THREADS) {
+      const int t = e / DP, i = e % DP, at = t * D + i;
+      const bool ok = t < rows && i < D;
+      sm.rf[t][i] = ok ? to_f(sm.r[buf][at]) : 0.f;
+      sm.kf[t][i] = ok ? to_f(sm.k[buf][at]) : 0.f;
+      sm.dec[t][i] = ok ? expf(-expf(sm.w[buf][at])) : 1.f;
+    }
+    for (int e = tid; e < C * NT; e += THREADS) {
+      const int t = e / NT, jj = e % NT, j = col0 + jj;
+      const float x = (t < rows && j < D) ? to_f(sm.v[buf][t * D + j]) : 0.f;
+      if constexpr (FP32) {
+        const Split s = split_tf32(x);
+        sm.vh[t][jj] = s.hi;
+        sm.vl[t][jj] = s.lo;
+      } else {
+        sm.vh[t][jj] = __float_as_uint(x);   // bf16 is exact in TF32
       }
-      part[slot][seg][tok] = p;
     }
     __syncthreads();
-    if (j < CH) {
+
+    // the two decay scans, one key column each: r_t (.) D_t, D_16, and
+    // k_s (.) prod_{m>s} dec_m
+    for (int it = tid; it < 2 * DP; it += THREADS) {
+      float x = 1.f;
+      if (it < DP) {
+        const int i = it;
+#pragma unroll
+        for (int t = 0; t < C; ++t) {
+          const Split s = split_tf32(sm.rf[t][i] * x);
+          sm.rdh[t][i] = s.hi;
+          sm.rdl[t][i] = s.lo;
+          x *= sm.dec[t][i];
+        }
+        sm.dl[i] = x;
+      } else {
+        const int i = it - DP;
+#pragma unroll
+        for (int t = C - 1; t >= 0; --t) {
+          const Split s = split_tf32(sm.kf[t][i] * x);
+          sm.krh[t][i] = s.hi;
+          sm.krl[t][i] = s.lo;
+          x *= sm.dec[t][i];
+        }
+      }
+    }
+    // A below the diagonal, pair by pair: warp turn p takes rows s = p and
+    // 15 - p, 15 pairs (t, s) together in 16 slots; each lane sums CPL key
+    // columns, the decay from s to t carried as a running product; then
+    // the slots are summed over the lanes in a fixed order
+#pragma unroll
+    for (int pw = 0; pw < C / 2 / WARPS; ++pw) {
+      const int p = warp + pw * WARPS;
+      const int split = C - 1 - p;          // slots [0, split): row p, t = p + 1 + slot
+      float kp[CPL], k2[CPL], acc[16];
+      lds(kp, &sm.kf[p][ia]);
+      lds(k2, &sm.kf[C - 1 - p][ia]);
+#pragma unroll
+      for (int sl = 0; sl < C - 1; ++sl) {
+        const int t = sl < split ? p + 1 + sl : sl + 1;
+#pragma unroll
+        for (int c8 = 0; c8 < CPL; ++c8) kp[c8] = sl == split ? k2[c8] : kp[c8];
+        float rr[CPL], dd[CPL], a = 0.f;
+        lds(rr, &sm.rf[t][ia]);
+        lds(dd, &sm.dec[t][ia]);
+#pragma unroll
+        for (int c8 = 0; c8 < CPL; ++c8) {
+          a = fmaf(rr[c8], kp[c8], a);
+          kp[c8] *= dd[c8];
+        }
+        acc[sl] = i0 < DP ? a : 0.f;
+      }
+      acc[C - 1] = 0.f;
+      const float sum = reduce_scatter16(acc, lane);
+      const int sl = lane >> 1;
+      if ((lane & 1) == 0 && sl < C - 1) {
+        const int t = sl < split ? p + 1 + sl : sl + 1, s = sl < split ? p : C - 1 - p;
+        const Split sp = split_tf32(sum);
+        sm.ah[t][s] = sp.hi;
+        sm.al[t][s] = sp.lo;
+      }
+    }
+    // A's diagonal, the bonus sum_i r_ti u_i k_ti: tokens warp + n WARPS,
+    // each summed over the lanes in a fixed order
+    {
+      constexpr int BT = C / WARPS;
+      float a[BT];
+#pragma unroll
+      for (int n = 0; n < BT; ++n) {
+        const int t = warp + n * WARPS;
+        float rr[CPL], kk[CPL], uu[CPL];
+        lds(rr, &sm.rf[t][ia]);
+        lds(kk, &sm.kf[t][ia]);
+        lds(uu, &sm.us[ia]);
+        a[n] = 0.f;
+#pragma unroll
+        for (int c8 = 0; c8 < CPL; ++c8) a[n] = fmaf(rr[c8] * uu[c8], kk[c8], a[n]);
+        a[n] = i0 < DP ? a[n] : 0.f;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int n = 0; n < BT; ++n) a[n] += __shfl_xor_sync(0xffffffffu, a[n], o);
+      if (lane == 0) {
+#pragma unroll
+        for (int n = 0; n < BT; ++n) {
+          const int t = warp + n * WARPS;
+          const Split sp = split_tf32(a[n]);
+          sm.ah[t][t] = sp.hi;
+          sm.al[t][t] = sp.lo;
+        }
+      }
+    }
+    __syncthreads();
+
+    // inter: this key half's part of y^T [16 columns x 16 tokens] =
+    // S^T (r (.) D)^T, 8 keys a slice, QG slices' products issued side by side
+    float y[2][4] = {};
+#pragma unroll
+    for (int qa = 0; qa < NQ; qa += QG) {
+      uint32_t ahi[QG][4], alo[QG][4], bhi[QG][2][2], blo[QG][2][2];
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq) {
+        const int q = qa + qq, kq = 8 * (q0 + q) + 2 * t4;
+        const float af[4] = {S[q][0], S[q][2], S[q][1], S[q][3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Split s = split_tf32(af[e]);
+          ahi[qq][e] = s.hi;
+          alo[qq][e] = s.lo;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint2 h = *reinterpret_cast<const uint2*>(&sm.rdh[8 * nt + g][kq]);
+          const uint2 l = *reinterpret_cast<const uint2*>(&sm.rdl[8 * nt + g][kq]);
+          bhi[qq][nt][0] = h.x;
+          bhi[qq][nt][1] = h.y;
+          blo[qq][nt][0] = l.x;
+          blo[qq][nt][1] = l.y;
+        }
+      }
+      float d[QG][2][4];
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) tc::mma_tf32_zero(d[qq][nt], alo[qq], bhi[qq][nt]);
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) tc::mma_tf32(d[qq][nt], ahi[qq], blo[qq][nt]);
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) tc::mma_tf32(d[qq][nt], ahi[qq], bhi[qq][nt]);
+#pragma unroll
+      for (int qq = 0; qq < QG; ++qq)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) y[nt][e] += d[qq][nt][e];
+    }
+    // v^T fragments (A operand of the intra and state products), 8 tokens a step
+    uint32_t vah[2][4], val[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int s = 8 * ks + t4;
+      vah[ks][0] = sm.vh[s][m0 + g];
+      vah[ks][1] = sm.vh[s][m0 + g + 8];
+      vah[ks][2] = sm.vh[s + 4][m0 + g];
+      vah[ks][3] = sm.vh[s + 4][m0 + g + 8];
+      if constexpr (FP32) {
+        val[ks][0] = sm.vl[s][m0 + g];
+        val[ks][1] = sm.vl[s][m0 + g + 8];
+        val[ks][2] = sm.vl[s + 4][m0 + g];
+        val[ks][3] = sm.vl[s + 4][m0 + g + 8];
+      }
+    }
+    // intra: this key half takes the 8 tokens s of its step: y^T += v^T A^T
+    {
+      uint32_t bhi[2][2], blo[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        bhi[nt][0] = sm.ah[8 * nt + g][8 * hw + t4];
+        bhi[nt][1] = sm.ah[8 * nt + g][8 * hw + t4 + 4];
+        blo[nt][0] = sm.al[8 * nt + g][8 * hw + t4];
+        blo[nt][1] = sm.al[8 * nt + g][8 * hw + t4 + 4];
+      }
+      uint32_t a[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[e] = hw ? vah[1][e] : vah[0][e];
+        alo[e] = FP32 ? (hw ? val[1][e] : val[0][e]) : 0u;
+      }
+      if constexpr (FP32)
+        tc::mma_3xtf32<2>(y, a, alo, bhi, blo);
+      else
+        mma_exact_a<2>(y, a, bhi, blo);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      sm.ys[hw][8 * nt + 2 * t4][m0 + g] = y[nt][0];
+      sm.ys[hw][8 * nt + 2 * t4 + 1][m0 + g] = y[nt][1];
+      sm.ys[hw][8 * nt + 2 * t4][m0 + g + 8] = y[nt][2];
+      sm.ys[hw][8 * nt + 2 * t4 + 1][m0 + g + 8] = y[nt][3];
+    }
+
+    // state: S^T <- S^T (.)cols D_16 + v^T (k (.) decay to the end), one
+    // fresh fragment per 8 keys over the 16 tokens, added with one rounding
+    {
+      float d[NQ][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bhi[NQ][2], blo[NQ][2];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int i = 8 * (q0 + q) + g;
+          bhi[q][0] = sm.krh[8 * ks + t4][i];
+          bhi[q][1] = sm.krh[8 * ks + t4 + 4][i];
+          blo[q][0] = sm.krl[8 * ks + t4][i];
+          blo[q][1] = sm.krl[8 * ks + t4 + 4][i];
+        }
+        if constexpr (FP32) {
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            if (ks == 0)
+              tc::mma_tf32_zero(d[q], val[ks], bhi[q]);
+            else
+              tc::mma_tf32(d[q], val[ks], bhi[q]);
+          }
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) tc::mma_tf32(d[q], vah[ks], blo[q]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            if (ks == 0)
+              tc::mma_tf32_zero(d[q], vah[ks], blo[q]);
+            else
+              tc::mma_tf32(d[q], vah[ks], blo[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) tc::mma_tf32(d[q], vah[ks], bhi[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float2 dl = *reinterpret_cast<const float2*>(&sm.dl[8 * (q0 + q) + 2 * t4]);
+        S[q][0] = fmaf(dl.x, S[q][0], d[q][0]);
+        S[q][1] = fmaf(dl.y, S[q][1], d[q][1]);
+        S[q][2] = fmaf(dl.x, S[q][2], d[q][2]);
+        S[q][3] = fmaf(dl.y, S[q][3], d[q][3]);
+      }
+    }
+  }
+  __syncthreads();
+  store_out(sm, out, seq + (size_t)(nchunks - 1) * C * D, col0, Tn - (nchunks - 1) * C, D, vec);
+
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 8 * (q0 + q) + 2 * t4 + (e & 1), j = col0 + m0 + g + 8 * (e >> 1);
+      if (i < D && j < D) sT[sbase + (size_t)i * D + j] = S[q][e];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// decode: the whole state of one pair in the registers of 8 warps
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_THREADS = 256;
+
+// VEC = 4: 16-byte state rows (d % 4 == 0), 8 lanes along a row; VEC = 1:
+// one value per lane, 32 lanes along a row.  DP (32, 64, 128) covers d; a
+// warp owns 32 columns and every (8 / (DP / 32))-th group of rows.
+template <typename T, int VEC, int DP>
+__global__ void __launch_bounds__(DEC_THREADS)
+rwkv6_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ w, const float* __restrict__ u, const float* s0,
+                    T* __restrict__ out, float* sT, int H, int Tn, int D) {
+  constexpr int NCB = DP / 32;             // 32-column blocks
+  constexpr int RG = 8 / NCB;              // row groups (warps per column block)
+  constexpr int IR = VEC == 4 ? 4 : 1;     // rows per warp and sweep
+  constexpr int JQ = 32 / IR;              // lanes along a row
+  constexpr int RS = RG * IR;              // rows per sweep
+  constexpr int M = DP / RS;               // rows per thread
+  constexpr int NB = DP / 32;              // bonus terms per lane of warp 0
+  __shared__ float part[2][RG][DP];
+  __shared__ float bonus[2];
+
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int rg = wp / NCB, ir = lane / JQ;
+  const int j0 = (wp % NCB) * 32 + (lane % JQ) * VEC;
+  const bool jlive = j0 < D;               // VEC = 4: d % 4 == 0, all four or none
+  const int pair = blockIdx.x;
+  const size_t sbase = (size_t)pair * D * D;
+  const float* up = u + (size_t)(pair % H) * D;
+
+  float S[M][VEC];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int i = rg * IR + ir + m * RS;
+    const bool live = jlive && i < D && s0 != nullptr;
+    if constexpr (VEC == 4) {
+      const float4 x = live ? *reinterpret_cast<const float4*>(s0 + sbase + (size_t)i * D + j0)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      S[m][0] = x.x;
+      S[m][1] = x.y;
+      S[m][2] = x.z;
+      S[m][3] = x.w;
+    } else {
+      S[m][0] = live ? s0[sbase + (size_t)i * D + j0] : 0.f;
+    }
+  }
+
+  // what this thread reads of one token: its rows' r, k, w, its columns'
+  // v, the bonus lanes' r u and k (warp 0), the v of its output column;
+  // the next token's are loaded while this one computes
+  struct Tok {
+    float r[M], k[M], w[M], v[VEC], br[NB], bk[NB], vo;
+  };
+  auto fetch = [&](int tok, Tok& x) {
+    const size_t row = ((size_t)pair * Tn + tok) * D;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = rg * IR + ir + m * RS;
+      const bool ok = i < D;
+      x.r[m] = ok ? ld(r + row + i) : 0.f;
+      x.k[m] = ok ? ld(k + row + i) : 0.f;
+      x.w[m] = ok ? w[row + i] : -INFINITY;   // dec = 1
+    }
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) x.v[c] = jlive ? ld(v + row + j0 + c) : 0.f;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const int i = lane + 32 * q;
+      const bool ok = wp == 0 && i < D;
+      x.br[q] = ok ? ld(r + row + i) * up[i] : 0.f;
+      x.bk[q] = ok ? ld(k + row + i) : 0.f;
+    }
+    x.vo = (int)threadIdx.x < D ? ld(v + row + threadIdx.x) : 0.f;
+  };
+  Tok cur, nxt;
+  fetch(0, cur);
+  for (int tok = 0; tok < Tn; ++tok) {
+    const int b = tok & 1;
+    if (tok + 1 < Tn) fetch(tok + 1, nxt);
+    float p[VEC] = {};
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float di = expf(-expf(cur.w[m]));
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        p[c] = fmaf(cur.r[m], S[m][c], p[c]);
+        S[m][c] = fmaf(di, S[m][c], cur.k[m] * cur.v[c]);
+      }
+    }
+#pragma unroll
+    for (int o = JQ; o < 32; o <<= 1)
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) p[c] += __shfl_xor_sync(0xffffffffu, p[c], o);
+    if (ir == 0 && jlive)
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) part[b][rg][j0 + c] = p[c];
+    if (wp == 0) {   // the bonus r . (u (.) k), over the lanes in a fixed order
       float a = 0.f;
 #pragma unroll
-      for (int s = 0; s < SEGS; ++s) a += part[slot][s][j];
-      bonus[slot][j] = a;
+      for (int q = 0; q < NB; ++q) a = fmaf(cur.br[q], cur.bk[q], a);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (lane == 0) bonus[b] = a;
     }
     __syncthreads();
+    const int j = threadIdx.x;
+    if (j < D) {
+      float o = 0.f;
 #pragma unroll
-    for (int m = 0; m < CH; ++m) {
-      const float vj = vc[m];
-      float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; i += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&rs[slot][m][i]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[slot][m][i]);
-        const float4 d4 = *reinterpret_cast<const float4*>(&ds[slot][m][i]);
-        acc0 = fmaf(r4.x, S[i], acc0);
-        acc1 = fmaf(r4.y, S[i + 1], acc1);
-        acc2 = fmaf(r4.z, S[i + 2], acc2);
-        acc3 = fmaf(r4.w, S[i + 3], acc3);
-        S[i] = fmaf(d4.x, S[i], k4.x * vj);
-        S[i + 1] = fmaf(d4.y, S[i + 1], k4.y * vj);
-        S[i + 2] = fmaf(d4.z, S[i + 2], k4.z * vj);
-        S[i + 3] = fmaf(d4.w, S[i + 3], k4.w * vj);
-      }
-      if (live && t0 + m < Tn)
-        attn::store1(out + seq + (size_t)(t0 + m) * D + j,
-                     ((acc0 + acc1) + (acc2 + acc3)) + bonus[slot][m] * vj);
+      for (int q = 0; q < RG; ++q) o += part[b][q][j];
+      attn::store1(out + ((size_t)pair * Tn + tok) * D + j, fmaf(bonus[b], cur.vo, o));
     }
+    cur = nxt;
   }
-  if (live) {
+
 #pragma unroll
-    for (int i = 0; i < DP; ++i)
-      if (i < D) sT[((size_t)pair * D + i) * D + j] = S[i];
+  for (int m = 0; m < M; ++m) {
+    const int i = rg * IR + ir + m * RS;
+    if (!jlive || i >= D) continue;
+    if constexpr (VEC == 4)
+      *reinterpret_cast<float4*>(sT + sbase + (size_t)i * D + j0) =
+          make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+    else
+      sT[sbase + (size_t)i * D + j0] = S[m][0];
   }
 }
 
+bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
+
 template <typename T, int DP>
-int launch(const void* r, const void* k, const void* v, const float* w,
-           const float* u, const float* s0, void* out, float* sT, int NH,
-           int H, int Tn, int D, cudaStream_t stream) {
-  constexpr int PAIRS = THREADS / DP;
-  const int blocks = (NH + PAIRS - 1) / PAIRS;
-  rwkv6_kernel<T, DP><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, u, s0, static_cast<T*>(out), sT, NH, H,
-      Tn, D);
+int launch_chunk(const void* r, const void* k, const void* v, const float* w, const float* u,
+                 const float* s0, void* out, float* sT, int NH, int H, int Tn, int D,
+                 cudaStream_t stream) {
+  constexpr int NT = Tile<DP>::NT;
+  const int smem = (int)sizeof(Smem<T, DP>);
+  auto kern = rwkv6_chunk_kernel<T, DP>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 8 == 0 && aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w) &&
+                  aligned16(out);
+  kern<<<NH * ((D + NT - 1) / NT), Tile<DP>::THREADS, smem, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u, s0,
+      static_cast<T*>(out), sT, H, Tn, D, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC, int DP>
+int launch_decode(const void* r, const void* k, const void* v, const float* w, const float* u,
+                  const float* s0, void* out, float* sT, int NH, int H, int Tn, int D,
+                  cudaStream_t stream) {
+  rwkv6_decode_kernel<T, VEC, DP><<<NH, DEC_THREADS, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u, s0,
+      static_cast<T*>(out), sT, H, Tn, D);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* r, const void* k, const void* v, const float* w,
-             const float* u, const float* s0, void* out, float* sT, int NH,
-             int H, int Tn, int D, cudaStream_t stream) {
-  if (D <= 8) return launch<T, 8>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
-  if (D <= 16) return launch<T, 16>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
-  if (D <= 32) return launch<T, 32>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
-  if (D <= 64) return launch<T, 64>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
-  return launch<T, 128>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
+int dispatch(const void* r, const void* k, const void* v, const float* w, const float* u,
+             const float* s0, void* out, float* sT, int NH, int H, int Tn, int D, int decode,
+             cudaStream_t stream) {
+  if (decode) {
+    const bool vec = D % 4 == 0 && aligned16(s0) && aligned16(sT);
+#define RWKV_DECODE(DP)                                                                   \
+  return vec ? launch_decode<T, 4, DP>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream) \
+             : launch_decode<T, 1, DP>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream)
+    if (D <= 32) RWKV_DECODE(32);
+    if (D <= 64) RWKV_DECODE(64);
+    RWKV_DECODE(128);
+#undef RWKV_DECODE
+  }
+  if (D <= 16) return launch_chunk<T, 16>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
+  if (D <= 32) return launch_chunk<T, 32>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
+  if (D <= 64) return launch_chunk<T, 64>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
+  return launch_chunk<T, 128>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
 }
 
 }  // namespace
@@ -187,18 +739,17 @@ int dispatch(const void* r, const void* k, const void* v, const float* w,
 // r, k, v [NH, Tn, D] of one type (dtype 0 = fp32, 1 = bf16), w [NH, Tn, D]
 // fp32, u [H, D] fp32 (pair p uses head p % H), s0 [NH, D, D] fp32 or null
 // (zeros), out [NH, Tn, D] in r's type, sT [NH, D, D] fp32 (may equal s0);
-// all contiguous.  1 <= D <= 128.
-extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
-                                 const float* w, const float* u,
-                                 const float* s0, void* out, float* sT,
-                                 int NH, int H, int Tn, int D, int dtype,
+// all contiguous.  1 <= D <= 128.  decode != 0 runs the decode kernel (the
+// wrapper's choice for a few tokens), else the chunked one.
+extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v, const float* w,
+                                 const float* u, const float* s0, void* out, float* sT, int NH,
+                                 int H, int Tn, int D, int dtype, int decode,
                                  cudaStream_t stream) {
   if (NH <= 0 || H <= 0 || NH % H != 0 || Tn <= 0 || D <= 0 || D > 128)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, stream);
+    return dispatch<float>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, decode, stream);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D,
-                                   stream);
+    return dispatch<__nv_bfloat16>(r, k, v, w, u, s0, out, sT, NH, H, Tn, D, decode, stream);
   return (int)cudaErrorInvalidValue;
 }

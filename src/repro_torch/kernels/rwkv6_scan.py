@@ -4,13 +4,19 @@ in the prefill and in each decode step::
 
     out_t = r_t . (S + u (x) (k_t (x) v_t));   S <- diag(exp(-exp(w_t))) S + k_t (x) v_t
 
-On CUDA: ``csrc/rwkv6_scan.cu`` (one thread per value column of one
-(sequence, head) holds that column of the fp32 state in registers for
-the whole sequence), r/k/v in fp32 or bf16, w, u and the state in fp32,
-the output in r's dtype.  The final state may be written over the
-initial one (``out_state=state``), which is how ``decode_step`` updates
-its cache in place.  On the CPU: the plain version,
-``ref.rwkv6_scan_ref``, one token at a time.
+On CUDA: ``csrc/rwkv6_scan.cu``, r/k/v in fp32 or bf16, w, u and the
+state in fp32, the output in r's dtype, through one of two kernels picked
+by the token count alone.  Above :data:`DECODE_MAX_T` tokens (the
+prefill) the chunked kernel: a block per (sequence, head) and tile of
+value columns keeps its slice of the state in registers and walks the
+tokens in sub-chunks of 16, the inter-chunk term, the intra-chunk term
+and the state update as 3xTF32 products on the tensor cores.  At most
+:data:`DECODE_MAX_T` tokens (a decode step) the decode kernel: eight
+warps hold one pair's whole state, read and written once in 16-byte
+pieces.  The final state may be written over the initial one
+(``out_state=state``), which is how ``decode_step`` updates its cache in
+place.  On the CPU: the plain version, ``ref.rwkv6_scan_ref``, one token
+at a time.
 """
 
 from __future__ import annotations
@@ -25,8 +31,14 @@ from repro_torch.kernels.flash_attention import DTYPES
 #: kernel launches of :func:`rwkv6_scan` in this process
 launches = 0
 
-#: largest head dim the kernel takes (its state column lives in registers)
+#: largest head dim the kernels take (the state lives in registers)
 MAX_HEAD_DIM = 128
+
+#: calls of at most this many tokens run the decode kernel, longer ones the
+#: chunked kernel: the decode kernel's cost is the state's bytes plus one
+#: block-wide reduction per token, the chunked kernel's a sub-chunk of 16
+#: tokens whatever t is
+DECODE_MAX_T = 4
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,8 +78,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{r.dtype}, {k.dtype}, {v.dtype}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"rwkv6_scan: head dim {d} must be in 1.."
-                         f"{MAX_HEAD_DIM} (one state column per thread, in "
-                         "registers)")
+                         f"{MAX_HEAD_DIM} (the state lives in registers)")
     out = torch.empty_like(r)
     if out_state is None:
         out_state = torch.empty(sshape, dtype=torch.float32, device=r.device)
@@ -75,6 +86,6 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(),
         out_state.data_ptr(), n * h, h, t, d, DTYPES[r.dtype],
-        build.stream_of(r)), "rwkv6_scan")
+        int(t <= DECODE_MAX_T), build.stream_of(r)), "rwkv6_scan")
     launches += 1
     return out, out_state

@@ -485,37 +485,80 @@ def test_engine_on_cuda_classifies_like_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# rwkv6_scan: t not a multiple of the kernel's 8-token chunk, d from 8 to
-# 128 (and d not a power of two), fp32 and bf16 r/k/v, with and without an
-# initial state
+# rwkv6_scan: t not a multiple of the chunked kernel's 16-token sub-chunk, d
+# from 3 to 128 (and d not a power of two), fp32 and bf16 r/k/v, with and
+# without an initial state; the sub-chunk's edges, decays from dec ~ 1 to a
+# log-decay of -55 per token, and the decode kernel (t <= DECODE_MAX_T) in
+# place
 # ---------------------------------------------------------------------------
 
 RWKV = [(1, 2, 37, 8, False), (2, 3, 20, 16, True), (3, 4, 1, 32, True),
         (2, 5, 64, 64, True), (1, 2, 29, 128, True), (2, 2, 13, 80, False),
         (1, 3, 9, 3, True)]
+# the sub-chunk's edges at the rwkv6-7b head width
+RWKV += [(2, 3, t, 64, s) for t in (1, 15, 16, 17, 45) for s in (False, True)]
 
 
-def rwkv_inputs(dev, seed, n, h, t, d, dtype, with_state):
+def rwkv_inputs(dev, seed, n, h, t, d, dtype, with_state, w_range=None):
     r, k, v, w, u, s0 = randn(dev, seed, *[(n, h, t, d)] * 4, (h, d),
                               (n, h, d, d), scale=0.5)
-    w = w * 0.6 - 1.0
+    if w_range is None:
+        w = w * 0.6 - 1.0
+    else:                      # uniform in [lo, hi]
+        lo, hi = w_range
+        w = lo + (hi - lo) * torch.rand(w.shape, device=dev,
+                                        generator=torch.Generator(
+                                            device=dev).manual_seed(seed))
     return ([a.to(dtype) for a in (r, k, v)] + [w, u]
             + [s0 if with_state else None])
+
+
+def check_rwkv(args, dtype):
+    """Against the sequential plain version on the same CUDA tensors:
+    fp32 1e-4 of the max (sums over d and t in another order, the state
+    update as one fma); bf16 output 1e-2 (one bf16 rounding of each)."""
+    got, gs = ops.rwkv6_scan(*args)
+    want, ws = ref.rwkv6_scan_ref(*args)
+    assert got.dtype == dtype and gs.dtype == torch.float32
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(torch.isfinite(gs).all())
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert max_err(got, want) <= tol * float(want.float().abs().max())
+    assert max_err(gs, ws) <= 1e-4 * float(ws.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,t,d,with_state", RWKV)
 def test_rwkv6_scan(dev, n, h, t, d, with_state, dtype):
-    """Against the sequential plain version on the same CUDA tensors:
-    fp32 1e-4 of the max (sums over d and t in another order, the state
-    update as one fma); bf16 output 1e-2 (one bf16 rounding of each)."""
-    args = rwkv_inputs(dev, 30 + d, n, h, t, d, dtype, with_state)
-    got, gs = ops.rwkv6_scan(*args)
-    want, ws = ref.rwkv6_scan_ref(*args)
-    assert got.dtype == dtype and gs.dtype == torch.float32
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    assert max_err(got, want) <= tol * float(want.float().abs().max())
-    assert max_err(gs, ws) <= 1e-4 * float(ws.abs().max())
+    check_rwkv(rwkv_inputs(dev, 30 + d, n, h, t, d, dtype, with_state),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_range", [(-10.0, -10.0), (4.0, 4.0),
+                                     (-10.0, 4.0)])
+@pytest.mark.parametrize("t,d", [(45, 64), (17, 80), (3, 64)])
+def test_rwkv6_scan_extreme_decay(dev, t, d, w_range, dtype):
+    """w = -10 (dec = 1 - 4.5e-5) to w = 4 (log-decay -54.6 per token, a
+    product of two underflows): finite, at the same tolerances."""
+    check_rwkv(rwkv_inputs(dev, 60 + t, 2, 3, t, d, dtype, True, w_range),
+               dtype)
+
+
+@pytest.mark.parametrize("d", [64, 80, 3])
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_rwkv6_scan_decode_in_place(dev, t, d):
+    """The decode kernel's token counts: the state written over the given
+    one equals a fresh one bit for bit, and both hold the tolerances."""
+    from repro_torch.kernels import rwkv6_scan as kr
+    assert t <= kr.DECODE_MAX_T
+    args = rwkv_inputs(dev, 70 + t, 4, 8, t, d, torch.bfloat16, True)
+    check_rwkv(args, torch.bfloat16)
+    out, fresh = ops.rwkv6_scan(*args)
+    state = args[5].clone()
+    out2, same = ops.rwkv6_scan(*args[:5], state, out_state=state)
+    assert same is state
+    assert torch.equal(out2, out) and torch.equal(state, fresh)
 
 
 def test_rwkv6_scan_state_in_place_and_batch_invariant(dev):

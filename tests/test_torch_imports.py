@@ -59,7 +59,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "chip_compare.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), path
