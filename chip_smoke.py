@@ -28,7 +28,12 @@ wall seconds (any failure exits non-zero):
                 library call's ms where one exists, FLOPs, bytes and the
                 bound (at the peak of what the kernel runs on: for fp32
                 work in 3xTF32, three TF32 products per fp32 one at the
-                TF32 peak), and what the kernel runs on (``design``); then
+                TF32 peak), and what the kernel runs on (``design``); for
+                the three GroupNorm kernels also the statistics pass alone
+                (``stats_pass_ms``, CUDA events; ``stats_pass_device_ms``,
+                ``torch.profiler``), the call's device ms and the bound
+                with the statistics' own read (``two_pass_bound_ms``); for
+                ``output_epilogue`` the share of bytes off by 1 LSB; then
                 the totals of each pass, and the plain
                 ``downsample``'s ms per encode.  The upsampler's lines
                 also carry its two costs apart: ``phase_collapse_ms``
@@ -151,7 +156,7 @@ KERNELS = {
                         "src/repro/kernels/gn_silu_conv.py:84"),
     "upsample_conv3x3": ("src/repro_torch/kernels/csrc/upsample_conv.cu",
                          "src/repro/kernels/upsample_conv.py:102"),
-    "output_epilogue": ("src/repro_torch/kernels/csrc/conv3x3.cu",
+    "output_epilogue": ("src/repro_torch/kernels/csrc/output_epilogue.cu",
                         "src/repro/kernels/output_epilogue.py:82"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
@@ -172,9 +177,17 @@ DESIGN = {
     "upsample_conv3x3": "3xTF32 mma.sync implicit GEMM (tc_conv_tile.cuh), "
                         "phase form: a block per phase, its 4 collapsed "
                         "2x2 taps, 128-wide tile",
-    "output_epilogue": "CUDA-core fp32 implicit GEMM",
+    "output_epilogue": "coalesced GN statistics pass (gn_stats.cu), then a "
+                       "16x32 tile x 3 outputs a block of 512 threads: the "
+                       "whole filter in shared memory once, the halo by "
+                       "cp.async in 16-channel chunks through a three-stage "
+                       "ring, one barrier a chunk, GN + SiLU once per halo "
+                       "element, CUDA-core fp32 products, packed "
+                       "uint8 stores",
     "flash_attention": "wgmma bf16, 3xTF32 mma.sync fp32",
-    "group_norm_silu": "CUDA-core fp32",
+    "group_norm_silu": "coalesced GN statistics pass (gn_stats.cu), then a "
+                       "float4 apply with four loads in flight a thread "
+                       "(CUDA-core fp32; streaming stores above 32 MB)",
     "decode_attention": "one launch: a CTA cluster per (sequence, kv head), "
                         "per-warp cp.async rings, bf16 on mma.sync (q k^T; "
                         "at d 128 p v with p split exactly into 3 bf16), "
@@ -197,6 +210,8 @@ CUDA_CORE_COUT = 4
 QUANT_KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
                  "output_epilogue")
 WEIGHT_DTYPES = ("float32", "bfloat16", "int8")
+#: kernels that run the GroupNorm statistics pass (``gn_stats.cu``) first
+GN_KERNELS = ("gn_silu_conv3x3", "output_epilogue", "group_norm_silu")
 #: kernels no single PyTorch call computes (``library_ms`` null)
 NO_LIBRARY = {"rwkv6_scan": "no single PyTorch call computes the RWKV-6 "
                             "recurrence"}
@@ -448,6 +463,7 @@ def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
     quant_totals["float32"][kernel]["calls"] += calls
     wt = a[-2]
     for wd in WEIGHT_DTYPES[1:]:
+        extra = {}
         wq = wt.bfloat16() if wd == "bfloat16" else quantize_int8(wt)
         w_store, w_scale = ops.weight_parts(wq)
         qa = list(a[:-2]) + [wq, a[-1]]
@@ -461,10 +477,12 @@ def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
              f"{kernel}{args} {wd}: non-finite output")
         err, tol, why = kernel_error(kernel, got, want)
         need(err <= tol, f"{kernel}{args} {wd}: max error {err} > {tol}")
+        if kernel == "output_epilogue":
+            extra["off_lsb_share"] = off_share(got, want)
         ms = cuda_ms(torch, lambda: wrappers[kernel](qa), REPS)
         plain_ms = cuda_ms(torch, lambda: plains[kernel](pa, w_scale), REPS)
-        extra = (collapse_ms(torch, a[0], w_store, a[-1], w_scale)
-                 if kernel == "upsample_conv3x3" else {})
+        if kernel == "upsample_conv3x3":
+            extra.update(collapse_ms(torch, a[0], w_store, a[-1], w_scale))
         emit(log, "kernel_quant", name=kernel, weight_dtype=wd,
              shape=list(args), calls_per_decode=calls, max_abs_err=err,
              tol=tol, tol_reason=why, ms=ms, plain_ms=plain_ms,
@@ -477,12 +495,12 @@ def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
     return worst
 
 
-def phase_kernels(torch, log, state):
+def kernel_fns(torch):
+    """The VAE kernels' wrappers, their plain versions (which take an
+    integer weight's ``w_scale``) and PyTorch's own call for the same work
+    on the same inputs, each keyed by kernel name."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.gn_silu_conv import gn_stats
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.vae.model import SD35_VAE
     groups = SD35_VAE.groups
     wrappers = {
@@ -526,22 +544,108 @@ def phase_kernels(torch, log, state):
             memory_format=torch.channels_last)
         return lambda: F.conv2d(xc, wc, b, padding=1)
 
-    image_hw = 8 * LATENT_HW
+    return wrappers, plains, library
+
+
+def vae_kernel_shapes():
+    """(kernel, shape) -> its calls in one 512x512 uint8 decode, encode and
+    float decode of the SD3.5-width VAE, in first-seen order."""
+    from repro_torch.vae.model import SD35_VAE
     passes = {"decode": decode_calls(SD35_VAE, LATENT_HW),
-              "encode": encode_calls(SD35_VAE, image_hw),
+              "encode": encode_calls(SD35_VAE, 8 * LATENT_HW),
               "float_decode": float_decode_calls(SD35_VAE, LATENT_HW)}
-    # (kernel, shape) -> calls in each pass, in first-seen order
-    checks = {}
+    shapes = {}
     for name, calls in passes.items():
         for key, n in Counter(c for c in calls if c[0] in KERNELS).items():
-            checks.setdefault(key, dict.fromkeys(VAE_PASSES, 0))[name] = n
-    # attention also at a 1024x1024 image's 16,384 tokens (checked, not
-    # part of any pass's totals)
-    top = SD35_VAE.block_out_channels[-1]
-    checks.setdefault(("flash_attention", (16384, top)),
-                      dict.fromkeys(VAE_PASSES, 0))
+            shapes.setdefault(key, dict.fromkeys(VAE_PASSES, 0))[name] = n
+    return shapes
+
+
+def off_share(got, want) -> float:
+    """The share of a uint8 output's values that differ from the plain
+    version's (each by 1 LSB where the check holds)."""
+    return float((got != want).float().mean())
+
+
+def measure_kernel(torch, state, kernel, args, a, fns):
+    """One VAE kernel call on inputs ``a``: its output held against the
+    plain version's, its ms, the plain version's and the library call's
+    (CUDA events), FLOPs, bytes and bounds; for a GroupNorm kernel also
+    the statistics pass alone (``stats_pass_ms`` in CUDA events,
+    ``stats_pass_device_ms`` the device time of its two kernels under
+    ``torch.profiler``, which leaves out the host's launch gaps that the
+    events count at small shapes), the call's device time, launches and
+    device kernels the same way, and the bound of the two passes
+    (``two_pass_bound_ms``: the statistics' own read of x beside the
+    kernel's bytes)."""
+    from repro_torch.kernels.gn_silu_conv import gn_stats
+    from repro_torch.vae.model import SD35_VAE
+    wrappers, plains, library = fns
+    got = wrappers[kernel](a)
+    want = plains[kernel](a)
+    torch.cuda.synchronize()
+    need(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+         f"{kernel}{args}: kernel gives {tuple(got.shape)} {got.dtype}, "
+         f"plain {tuple(want.shape)} {want.dtype}")
+    need(bool(torch.isfinite(got.float()).all()), f"{kernel}{args}: "
+         "non-finite output")
+    err, tol, why = kernel_error(kernel, got, want)
+    need(err <= tol, f"{kernel}{args}: max error {err} > {tol}")
+    extra = {"off_lsb_share": off_share(got, want)} \
+        if kernel == "output_epilogue" else {}
+    del got, want
+    flops, nbytes = work(kernel, args)
+    cout = None if kernel == "flash_attention" else args[-1]
+    row = dict(max_abs_err=err, tol=tol, tol_reason=why,
+               ms=cuda_ms(torch, lambda: wrappers[kernel](a), REPS),
+               plain_ms=cuda_ms(torch, lambda: plains[kernel](a), REPS),
+               library_ms=cuda_ms(torch, library(kernel, a), REPS),
+               flops=flops, ops_ms=ops_ms(state, kernel, flops, cout=cout),
+               bytes=nbytes, stats_pass_ms=0.0, stats_bytes=0.0)
+    if kernel in GN_KERNELS:
+        groups = SD35_VAE.groups
+        stats = lambda: gn_stats(a[0], groups, 1e-6)   # noqa: E731
+        prof = profile_share(torch, stats, REPS)
+        kern = profile_share(torch, lambda: wrappers[kernel](a), REPS)
+        row.update(stats_pass_ms=cuda_ms(torch, stats, REPS),
+                   stats_bytes=4.0 * args[0] * args[1] * args[2])
+        stats_bound = row["stats_bytes"] / state["peaks"][1] * 1e3
+        extra.update(
+            stats_pass_device_ms=prof["device_ms"],
+            stats_bound_ms=stats_bound,
+            stats_device_share=(stats_bound / prof["device_ms"]
+                                if prof["device_ms"] else None),
+            stats_device_launches=prof["device_launches"],
+            device_ms=kern["device_ms"],
+            device_launches=kern["device_launches"],
+            device_kernels=kern["top"])
+    if kernel == "upsample_conv3x3":
+        extra.update(collapse_ms(torch, a[0], a[1], a[2]))
+    with_bound(row, state["peaks"][1])
+    row.update(tflops=flops / row["ms"] / 1e9, **extra)
+    return row
+
+
+def vae_kernel_checks(torch, log, state, names=None):
+    """``measure_kernel`` at every shape of ``vae_kernel_shapes`` of the
+    kernels in ``names`` (all of them if None), each a ``kernel`` line,
+    with the quantized weight cases of the decode's conv kernels.
+    Returns the totals per pass and kernel, the largest error per kernel
+    and the upsampler's launches alone per pass."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.vae.model import SD35_VAE
+    names = set(KERNELS if names is None else names)
+    fns = kernel_fns(torch)
+    checks = {key: n for key, n in vae_kernel_shapes().items()
+              if key[0] in names}
+    if "flash_attention" in names:
+        # attention also at a 1024x1024 image's 16,384 tokens (checked,
+        # not part of any pass's totals)
+        top = SD35_VAE.block_out_channels[-1]
+        checks.setdefault(("flash_attention", (16384, top)),
+                          dict.fromkeys(VAE_PASSES, 0))
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    byte_peak = state["peaks"][1]
     totals = {p: {k: dict.fromkeys(TOTAL_FIELDS, 0.0) for k in KERNELS}
               for p in PASSES}
     max_err = dict.fromkeys(KERNELS, 0.0)
@@ -552,57 +656,41 @@ def phase_kernels(torch, log, state):
                     for wd in WEIGHT_DTYPES}
     for (kernel, args), per_pass in checks.items():
         a = kernel_inputs(torch, kernel, args, gen)
-        got = wrappers[kernel](a)
-        want = plains[kernel](a)
-        torch.cuda.synchronize()
-        need(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
-             f"{kernel}{args}: kernel gives {tuple(got.shape)} {got.dtype}, "
-             f"plain {tuple(want.shape)} {want.dtype}")
-        need(bool(torch.isfinite(got.float()).all()), f"{kernel}{args}: "
-             "non-finite output")
-        err, tol, why = kernel_error(kernel, got, want)
-        need(err <= tol, f"{kernel}{args}: max error {err} > {tol}")
-        ms = cuda_ms(torch, lambda: wrappers[kernel](a), REPS)
-        plain_ms = cuda_ms(torch, lambda: plains[kernel](a), REPS)
-        lib_ms = cuda_ms(torch, library(kernel, a), REPS)
-        flops, nbytes = work(kernel, args)
-        extra = {}
-        if kernel == "group_norm_silu":
-            # its first pass alone: how the time splits between the two
-            extra["stats_pass_ms"] = cuda_ms(
-                torch, lambda: gn_stats(a[0], groups, 1e-6), REPS)
-        if kernel == "upsample_conv3x3":
-            extra.update(collapse_ms(torch, a[0], a[1], a[2]))
-            for p, n in per_pass.items():
-                kernel_alone[p] += n * extra["kernel_ms"]
-        cout = None if kernel == "flash_attention" else args[-1]
-        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                   ops_ms=ops_ms(state, kernel, flops, cout=cout),
-                   bytes=nbytes)
+        row = measure_kernel(torch, state, kernel, args, a, fns)
         emit(log, "kernel", name=kernel, design=DESIGN[kernel],
-             shape=list(args), calls=per_pass,
-             max_abs_err=err, tol=tol, tol_reason=why, **row,
-             bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
-             tflops=flops / ms / 1e9, **extra)
-        max_err[kernel] = max(max_err[kernel], err)
+             shape=list(args), calls=per_pass, **row)
+        if kernel == "upsample_conv3x3":
+            for p, n in per_pass.items():
+                kernel_alone[p] += n * row["kernel_ms"]
+        max_err[kernel] = max(max_err[kernel], row["max_abs_err"])
         add_to_totals(totals, kernel, per_pass, row)
         if kernel in QUANT_KERNELS and per_pass["decode"]:
-            qerr = quantized_checks(torch, log, state, kernel, args, a, ms,
-                                    per_pass["decode"], wrappers, plains,
-                                    quant_totals)
+            wrappers, plains, _ = fns
+            qerr = quantized_checks(torch, log, state, kernel, args, a,
+                                    row["ms"], per_pass["decode"], wrappers,
+                                    plains, quant_totals)
             max_err[kernel] = max(max_err[kernel], qerr)
-        del a, got, want
+        del a
         torch.cuda.empty_cache()
-    emit(log, "kernels_quant_per_decode", image=[image_hw] * 2,
+    emit(log, "kernels_quant_per_decode", image=[8 * LATENT_HW] * 2,
          totals=quant_totals,
          total_ms={wd: sum(t["ms"] for t in quant_totals[wd].values())
                    for wd in quant_totals})
+    return totals, max_err, kernel_alone
+
+
+def phase_kernels(torch, log, state):
+    from repro_torch.vae.model import SD35_VAE
+    image_hw = 8 * LATENT_HW
+    byte_peak = state["peaks"][1]
+    totals, max_err, kernel_alone = vae_kernel_checks(torch, log, state)
     lm_attention_checks(torch, log, state, totals, max_err)
     rwkv6_checks(torch, log, state, totals, max_err)
     for per_kernel in totals.values():
         for t in per_kernel.values():
             with_bound(t, byte_peak)
-    down = time_downsample(torch, log, state, passes["encode"])
+    down = time_downsample(torch, log, state,
+                           encode_calls(SD35_VAE, image_hw))
     for p in PASSES:
         extra = {"plain_downsample": down} if p == "encode" else {}
         if p in VAE_PASSES:
@@ -625,23 +713,27 @@ def phase_kernels(torch, log, state):
 #: what each pass's per-kernel totals sum (``ops_ms``: FLOPs over the peak
 #: of what runs them, so bf16 and fp32 work add up)
 TOTAL_FIELDS = ("ms", "plain_ms", "library_ms", "flops", "ops_ms", "bytes",
-                "calls")
+                "calls", "stats_pass_ms", "stats_bytes")
 
 
 def add_to_totals(totals, kernel, per_pass, row):
     for p, n in per_pass.items():
         t = totals[p][kernel]
         for f in TOTAL_FIELDS:
-            t[f] += n * (1 if f == "calls" else row[f])
+            t[f] += n * (1 if f == "calls" else row.get(f, 0.0))
 
 
 def with_bound(t, byte_peak):
     """Add the least time (ms) the card needs for ``t``'s operations
     (``ops_ms``, at the peak of their type) and bytes, and which of the
-    two bounds it."""
+    two bounds it; where ``t`` counts a GroupNorm statistics read
+    (``stats_bytes``), also the two passes' bound with it."""
     t_ops, t_bytes = t["ops_ms"], t["bytes"] / byte_peak * 1e3
     t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    if t.get("stats_bytes"):
+        t["two_pass_bound_ms"] = max(
+            t_ops, (t["bytes"] + t["stats_bytes"]) / byte_peak * 1e3)
     return t
 
 
@@ -1692,6 +1784,8 @@ def main() -> int:
              "ms": totals[k]["ms"], "plain_ms": totals[k]["plain_ms"],
              "bound_ms": totals[k]["bound_ms"],
              "bound_by": totals[k]["bound_by"],
+             **({"stats_pass_ms": totals[k]["stats_pass_ms"]}
+                if k in GN_KERNELS else {}),
              "library_ms": (None if k in NO_LIBRARY
                             else totals[k]["library_ms"]),
              "design": DESIGN[k], **state["cold"].get(k, {})}

@@ -25,7 +25,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gn_stats", "conv3x3", "gn_silu_conv", "upsample_conv",
-           "flash_attention", "gn_silu", "decode_attention", "rwkv6_scan")
+           "flash_attention", "gn_silu", "decode_attention", "rwkv6_scan",
+           "output_epilogue")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,8 +41,7 @@ F = ctypes.c_float
 #: function returns cudaGetLastError()
 SIGNATURES = {
     "gn_stats": ("gn_stats_launch", [P, P, P, I, I, I, I, I, F, P]),
-    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, P, P, P,
-                                   I, I, I, I, I, I, I, I, I, I, P]),
+    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
     "gn_silu_conv": ("gn_silu_conv3x3_launch", [P, P, P, P, P, P, P, P,
                                                  I, I, I, I, I, I, I, P]),
     "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P, P,
@@ -54,6 +54,8 @@ SIGNATURES = {
                                                      P]),
     "rwkv6_scan": ("rwkv6_scan_launch", [P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, I, P]),
+    "output_epilogue": ("output_epilogue_launch", [P, P, P, P, P, P, P, P,
+                                                   I, I, I, I, I, I, I, P]),
 }
 
 

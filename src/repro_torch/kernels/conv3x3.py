@@ -67,8 +67,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
                          f"[Cout], got {tuple(w.shape)}, {tuple(b.shape)}")
     out = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
     build.check(build.lib("conv3x3").conv3x3_launch(
-        x.data_ptr(), 0, 0, 0, w.data_ptr(), sptr, b.data_ptr(),
-        out.data_ptr(), n, h, wd, cin, cout, 1, 0, 0,
-        k_split(h, wd, cin, cout), wcode, build.stream_of(x)), "conv3x3")
+        x.data_ptr(), w.data_ptr(), sptr, b.data_ptr(), out.data_ptr(), n,
+        h, wd, cin, cout, k_split(h, wd, cin, cout), wcode,
+        build.stream_of(x)), "conv3x3")
     launches += 1
     return out

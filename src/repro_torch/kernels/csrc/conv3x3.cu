@@ -1,10 +1,8 @@
-// 3x3 SAME convolution, and the decode's fused uint8 output epilogue: two
-// TPU kernels.
+// 3x3 SAME convolution.
 //
-// Replaces, from src/repro/kernels/:
-//   conv3x3.py::conv3x3 (_conv_kernel)                     no prologue, fp32 out
-//   output_epilogue.py::output_epilogue (_epilogue_kernel)  GN + SiLU, uint8 out
-// The GroupNorm statistics pass of the epilogue runs first, in gn_stats.cu.
+// Replaces src/repro/kernels/conv3x3.py::conv3x3 (_conv_kernel): no
+// prologue, fp32 out.  (The decode's fused uint8 output epilogue has its
+// own kernel, output_epilogue.cu.)
 //
 // conv3x3 with Cout > 4: the 3xTF32 tensor-core tile of tc_conv_tile.cuh
 // with no prologue and 3x3 taps.  Its callers (ms per call by
@@ -25,11 +23,10 @@
 // Bound on the H100: operations for the latent-sized convs, bytes for the
 // full-resolution conv_in.
 //
-// Cout <= 4 (the float decode's conv_out, 128 -> 3) and the output
-// epilogue (Cout = 3, uint8) stay on the narrow CUDA-core tile of
-// conv_tile.cuh in full fp32: a matrix tile would be 97 % idle, and those
-// shapes move more bytes than they compute (conv_out: 0.345-0.362 ms,
-// F.conv2d 0.803-0.835).
+// Cout <= 4 (the float decode's conv_out, 128 -> 3) stays on the narrow
+// CUDA-core tile of conv_tile.cuh in full fp32: a matrix tile would be
+// 97 % idle, and the shape moves more bytes than it computes (conv_out:
+// 0.345-0.362 ms, F.conv2d 0.803-0.835).
 
 #include "tc_conv_tile.cuh"
 
@@ -45,22 +42,16 @@ int launch_tc(const rt::ConvArgs& a, int ksplit, cudaStream_t stream) {
 }  // namespace
 
 // x [N, H, W, Cin], w [3, 3, Cin, Cout] in its storage type wtype (0 fp32,
-// 1 bf16, 2 int8 with wscale [Cout]), b [Cout], out [N, H, W, Cout], all
-// contiguous.  pro = epi = 0: conv3x3, fp32 out, K split over ksplit
-// blocks where 4 < Cout <= 32 (else 1); pro = epi = 1: output_epilogue
-// (stats [N, G, 2], gamma/beta [Cin], uint8 out, ksplit 1).
-extern "C" int conv3x3_launch(const float* x, const float* stats,
-                              const float* gamma, const float* beta,
-                              const void* w, const float* wscale,
-                              const float* b, void* out, int N, int H, int W,
-                              int Cin, int Cout, int G, int pro, int epi,
-                              int ksplit, int wtype, cudaStream_t stream) {
-  rt::ConvArgs a{x, stats, gamma, beta, w, wscale, b, out, N, H, W, Cin, Cout, G};
-  if (pro == 1 && epi == 1 && ksplit == 1) return rt::launch_conv_typed<1, 1>(a, wtype, stream);
-  if (pro != 0 || epi != 0) return (int)cudaErrorInvalidValue;
+// 1 bf16, 2 int8 with wscale [Cout]), b [Cout], out [N, H, W, Cout] fp32,
+// all contiguous; K split over ksplit blocks where 4 < Cout <= 32 (else 1).
+extern "C" int conv3x3_launch(const float* x, const void* w, const float* wscale,
+                              const float* b, float* out, int N, int H, int W,
+                              int Cin, int Cout, int ksplit, int wtype,
+                              cudaStream_t stream) {
+  rt::ConvArgs a{x, nullptr, nullptr, nullptr, w, wscale, b, out, N, H, W, Cin, Cout, 1};
   if (Cout <= 4) {
     if (ksplit != 1) return (int)cudaErrorInvalidValue;
-    return rt::launch_conv_typed<0, 0>(a, wtype, stream);
+    return rt::launch_narrow_conv(a, wtype, stream);
   }
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
   switch (wtype) {

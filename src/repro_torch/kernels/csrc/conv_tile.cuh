@@ -1,10 +1,10 @@
 // The direct 3x3 convolution tile on the CUDA cores, for the shapes a
 // matrix tile would leave almost idle: conv3x3.cu's Cout <= 4 (the float
-// decode's conv_out, 128 -> 3) and output_epilogue, and gn_silu_conv.cu's
-// Cout <= 4.  NHWC fp32 activations, HWIO weights in their storage type,
-// fp32 accumulation.  Every conv with Cout > 4 runs on the tensor-core tile
-// of tc_conv_tile.cuh, which takes its argument block and weight types
-// from here.
+// decode's conv_out, 128 -> 3) and gn_silu_conv.cu's Cout <= 4.  NHWC fp32
+// activations, HWIO weights in their storage type, fp32 accumulation and
+// output.  Every conv with Cout > 4 runs on the tensor-core tile of
+// tc_conv_tile.cuh, and the decode's uint8 epilogue on output_epilogue.cu;
+// both take their argument block and weight types from here.
 //
 // Weights (WT): fp32, bf16 or int8 codes (int16, the upsampler's
 // collapsed int8 taps, only on the tensor-core tile).  Each is converted
@@ -12,8 +12,8 @@
 // these types is exact in fp32, so the products and the sum order are
 // those of an fp32 weight of the same value, and the dequantized weight
 // never exists in device memory.  An integer weight's per-output-channel scale multiplies the
-// fp32 sum in the epilogue, before the bias (the order of the TPU
-// kernels, conv3x3.py:102-108).
+// fp32 sum before the bias (the order of the TPU kernels,
+// conv3x3.py:102-108).
 //
 // One block computes an output tile of TH x TW pixels of ONE image by BN
 // output channels.  For every chunk of BK input channels it stages the
@@ -28,8 +28,6 @@
 //
 // Prologue (PRO): none, or GroupNorm + affine + SiLU from per-(n, group)
 // statistics, applied once per halo element as it is loaded.
-// Epilogue (EPI): bias -> fp32, or bias -> clamp to [-1, 1] ->
-// rint((y + 1) * 127.5) -> uint8 (round half to even, as jnp.round).
 //
 // Every output element is summed in one fixed order (channel chunk, tap
 // row, channel, tap column) by one thread, with no split over images or
@@ -82,9 +80,6 @@ struct ConvCfg {
   static_assert(TPN % 4 == 0, "channel groups are float4");
 };
 
-// Cout > 4 (output_epilogue only): 128 pixels (4 rows x 32) x 128
-// channels, 8x8 per thread.
-using WideCfg = ConvCfg<4, 32, 128, 8, 8>;
 // Cout <= 4 (the decoder's conv_out): 512 pixels x 4 channels, 4x4 per
 // thread; too narrow for a matrix unit, so CUDA-core FMAs.
 using NarrowCfg = ConvCfg<16, 32, 4, 4, 4>;
@@ -97,11 +92,11 @@ struct ConvArgs {
   const void* w;       // [3, 3, Cin, Cout], or the upsampler's [2, 2, 2, 2, Cin, Cout]
   const float* wscale; // [Cout] dequant scale of an integer weight, else null
   const float* bias;   // [Cout]
-  void* out;           // [N, H, W, Cout] f32/u8, or the upsampler's [N, 2H, 2W, Cout]
+  void* out;           // [N, H, W, Cout] f32, or the upsampler's [N, 2H, 2W, Cout]
   int N, H, W, Cin, Cout, G;
 };
 
-template <class Cfg, int PRO, int EPI, class WT>
+template <class Cfg, int PRO, class WT>
 __global__ void __launch_bounds__(Cfg::THREADS, Cfg::THREADS >= 256 ? 2 : 4)
 conv_tile_kernel(ConvArgs a) {
   constexpr int TH = Cfg::TH, TW = Cfg::TW, BN = Cfg::BN, BK = Cfg::BK;
@@ -213,57 +208,39 @@ conv_tile_kernel(ConvArgs a) {
         if (Scaled<WT>::value) t = __fmul_rn(t, in ? __ldg(a.wscale + cb + jj) : 0.f);
         v[jj] = t + (in ? __ldg(a.bias + cb + jj) : 0.f);
       }
-      if (EPI == 0) {
-        float* o = static_cast<float*>(a.out) + opix * Cout + cb;
-        if ((Cout & 3) == 0 && cb + 3 < Cout) {
-          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-        } else {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            if (cb + jj < Cout) o[jj] = v[jj];
-        }
+      float* o = static_cast<float*>(a.out) + opix * Cout + cb;
+      if ((Cout & 3) == 0 && cb + 3 < Cout) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
-        uint8_t* o = static_cast<uint8_t*>(a.out) + opix * Cout + cb;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (cb + jj < Cout) {
-            const float yc = fminf(fmaxf(v[jj], -1.f), 1.f);
-            o[jj] = (uint8_t)rintf((yc + 1.f) * 127.5f);
-          }
-        }
+        for (int jj = 0; jj < 4; ++jj)
+          if (cb + jj < Cout) o[jj] = v[jj];
       }
     }
   }
 }
 
-template <class Cfg, int PRO, int EPI, class WT>
+template <class Cfg, int PRO, class WT>
 int launch_conv_tile(const ConvArgs& a, cudaStream_t stream) {
   if (Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
   const int tiles = ((a.H + Cfg::TH - 1) / Cfg::TH) *
                     ((a.W + Cfg::TW - 1) / Cfg::TW);
   const int ntiles = (a.Cout + Cfg::BN - 1) / Cfg::BN;
   const dim3 grid(tiles, ntiles, a.N);
-  conv_tile_kernel<Cfg, PRO, EPI, WT><<<grid, Cfg::THREADS, 0, stream>>>(a);
+  conv_tile_kernel<Cfg, PRO, WT><<<grid, Cfg::THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Wide tiles for real channel counts, narrow ones for conv_out's 3.
-template <int PRO, int EPI, class WT>
-int launch_conv(const ConvArgs& a, cudaStream_t stream) {
+// conv3x3 with Cout <= 4, no prologue, for the storage type code wtype
+// (fp32, bf16 or int8)
+inline int launch_narrow_conv(const ConvArgs& a, int wtype, cudaStream_t stream) {
   if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.Cin <= 0 || a.Cout <= 0 ||
-      a.N > 65535 || (PRO && (a.G <= 0 || a.Cin % a.G != 0)))
+      a.Cout > NarrowCfg::BN || a.N > 65535)
     return (int)cudaErrorInvalidValue;
-  if (a.Cout <= 4) return launch_conv_tile<NarrowCfg, PRO, EPI, WT>(a, stream);
-  return launch_conv_tile<WideCfg, PRO, EPI, WT>(a, stream);
-}
-
-// launch_conv for the storage type code wtype (fp32, bf16 or int8)
-template <int PRO, int EPI>
-int launch_conv_typed(const ConvArgs& a, int wtype, cudaStream_t stream) {
   switch (wtype) {
-    case kF32: return launch_conv<PRO, EPI, float>(a, stream);
-    case kBF16: return launch_conv<PRO, EPI, bf16w>(a, stream);
-    case kI8: return launch_conv<PRO, EPI, int8_t>(a, stream);
+    case kF32: return launch_conv_tile<NarrowCfg, 0, float>(a, stream);
+    case kBF16: return launch_conv_tile<NarrowCfg, 0, bf16w>(a, stream);
+    case kI8: return launch_conv_tile<NarrowCfg, 0, int8_t>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

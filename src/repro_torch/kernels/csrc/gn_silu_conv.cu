@@ -30,7 +30,7 @@ namespace {
 
 template <class WT>
 int launch_typed(const rt::ConvArgs& a, cudaStream_t stream) {
-  if (a.Cout <= 4) return rt::launch_conv_tile<rt::NarrowCfg, 1, 0, WT>(a, stream);
+  if (a.Cout <= 4) return rt::launch_conv_tile<rt::NarrowCfg, 1, WT>(a, stream);
   return tcc::launch_wide<tcc::kGnSilu, 9, WT>(a, stream);
 }
 

@@ -2,10 +2,11 @@
 ``kernels/gn_silu.py``): the encoder's and the float decode's
 ``norm_out``, where no conv follows that could take it as a prologue.
 
-On CUDA: ``csrc/gn_stats.cu`` computes the per-(n, group) statistics,
+On CUDA: ``csrc/gn_stats.cu`` computes the per-(n, group) statistics
+(two launches: the coalesced partial pass and the fixed-order merge),
 then ``csrc/gn_silu.cu`` normalises, applies the affine and the SiLU in
-one float4 pass.  On the CPU: the plain version,
-``ref.group_norm_silu_ref``.
+one float4 pass with four loads in flight per thread.  On the CPU: the
+plain version, ``ref.group_norm_silu_ref``.
 """
 
 from __future__ import annotations

@@ -20,20 +20,37 @@ from repro_torch.kernels import build, ref
 #: kernel launches of :func:`gn_silu_conv3x3` in this process
 launches = 0
 
-#: elements of one (n, group) a statistics block reduces, about
-STATS_BLOCK_ELEMS = 8192
+#: the statistics pass's pixel slices per image (``csrc/gn_stats.cu``):
+#: about this many elements each (256 KB), at least MIN_STATS_SLICES (one
+#: block per SM of an H100) and at most MAX_STATS_SLICES, the fastest on
+#: the card at the VAE's shapes (a block's merge and the second pass grow
+#: with the slices)
+STATS_BLOCK_ELEMS = 65536
+MIN_STATS_SLICES = 132
+MAX_STATS_SLICES = 512
+
+
+def stats_slices(hw: int, c: int) -> int:
+    """Pixel slices of one image in the statistics pass, from the shape
+    alone (never the batch), so each image's statistics have the same
+    bits at every batch size; every slice holds ceil(hw / slices)
+    pixels but the last, which holds at least one."""
+    want = -(-hw * c // STATS_BLOCK_ELEMS)
+    s = max(1, min(hw, MAX_STATS_SLICES, max(want, MIN_STATS_SLICES)))
+    return -(-hw // -(-hw // s))
 
 
 def gn_stats(x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
     """Launch the statistics pass: ``[N, G, 2]`` fp32 (mean, rstd) of an
-    NHWC CUDA tensor (a launch helper of this kernel and of
-    ``output_epilogue``; not counted on its own)."""
+    NHWC CUDA tensor (a launch helper of this kernel, ``output_epilogue``
+    and ``group_norm_silu``; not counted on its own)."""
     n, h, w, c = x.shape
-    hw, cpg = h * w, c // groups
-    slices = max(1, min(hw, -(-hw * cpg // STATS_BLOCK_ELEMS)))
-    partial = torch.empty((n, groups, slices, 3), dtype=torch.float32,
-                          device=x.device)
-    stats = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    hw = h * w
+    slices = stats_slices(hw, c)
+    buf = torch.empty(n * groups * (slices * 3 + 2), dtype=torch.float32,
+                      device=x.device)
+    stats = buf[:n * groups * 2].view(n, groups, 2)
+    partial = buf[n * groups * 2:]
     build.check(build.lib("gn_stats").gn_stats_launch(
         x.data_ptr(), partial.data_ptr(), stats.data_ptr(), n, hw, c,
         groups, slices, float(eps), build.stream_of(x)), "gn_stats")

@@ -1,10 +1,12 @@
 """Fused decode epilogue: GroupNorm + SiLU + conv_out + clamp + uint8
 (counterpart of the JAX package's ``kernels/output_epilogue.py``).
 
-On CUDA: ``csrc/gn_stats.cu`` then ``csrc/conv3x3.cu`` with the uint8
-epilogue on its CUDA-core tile (the weight read in its storage dtype, as
-in ``conv3x3``), so the decode's last write is the displayable image
-itself.
+On CUDA: ``csrc/gn_stats.cu`` then ``csrc/output_epilogue.cu``: the
+whole filter (three output channels a block, the weight read in its
+storage dtype) staged once in shared memory, the input halo by cp.async
+in 16-channel chunks, GN + SiLU applied once per halo element, the
+products on the CUDA cores, and the uint8 store, so the decode's last
+write is the displayable image itself.
 On the CPU: the plain version, ``ref.output_epilogue_ref``.
 """
 
@@ -38,10 +40,9 @@ def output_epilogue(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     cout = w.shape[-1]
     stats = gn_stats(x, groups, eps)
     out = torch.empty((n, h, wd, cout), dtype=torch.uint8, device=x.device)
-    build.check(build.lib("conv3x3").conv3x3_launch(
+    build.check(build.lib("output_epilogue").output_epilogue_launch(
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         w.data_ptr(), sptr, b.data_ptr(), out.data_ptr(), n, h, wd, cin,
-        cout, groups, 1, 1, 1, wcode, build.stream_of(x)),
-        "output_epilogue")
+        cout, groups, wcode, build.stream_of(x)), "output_epilogue")
     launches += 1
     return out

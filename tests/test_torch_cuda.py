@@ -887,3 +887,105 @@ def test_tensor_core_convs_issue_one_device_kernel(dev):
     ops.upsample_conv3x3(x, wt, b)
     assert ops.launch_counts()["upsample_conv3x3"] == 1
     assert sum(ops.launch_counts().values()) == 1
+
+
+# ---------------------------------------------------------------------------
+# the GroupNorm statistics pass and the output epilogue, redesigned: the
+# coalesced statistics kernel held to its CPU model bit for bit, its scalar
+# path, batch invariance; the epilogue at the decode's shape per weight
+# dtype
+# ---------------------------------------------------------------------------
+
+# (n, h, w, c, groups): the float4 path at cpg 4 and 16, the scalar path
+# at cpg 1, 2 and 65 (C % 4 != 0), and one group wider than a block
+STATS_MODEL_SHAPES = [(2, 37, 29, 128, 32), (1, 64, 48, 512, 32),
+                      (2, 13, 11, 32, 32), (1, 9, 14, 16, 8),
+                      (1, 7, 9, 130, 2), (1, 5, 6, 258, 1)]
+
+
+@pytest.mark.parametrize("n,h,w,c,groups", STATS_MODEL_SHAPES)
+def test_gn_stats_is_its_cpu_model_bit_for_bit(dev, n, h, w, c, groups):
+    """``tests/test_torch_gn_stats.py`` repeats the kernel's roundings on
+    the CPU; the card gives the same bits."""
+    from repro_torch.kernels.gn_silu_conv import gn_stats
+    from test_torch_gn_stats import inputs, stats_model
+    x = inputs(40, (n, h, w, c), 30.0, scale=2.0)
+    got = gn_stats(x.to(dev), groups, 1e-6).cpu()
+    assert torch.equal(got, stats_model(x, groups))
+
+
+@pytest.mark.parametrize("n,h,w,c,groups,misalign", [
+    (2, 13, 11, 30, 15, 0), (1, 9, 14, 16, 8, 0), (2, 13, 11, 32, 32, 0),
+    (1, 37, 29, 64, 8, 1), (1, 5, 6, 258, 1, 0), (1, 64, 64, 128, 32, 1)])
+def test_gn_stats_scalar_path_against_float64(dev, n, h, w, c, groups,
+                                              misalign):
+    """C % 4 != 0, cpg = 1 and 2 (a float4 would span two groups) and an
+    x that is not 16-byte aligned take the scalar path; at +300 its
+    statistics keep the float64 ones as the float4 path does."""
+    from repro_torch.kernels.gn_silu_conv import gn_stats
+    (x,) = randn(dev, 41, (n, h, w, c))
+    x = x + 300.0
+    if misalign:
+        buf = torch.empty(x.numel() + 1, device=dev)
+        x = buf[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    stats = gn_stats(x, groups, 1e-6)
+    x64 = x.double().reshape(n, -1, groups, c // groups)
+    mean = x64.mean(dim=(1, 3))
+    rstd = (x64.var(dim=(1, 3), correction=0) + 1e-6).rsqrt()
+    assert max_err(stats[..., 0], mean) <= 1e-4
+    assert float(((stats[..., 1].double() - rstd) / rstd).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("h,w,c", [(64, 64, 512), (128, 128, 256),
+                                   (97, 61, 128), (33, 70, 40)])
+def test_gn_stats_image_alone_equals_its_row_at_bucket_8(dev, h, w, c):
+    from repro_torch.kernels.gn_silu_conv import gn_stats
+    (x,) = randn(dev, 42, (8, h, w, c))
+    groups = 32 if c % 32 == 0 else 8
+    batch = gn_stats(x, groups, 1e-6)
+    for i in range(8):
+        assert torch.equal(gn_stats(x[i:i + 1], groups, 1e-6),
+                           batch[i:i + 1]), i
+
+
+@pytest.mark.parametrize("weight_dtype", ["float32"] + QUANT)
+def test_output_epilogue_at_the_decode_shape(dev, weight_dtype):
+    """1 x 512 x 512 x 128 -> 3, the uint8 decode's last call: within +-1
+    LSB of the plain version per weight dtype, and image i of a batch of
+    two bit-identical to that image alone."""
+    x, sc, gb, wt, b = randn(dev, 43, (2, 512, 512, 128), (128,), (128,),
+                             (3, 3, 128, 3), (3,))
+    sc = 1.0 + 0.1 * sc
+    gb = 0.1 * gb
+    wt = wt * 0.35 * (9 * 128) ** -0.5
+    wq = wt if weight_dtype == "float32" else stored(wt, weight_dtype)
+    wp, s = plain_args(wq)
+    got = ops.output_epilogue(x[:1], sc, gb, wq, b)
+    want = ref.output_epilogue_ref(x[:1], sc, gb, wp, b, 32, w_scale=s)
+    assert got.dtype == torch.uint8 and got.shape == (1, 512, 512, 3)
+    assert max_err(got.int(), want.int()) <= 1
+    assert 16 < float(got.float().mean()) < 240
+    batch = ops.output_epilogue(x, sc, gb, wq, b)
+    assert torch.equal(batch[:1], got)
+    assert torch.equal(batch[1:], ops.output_epilogue(x[1:], sc, gb, wq, b))
+
+
+def test_gn_kernels_count_one_launch_per_call_and_issue_three(dev):
+    """Each GN wrapper call adds one to its own count; output_epilogue and
+    group_norm_silu are three device kernels a call (the statistics'
+    partial pass and merge, then the kernel itself)."""
+    x, sc, gb, wt, b = randn(dev, 44, (2, 16, 32, 64), (64,), (64,),
+                             (3, 3, 64, 3), (3,))
+    calls = {"output_epilogue": lambda: ops.output_epilogue(x, sc, gb, wt, b),
+             "group_norm_silu": lambda: ops.group_norm_silu(x, sc, gb),
+             "gn_silu_conv3x3": lambda: ops.gn_silu_conv3x3(x, sc, gb, wt,
+                                                            b)}
+    for name, call in calls.items():
+        ops.reset_launch_counts()
+        call()
+        call()
+        assert ops.launch_counts()[name] == 2
+        assert sum(ops.launch_counts().values()) == 2
+    for name in ("output_epilogue", "group_norm_silu"):
+        assert device_nodes_of(calls[name]) == [0, 0, 0], name
