@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
-path and its LM serving paths (dense, RWKV-6, Mamba-2 hybrid) on one
-NVIDIA GPU and hold every Hopper kernel against its plain PyTorch
-version.
+path, its persistent sharded store and its LM serving paths (dense,
+RWKV-6, Mamba-2 hybrid) on one NVIDIA GPU and hold every Hopper kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -55,7 +55,23 @@ wall seconds (any failure exits non-zero):
                 puts, their pixels equal to a direct decode, each kernel's
                 launches (all > 0), encode device ms, median regen ms, and
                 one read through a float32-pixel box against ``decode``;
-6. quant        the quantized read path: engines opened with
+6. store        the persistent, sharded and replicated store:
+                ``LatentBox.open(path, shards=4, replication=2, hedge=...,
+                device="cuda")`` at SD3.5-VAE width: latent, uint8-image
+                and recipe puts, recipe-only and lossy demotions (the
+                lossy ones transcoded by compaction), a seeded Zipf trace
+                served, the box closed and reopened and the trace served
+                again (the same bytes), recipe-only objects regenerated
+                before and after the reopen (the same bytes), a shard
+                killed (its replicas serve the same bytes) and restarted
+                (the same bytes), a child process on the card killed with
+                SIGKILL mid-stream of latent puts (every acknowledged put
+                byte-equal and decoded as its latent); put ms (and with
+                fsync), flush ms, reopen ms per shard and MB read, decode
+                ms per image through the sharded path, p50/p99 read ms
+                healthy and with the dead shard, disk and live bytes,
+                write amplification, each kernel's launches (all > 0);
+7. quant        the quantized read path: engines opened with
                 ``weight_dtype="bfloat16"`` on the calibrated decoder and
                 ``"int8"`` on a grid-snapped copy, each gate at most 1 LSB
                 and equal to ``gate_max_lsb`` outside the engine, serving
@@ -66,15 +82,15 @@ wall seconds (any failure exits non-zero):
                 weights, ``decoder_storage``; then a raw int8 engine on
                 the unsnapped decoder, accepted or refused as its gate
                 says;
-7. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
+8. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
                 relative tolerance; and small fp32 qwen2-, RWKV-6- and
                 zamba2-family LMs' prefill and decode steps, logits and
                 caches within a relative tolerance;
-8. lm           the dense LM serving path: ``build_model`` of Qwen2-7B at
-9. ssm          full width and depth in bf16 (seeded random weights), then
-10. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
+9. lm           the dense LM serving path: ``build_model`` of Qwen2-7B at
+10. ssm         full width and depth in bf16 (seeded random weights), then
+11. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
                 built: a prefill of 4 x 2048 seeded tokens, 64 greedy
                 ``decode_step``s: parameters, peak memory, prefill and
                 decode-step ms and tokens/s, each kernel's launches
@@ -87,7 +103,7 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, quant, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
+write, store, quant, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
 ``chip_smoke.jsonl`` in ``OUT_DIR`` (the repository's output directory).
@@ -1159,6 +1175,7 @@ def phase_slice(torch, log, state):
         "median_batch_ms": statistics.median(ms for ms, _ in v),
         "median_per_image_ms": statistics.median(ms / n for ms, n in v)}
         for b, v in sorted(eng.batcher.bucket_ms.items())}
+    state["slice_decode_ms"] = served_ms
     # device time of a full bucket, CUDA events around decode_u8
     zero = np.zeros((LATENT_HW, LATENT_HW, 16), np.float32)
     device_ms = {}
@@ -1289,6 +1306,377 @@ def phase_write(torch, log, state):
              r.latency_ms["decode"] for r in regen),
          encode_device_ms=encode_ms, float32_get_max_abs_err=ferr,
          float32_get_bit_identical=ferr == 0.0, launches=launches)
+
+
+STORE_SHARDS = 4
+STORE_REPLICATION = 2
+STORE_LATENTS = 192       # latent puts (oids 0-191)
+STORE_IMAGES = 16         # uint8 image puts (oids 192-207)
+STORE_RECIPES = 16        # recipe puts (oids 208-223)
+STORE_RECIPE_ONLY = tuple(range(208, 216))          # demoted to recipe-only
+STORE_LOSSY = tuple(range(0, STORE_LATENTS, 24))     # demoted to "low"
+STORE_REQUESTS = 256
+STORE_FSYNC_PUTS = 32     # latent puts timed on a box with fsync=True
+STORE_KILL_ACKS = 12      # acknowledged puts before the child is killed
+STORE_DEAD_SHARD = 1
+STORE_KILL_SEED = 29      # the kill check's latents: (seed, oid)
+
+# the child of the kill check: a box on the card taking latent puts, one
+# line per acknowledged (durable) put, until it is killed
+STORE_CHILD = r"""
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np
+from repro_torch.store import LatentBox, StoreConfig
+from repro_torch.vae.model import SD35_VAE, VAE
+vae = VAE(SD35_VAE, seed=0, device="cuda")
+box = LatentBox.open({path!r}, vae=vae, config=StoreConfig(n_nodes=2),
+                     device="cuda")
+for oid in range(1 << 30):
+    z = np.random.default_rng(({seed}, oid)).standard_normal(
+        ({hw}, {hw}, 16)).astype(np.float16)
+    if box.put(oid, latent=z).durable:
+        print("ACK", oid, flush=True)
+"""
+
+
+def store_kill_latent(np, oid: int):
+    return np.random.default_rng((STORE_KILL_SEED, oid)).standard_normal(
+        (LATENT_HW, LATENT_HW, 16)).astype(np.float16)
+
+
+def store_kill_check(torch, np, vae, root, cfg):
+    """A child process opens a box on the card and puts latents; it is
+    SIGKILLed after ``STORE_KILL_ACKS`` acknowledged puts, mid-stream.
+    The reopened box holds every acknowledged blob byte for byte and
+    serves each as a direct decode of its latent."""
+    import signal
+    from repro_torch.compression.latentcodec import compress_latent
+    from repro_torch.store import LatentBox
+    path = str(Path(root) / "killed")
+    code = STORE_CHILD.format(src=str(ROOT / "src"), path=path,
+                              seed=STORE_KILL_SEED, hw=LATENT_HW)
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    acked = []
+    try:
+        t0 = time.perf_counter()
+        for line in proc.stdout:
+            if line.startswith("ACK"):
+                acked.append(int(line.split()[1]))
+            if (len(acked) >= STORE_KILL_ACKS
+                    or time.perf_counter() - t0 > 240):
+                break
+        proc.send_signal(signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        err = proc.stderr.read()
+    need(len(acked) >= STORE_KILL_ACKS, f"the child acknowledged {acked} "
+         f"before it stopped; its stderr ends {err[-400:]!r}")
+    need(proc.returncode == -signal.SIGKILL,
+         f"the child ended with {proc.returncode}, not SIGKILL")
+    t0 = time.perf_counter()
+    box = LatentBox.open(path, vae=vae, config=cfg, device="cuda")
+    reopen_ms = (time.perf_counter() - t0) * 1e3
+    rec = dict(box.backend.durable_log.recovery_stats)
+    recovered = len(list(box.backend.durable_log.object_oids()))
+    store = box.backend.store
+    lat = {oid: store_kill_latent(np, oid) for oid in acked}
+    for oid in acked:
+        need(store.get(oid) == compress_latent(lat[oid]),
+             f"acknowledged put {oid} did not survive the kill byte for byte")
+    served = {}
+    for s in range(0, len(acked), SLICE_WINDOW):
+        served.update((r.oid, r.payload)
+                      for r in box.get_many(acked[s:s + SLICE_WINDOW]))
+    box.close()
+    for oid in acked:
+        direct = vae.decode_u8(lat[oid].astype(np.float32)[None])[0]
+        need(bool(np.array_equal(direct.cpu().numpy(), served[oid])),
+             f"pixels of acknowledged put {oid} differ from a direct decode")
+    return {"acked": len(acked), "recovered_objects": recovered,
+            "reopen_ms": reopen_ms, "recovery_stats": rec}
+
+
+def phase_store(torch, log, state):
+    """The persistent, sharded and replicated store at SD3.5-VAE width:
+    ``LatentBox.open(path, shards=4, replication=2, hedge=...,
+    device="cuda")``.  A first opening puts latents, uint8 images and
+    recipes, demotes some to recipe-only and some to a lossy rung, and
+    closes; a second reopens, compacts until every lossy transcode is
+    done, serves a seeded Zipf trace, regenerates the recipe-only
+    objects, and closes; a third reopens and serves the same requests
+    (the same bytes), regenerates (the same bytes), then kills a shard
+    (replicas serve the same bytes) and restarts it (the same bytes).
+    Then the kill check (``store_kill_check``)."""
+    import tempfile
+    np = state["np"]
+    from repro_torch.core.regen_tier import Recipe
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.store import LatentBox, StoreConfig
+    from repro_torch.store.replication import HedgeConfig
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    side = 8 * LATENT_HW
+    image_bytes = side * side * 3
+    rng = np.random.default_rng(23)
+    latents = [rng.standard_normal((LATENT_HW, LATENT_HW, 16))
+               .astype(np.float16) for _ in range(STORE_LATENTS)]
+    images = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+              for _ in range(STORE_IMAGES)]
+    n = STORE_LATENTS + STORE_IMAGES + STORE_RECIPES
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+    p = ranks ** -1.1
+    trace = [int(t) for t in rng.permutation(n)[
+        rng.choice(n, STORE_REQUESTS, p=p / p.sum())]]
+
+    def cfg(**kw):
+        # two nodes of 6 MB per shard, as in the slice phase
+        return StoreConfig(n_nodes=2, cache_bytes_per_node=6e6,
+                           image_bytes=float(image_bytes),
+                           latent_bytes=1.2e5, promote_threshold=2,
+                           tuner=TunerConfig(window=10**9),
+                           decode_buckets=(1, 2, 4, 8), **kw)
+
+    launches = Counter()
+
+    def driven(fn):
+        """Run one piece of the store path between a reset and a read of
+        the launch counts."""
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches.update(ops.launch_counts())
+        return out
+
+    tmp = tempfile.TemporaryDirectory(prefix="lbx-store-",
+                                      dir=str(OUT_DIR))
+    root = Path(tmp.name)
+    path = root / "cluster"
+
+    def open_box():
+        t0 = time.perf_counter()
+        box = LatentBox.open(path, vae=vae, config=cfg(),
+                             shards=STORE_SHARDS,
+                             replication=STORE_REPLICATION,
+                             hedge=HedgeConfig(), device="cuda")
+        ms = (time.perf_counter() - t0) * 1e3
+        shards = box.backend.shards.values()
+        scanned = {
+            "reopen_ms_per_shard": ms / STORE_SHARDS,
+            "log_mb_read": sum(
+                f.stat().st_size for sh in shards
+                for f in Path(sh.backend.durable_log.path).iterdir()
+                if f.name.startswith("seg-")) / 1e6,
+            "recovery": [dict(sh.backend.durable_log.recovery_stats)
+                         for sh in shards]}
+        return box, scanned
+
+    def serve(box):
+        out, walls = [], []
+        for s in range(0, len(trace), SLICE_WINDOW):
+            t0 = time.perf_counter()
+            res = box.get_many(trace[s:s + SLICE_WINDOW])
+            walls.append((time.perf_counter() - t0) * 1e3)
+            out += res
+        for r in out:
+            need(r.payload is not None and r.payload.shape == (side, side, 3)
+                 and r.payload.dtype == np.uint8, f"bad payload for {r.oid}")
+        ms = [r.latency_ms["total"] for r in out]
+        return out, {"p50_read_ms": float(np.percentile(ms, 50)),
+                     "p99_read_ms": float(np.percentile(ms, 99)),
+                     "median_window_wall_ms": statistics.median(walls),
+                     "hit_classes": dict(Counter(r.hit_class for r in out)),
+                     "failovers": sum(r.failover for r in out),
+                     "hedged": sum(r.hedged for r in out)}
+
+    def same(a, b, what):
+        bad = [x.oid for x, y in zip(a, b)
+               if not np.array_equal(x.payload, y.payload)]
+        need(not bad, f"{what}: images of {sorted(set(bad))} differ")
+
+    def regenerate(box):
+        """Read every recipe-only object once (each regenerates), and
+        leave them recipe-only again."""
+        for oid in STORE_RECIPE_ONLY:
+            if not box.stat(oid).demoted:
+                need(box.demote(oid), f"demote({oid}) refused")
+        res = box.get_many(list(STORE_RECIPE_ONLY))
+        need(all(r.regenerated for r in res), "a recipe-only read did not "
+             "regenerate")
+        for oid in STORE_RECIPE_ONLY:
+            need(box.demote(oid), f"demote({oid}) refused after regen")
+        return res
+
+    try:
+        # -- opening 1: puts, demotions, flush, close ----------------------
+        box, _ = open_box()
+        box.backend.shards[0].backend.engine.prewarm_decode(
+            (LATENT_HW, LATENT_HW, 16))
+
+        def puts():
+            ms = {"latent": [], "image": [], "recipe": []}
+            for oid in range(n):
+                t0 = time.perf_counter()
+                if oid < STORE_LATENTS:
+                    r = box.put(oid, latent=latents[oid])
+                    kind = "latent"
+                elif oid < STORE_LATENTS + STORE_IMAGES:
+                    r = box.put(oid, image=images[oid - STORE_LATENTS])
+                    kind = "image"
+                else:
+                    r = box.put(oid, recipe=Recipe(seed=2000 + oid,
+                                                   height=side, width=side,
+                                                   scale=0.5))
+                    kind = "recipe"
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+                need(r.durable, f"put {oid} was not acknowledged durable")
+            return ms
+
+        put_ms = driven(puts)
+        for oid in STORE_RECIPE_ONLY:
+            need(box.demote(oid), f"demote({oid}) refused")
+        for oid in STORE_LOSSY:
+            need(box.demote(oid, "low"), f"demote({oid}, 'low') refused")
+        t0 = time.perf_counter()
+        box.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        lossless = {oid: box.stat(oid).durable_bytes for oid in STORE_LOSSY}
+        box.close()
+        # put latency with fsync on every acknowledgement, on a cluster
+        # of the same shape
+        fbox = LatentBox.open(root / "fsync", vae=vae,
+                              config=cfg(fsync=True), shards=STORE_SHARDS,
+                              replication=STORE_REPLICATION,
+                              hedge=HedgeConfig(), device="cuda")
+        fsync_ms = []
+        for oid in range(STORE_FSYNC_PUTS):
+            t0 = time.perf_counter()
+            fbox.put(oid, latent=latents[oid])
+            fsync_ms.append((time.perf_counter() - t0) * 1e3)
+        fbox.close()
+
+        # -- opening 2: reopen, compact, serve, regenerate, close ----------
+        box, reopen2 = open_box()
+        for sh in box.backend.shards.values():
+            store = sh.backend.store
+            for _ in range(64):
+                if not store.backend.stats()["pending_rungs"]:
+                    break
+                store.maybe_compact()
+        logs = [sh.backend.durable_log.stats()
+                for sh in box.backend.shards.values()]
+        pending = sum(st["pending_rungs"] for st in logs)
+        reencoded = sum(st["reencoded_records"] for st in logs)
+        need(pending == 0, f"{pending} lossy demotions still pending after "
+             "compaction")
+        need(reencoded >= len(STORE_LOSSY),
+             f"compaction transcoded {reencoded} records")
+        for oid in STORE_LOSSY:
+            st = box.stat(oid)
+            need(st.rung_name == "low" and st.durable_bytes < lossless[oid],
+                 f"{oid} was not transcoded: {st}")
+        box.flush()
+        first, healthy = driven(lambda: serve(box))
+        regen1 = driven(lambda: regenerate(box))
+        eng = [sh.backend.engine for sh in box.backend.shards.values()]
+        bucket_ms = {}
+        for e in eng:
+            for b, v in e.batcher.bucket_ms.items():
+                bucket_ms.setdefault(b, []).extend(v)
+        sharded_decode = {str(b): {
+            "batches": len(v), "real_images": sum(k for _, k in v),
+            "median_per_image_ms": statistics.median(ms / k for ms, k in v)}
+            for b, v in sorted(bucket_ms.items())}
+        summ = box.summary()
+        disk = {k: summ[k] for k in (
+            "durable_disk_bytes", "durable_live_bytes", "durable_segments",
+            "write_amplification", "segments_compacted",
+            "replica_disk_bytes")}
+        disk["reencoded_records"] = reencoded
+        disk["reencode_bytes_saved"] = sum(
+            sh.backend.durable_log.stats()["reencode_bytes_saved"]
+            for sh in box.backend.shards.values())
+        objects = sum(1 for oid in range(n) if box.stat(oid).durable_bytes)
+        box.close()
+
+        # -- opening 3: reopen, same bytes; dead shard; restart ------------
+        box, reopen3 = open_box()
+        second, reopened = driven(lambda: serve(box))
+        same(first, second, "reopened serving")
+        regen2 = driven(lambda: regenerate(box))
+        same(regen1, regen2, "regeneration after reopen")
+        cluster = box.backend
+        cluster.kill_shard(STORE_DEAD_SHARD)
+        third, dead = driven(lambda: serve(box))
+        owned = [r for r in third
+                 if cluster.shard_of(r.oid) == STORE_DEAD_SHARD]
+        need(owned and all(r.failover for r in owned),
+             "the dead shard's reads were not served by replicas")
+        # the reference's replicas never receive a compaction's lossy
+        # transcode (the rewrite keeps its lsn, so nothing is shipped):
+        # a replica still holds a "low" object's rung-0 bytes (ROADMAP C).
+        # Every image is the healthy serving's, but for such objects of
+        # the dead shard, whose image must be the decode of their
+        # original latent
+        stale = sorted({x.oid for x, y in zip(first, third)
+                        if not np.array_equal(x.payload, y.payload)})
+        need(all(oid in STORE_LOSSY
+                 and cluster.shard_of(oid) == STORE_DEAD_SHARD
+                 for oid in stale),
+             f"shard {STORE_DEAD_SHARD} dead: images of {stale} differ")
+        for oid in stale:
+            direct = vae.decode_u8(latents[oid].astype(np.float32)[None])
+            served = next(r.payload for r in third if r.oid == oid)
+            need(bool(np.array_equal(direct[0].cpu().numpy(), served)),
+                 f"failover image of {oid} is not its rung-0 decode")
+        dead["stale_lossy_replicas"] = stale
+        dead["under_replicated_objects"] = cluster.under_replicated_objects()
+        dead["hedges_fired"] = cluster.hedges_fired
+        cluster.restart_shard(STORE_DEAD_SHARD)
+        fourth, restarted = driven(lambda: serve(box))
+        same(first, fourth, f"shard {STORE_DEAD_SHARD} restarted")
+        restarted["under_replicated_objects"] = \
+            cluster.under_replicated_objects()
+        restarted["hedges_fired"] = cluster.hedges_fired
+        box.close()
+        kill = store_kill_check(torch, np, vae, root, cfg())
+    finally:
+        tmp.cleanup()
+    state["launches"]["store"] = dict(launches)
+    path_kernels = {k for k, _ in decode_calls(vae.cfg, LATENT_HW)
+                    + encode_calls(vae.cfg, side)} & set(KERNELS)
+    need(all(launches[k] > 0 for k in path_kernels),
+         f"a kernel of the store path was never launched: {dict(launches)}")
+    emit(log, "store", card=state["smi"], image=[side, side],
+         shards=STORE_SHARDS, replication=STORE_REPLICATION,
+         nodes_per_shard=2, cache_bytes_per_node=6e6,
+         latent_puts=STORE_LATENTS, image_puts=STORE_IMAGES,
+         recipe_puts=STORE_RECIPES, recipe_only=list(STORE_RECIPE_ONLY),
+         lossy_low=list(STORE_LOSSY), requests=STORE_REQUESTS,
+         window=SLICE_WINDOW,
+         put_ms_per_object={k: statistics.median(v)
+                            for k, v in put_ms.items()},
+         fsync_latent_put_ms=statistics.median(fsync_ms),
+         # the same first puts without fsync, for a like-for-like ratio
+         first_latent_puts_ms=statistics.median(
+             put_ms["latent"][:STORE_FSYNC_PUTS]),
+         flush_ms=flush_ms, reopen=reopen2, reopen_after_serving=reopen3,
+         decode_ms_per_image_sharded=sharded_decode,
+         decode_ms_per_image_slice=state.get("slice_decode_ms"),
+         healthy=healthy, reopened=reopened, dead_shard=dead,
+         restarted=restarted, durable=disk,
+         durable_bytes_per_object=disk["durable_live_bytes"] / objects,
+         uint8_bytes_per_object=image_bytes,
+         durable_over_uint8=disk["durable_live_bytes"] / objects
+         / image_bytes,
+         kill=kill, reopen_bit_identical=True,
+         dead_shard_bit_identical=not dead["stale_lossy_replicas"],
+         restart_bit_identical=True, regeneration_bit_identical=True,
+         launches=dict(launches))
 
 
 def phase_quant(torch, log, state):
@@ -1770,6 +2158,7 @@ def main() -> int:
         run_phase(log, "invariance", phase_invariance, torch, log, state)
         run_phase(log, "slice", phase_slice, torch, log, state)
         run_phase(log, "write", phase_write, torch, log, state)
+        run_phase(log, "store", phase_store, torch, log, state)
         run_phase(log, "quant", phase_quant, torch, log, state)
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:

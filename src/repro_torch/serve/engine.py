@@ -17,8 +17,11 @@ regenerates it (recipe -> pixels -> encoder -> latent) bit-exactly.
 Pixels are served as uint8 or float32.  The uint8 path may serve
 decoder weights stored in bf16 or int8 (``StoreConfig.weight_dtype``),
 admitted only behind the +-1-LSB gate that the engine runs when it
-opens.  The kernel autotuner and elastic autoscaling wait for later
-slices (see ROADMAP.md) and raise ``NotImplementedError``.
+opens.  With a segment-log store (``StoreConfig.data_dir``) every batch
+ends with a bounded durability step: one flush of the write-behind
+appends and at most one compaction step.  The kernel autotuner and
+elastic autoscaling wait for later slices (see ROADMAP.md) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -295,8 +298,8 @@ class ServingEngine:
             raise not_ported("autotune=True",
                              "ROADMAP queue A, kernel autotuner")
         if self.cfg.autoscale:
-            raise not_ported("autoscale=True", "ROADMAP queue A, sharding, "
-                             "replication and the serving runtime")
+            raise not_ported("autoscale=True on an engine box",
+                             "ROADMAP A 6, engine autoscaling")
         self.vae = vae
         self.store = store
         self.recipes = recipes

@@ -1,7 +1,8 @@
-"""LatentBox object-store API on the port: the facade, its engine
-backend, and the shared tier walk.  Only the facade and the API value
-types are imported here; the segment log, sharding and replication are
-not part of this package yet."""
+"""LatentBox object-store API on the port: the facade and the API value
+types.  The backends, the segment log (``store.durable``), sharding,
+replication and fault plans are imported from their own modules
+(``repro_torch.store.backends``, ``.sharding``, ``.replication``,
+``.faults``); nothing of them is imported eagerly here."""
 
 from repro_torch.store.api import (GetResult, HIT_CLASSES, ObjectStat,
                                    PutResult, StoreConfig)

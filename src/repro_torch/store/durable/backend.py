@@ -1,12 +1,21 @@
 """``DurableBackend`` — the pluggable persistence seam of ``LatentStore``.
 
-:class:`~repro_torch.core.latent_store.LatentStore` keeps the S3-style
-latency model, warmth windows, and per-object latency epochs, and
-delegates *where bytes live* to a backend.  This is a copy of the JAX
-package's ``store/durable/backend.py`` cut to the in-memory
-:class:`MemoryBackend` (the simulation-conformance substrate: nothing
-survives process exit).  The segment-log backend waits for the durable
-slice of the port.
+:class:`~repro.core.latent_store.LatentStore` keeps what it always owned —
+the S3-style latency model, warmth windows, and per-object latency epochs —
+and delegates *where bytes live* to one of these backends:
+
+* :class:`MemoryBackend` — the original in-process dicts.  Default, and
+  the simulator-conformance substrate: byte-for-byte the pre-refactor
+  behavior, nothing survives process exit.
+* :class:`SegmentLogBackend` — the engine-grade backend over a
+  :class:`~repro.store.durable.log.SegmentLog`: append-only segments,
+  checksummed records, manifest-checkpointed recovery, and online
+  compaction via an attached :class:`~repro.store.durable.compact.Compactor`.
+
+Both expose the same small protocol (blob/size puts, reads, tombstoning,
+iteration, accounting) plus durability hooks (``flush`` / ``maybe_compact``
+/ ``close``) that are no-ops in memory — so every caller can drive them
+unconditionally.
 """
 
 from __future__ import annotations
@@ -15,8 +24,10 @@ import abc
 from typing import Any, Dict, Iterator, Optional
 
 from repro_torch.compression.ladder import (RECIPE_RUNG, scaled_nbytes,
-                                            transcode_blob)
+                                      transcode_blob)
 from repro_torch.compression.latentcodec import blob_rung
+from repro_torch.store.durable.compact import Compactor
+from repro_torch.store.durable.log import SegmentLog
 
 
 class DurableBackend(abc.ABC):
@@ -84,12 +95,12 @@ class DurableBackend(abc.ABC):
 
 
 class MemoryBackend(DurableBackend):
-    """The in-memory dict store (sim-mode conformance).
+    """The pre-refactor in-memory dict store (sim-mode conformance).
 
     Ladder demotion applies *eagerly* here: there is no compactor to
-    piggyback on, so ``set_target_rung`` transcodes the blob — or
-    re-scales the size registration — on the spot.  No intent is ever
-    pending.
+    piggyback on (the deferred-re-encode optimization is a segment-log
+    property), so ``set_target_rung`` transcodes the blob — or re-scales
+    the size registration — on the spot.  No intent is ever pending.
     """
 
     name = "memory"
@@ -164,3 +175,105 @@ class MemoryBackend(DurableBackend):
             self._sizes[oid] = scaled_nbytes(self._sizes[oid], cur, rung)
         self._rungs[oid] = rung
         return True
+
+
+class SegmentLogBackend(DurableBackend):
+    """Log-structured on-disk backend (the engine default under
+    ``StoreConfig.data_dir``).
+
+    ``flush_each_put=True`` acknowledges each put only after its record is
+    flushed to the OS (the facade's durable-put contract); the serving
+    engine constructs it with ``False`` and instead flushes once per
+    request window (write-behind) through :meth:`flush`.
+    """
+
+    name = "segment_log"
+    persistent = True
+
+    def __init__(self, log: SegmentLog, *, flush_each_put: bool = True,
+                 compact_live_frac: float = 0.6):
+        self.log = log
+        self.flush_each_put = bool(flush_each_put)
+        self.compactor = Compactor(log, live_frac_threshold=compact_live_frac)
+
+    @classmethod
+    def open(cls, path: str, *, segment_bytes: float = 4e6,
+             fsync: bool = False, checkpoint_every: int = 1024,
+             flush_each_put: bool = True,
+             compact_live_frac: float = 0.6) -> "SegmentLogBackend":
+        return cls(SegmentLog(path, segment_bytes=segment_bytes, fsync=fsync,
+                              checkpoint_every=checkpoint_every),
+                   flush_each_put=flush_each_put,
+                   compact_live_frac=compact_live_frac)
+
+    def put_blob(self, oid: int, blob: bytes) -> None:
+        self.log.put_blob(oid, blob)
+        if self.flush_each_put:
+            self.log.flush()
+
+    def put_size(self, oid: int, nbytes: float, rung: int = 0) -> None:
+        self.log.put_size(oid, nbytes, rung)
+        if self.flush_each_put:
+            self.log.flush()
+
+    def get_blob(self, oid: int) -> Optional[bytes]:
+        return self.log.get_blob(oid)
+
+    def size_of(self, oid: int) -> Optional[float]:
+        return self.log.size_of(oid)
+
+    def has_blob(self, oid: int) -> bool:
+        return self.log.has_blob(oid)
+
+    def contains(self, oid: int) -> bool:
+        return self.log.contains_object(oid)
+
+    def delete(self, oid: int) -> bool:
+        found = self.log.contains_object(oid)
+        if found:
+            self.log.tombstone(oid)
+            if self.flush_each_put:
+                self.log.flush()
+        return found
+
+    def oids(self) -> Iterator[int]:
+        return self.log.object_oids()
+
+    @property
+    def total_bytes(self) -> float:
+        return self.log.payload_bytes
+
+    def rung_of(self, oid: int) -> Optional[int]:
+        return self.log.rung_of(oid)
+
+    def target_rung_of(self, oid: int) -> Optional[int]:
+        return self.log.target_rung_of(oid)
+
+    def set_target_rung(self, oid: int, rung: int) -> bool:
+        """Record the demotion intent; the attached compactor's next pass
+        over the object's segment re-encodes the bytes (piggybacked on
+        the rewrite — never a standalone I/O pass)."""
+        rung = int(rung)
+        cur = self.log.rung_of(oid)
+        if cur is None or rung <= cur or not 0 < rung < RECIPE_RUNG:
+            return False
+        if self.log.target_rung_of(oid) == rung:
+            return True                  # idempotent: intent already queued
+        self.log.set_target_rung(oid, rung)
+        if self.flush_each_put:
+            self.log.flush()
+        return True
+
+    def flush(self) -> None:
+        self.log.flush()
+
+    def maybe_compact(self) -> int:
+        return self.compactor.step()
+
+    def close(self) -> None:
+        self.log.close()
+
+    def stats(self) -> Dict[str, Any]:
+        out = self.log.stats()
+        out.update(self.compactor.summary())
+        return out

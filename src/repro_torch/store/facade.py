@@ -10,14 +10,18 @@
     box.demote(44); box.get(44)                   # regenerated from recipe
     box.stat(42), box.delete(42), box.summary()
 
-    with LatentBox.engine(device="cpu") as box:  # flush/close: no-ops
-        ...                                       # on an in-memory box
+    with LatentBox.open(path, device="cuda") as box:   # persistent box
+        box.put(1, latent=z)                      # durable=True: on disk
+    LatentBox.open(path, device="cuda").get(1)    # same pixels, reopened
 
-This slice ports the single-box engine constructor.  Sharding,
-replication and fault injection (``shards > 1``, ``replication > 1``,
-``fault_plan``), ``simulated()`` and ``serve_stream()`` raise
-``NotImplementedError`` naming ROADMAP A 6; ``open()`` (persistent boxes)
-names A 5.
+``shards > 1`` serves a consistent-hash-sharded cluster
+(:class:`~repro_torch.store.sharding.ShardedLatentBox`), with
+``replication``, ``hedge`` and ``fault_plan`` for replica placement,
+hedged reads and scripted failures; every shard decodes on the one
+``device``.  ``LatentBox.simulated()`` swaps the backend for the discrete
+latency plant: same tier walk, same classifications, no decode.
+``serve_stream()`` (the serving runtime) raises ``NotImplementedError``
+naming ROADMAP A 6.
 """
 
 from __future__ import annotations
@@ -51,35 +55,70 @@ class LatentBox:
         """Real-decode box on ``device`` (default ``"cuda"``; raises where
         CUDA is absent).  Without an explicit ``vae`` the calibrated demo
         VAE is built on that device; a given ``vae`` must live there.
-        The reference's sharded cluster (``shards > 1``, ``replication >
-        1`` or a ``fault_plan``) is not ported; a ``hedge`` alone is
-        accepted and, as there, has no effect on a single box."""
+        ``shards > 1`` serves a consistent-hash-sharded cluster of engine
+        backends with ``config.n_nodes`` nodes per shard, all decoding
+        through the one ``vae``; ``replication``/``hedge``/``fault_plan``
+        configure R-way replica placement, hedged reads, and scripted
+        failure injection on that cluster (see
+        :class:`~repro_torch.store.sharding.ShardedLatentBox`)."""
         from repro_torch.store.backends import EngineBackend
-        if shards > 1 or (replication or 1) > 1 or fault_plan is not None:
-            raise not_ported("LatentBox.engine(shards=, replication=, "
-                             "fault_plan=) (a ShardedLatentBox)",
-                             "ROADMAP A 6")
         if vae is None:
             from repro_torch.vae.model import demo_vae
             vae = demo_vae(seed=seed, device=device)
+        if shards > 1 or (replication or 1) > 1 or fault_plan is not None:
+            from repro_torch.store.sharding import ShardedLatentBox
+            return cls(ShardedLatentBox.engine(
+                vae, shards, config, replication=replication, hedge=hedge,
+                fault_plan=fault_plan, device=device))
         return cls(EngineBackend(vae, config, device=device))
 
     @classmethod
     def simulated(cls, config: Optional[StoreConfig] = None,
                   shards: int = 1, replication: Optional[int] = None,
                   hedge=None, fault_plan=None) -> "LatentBox":
-        """The reference's latency-plant box (not ported)."""
-        raise not_ported("LatentBox.simulated (the latency plant)",
-                         "ROADMAP A 6")
+        """Latency-plant box: identical classifications, modeled latency.
+        ``shards > 1`` serves a consistent-hash-sharded cluster of sim
+        backends, each with its own GPU plant and tuner state;
+        ``replication``/``hedge``/``fault_plan`` as for :meth:`engine`."""
+        from repro_torch.store.backends import SimBackend
+        if shards > 1 or (replication or 1) > 1 or fault_plan is not None:
+            from repro_torch.store.sharding import ShardedLatentBox
+            return cls(ShardedLatentBox.simulated(
+                shards, config, replication=replication, hedge=hedge,
+                fault_plan=fault_plan))
+        return cls(SimBackend(config))
 
     @classmethod
     def open(cls, path, mode: str = "engine",
              config: Optional[StoreConfig] = None, vae=None, seed: int = 0,
              shards: int = 1, replication: Optional[int] = None,
-             hedge=None, fault_plan=None) -> "LatentBox":
-        """The reference's persistent box on ``path`` (not ported)."""
-        raise not_ported("LatentBox.open (the segment-log durable store)",
-                         "ROADMAP A 5")
+             hedge=None, fault_plan=None, device=None) -> "LatentBox":
+        """Open (or create) a *persistent* box on ``path``.
+
+        The durable-latent and recipe tiers write through one
+        log-structured segment store under ``path`` (per-shard
+        subdirectories when ``shards > 1``).  The reopen guarantee:
+        after ANY process exit — clean ``close()``, hard kill mid-write,
+        or kill mid-compaction — ``LatentBox.open(path)`` recovers every
+        *acknowledged* put (``PutResult.durable`` / past ``flush()``) and
+        serves it bit-exact: same blob bytes, same decoded pixels on the
+        same device, same recipes and demotion flags.  Unacknowledged
+        tail records are detected by checksum and cleanly ignored.  Cache
+        warmth and store-latency warmth are process state and restart
+        cold, like a node rejoining a fleet.  ``device`` is the engine's
+        (``mode="engine"``); the simulator decodes nothing.
+        """
+        import dataclasses as _dc
+        cfg = _dc.replace(config or StoreConfig(), data_dir=str(path))
+        if mode == "engine":
+            return cls.engine(vae=vae, config=cfg, seed=seed, shards=shards,
+                              replication=replication, hedge=hedge,
+                              fault_plan=fault_plan, device=device)
+        if mode == "sim":
+            return cls.simulated(cfg, shards=shards,
+                                 replication=replication, hedge=hedge,
+                                 fault_plan=fault_plan)
+        raise ValueError(f"mode must be 'engine' or 'sim': {mode!r}")
 
     @property
     def backend(self):
@@ -115,7 +154,7 @@ class LatentBox:
     def serve_stream(self, requests, runtime_cfg=None):
         """The reference's event-loop serving runtime (not ported)."""
         raise not_ported("LatentBox.serve_stream (the serving runtime)",
-                         "ROADMAP A 6")
+                         "ROADMAP A 6, serving runtime")
 
     def pixels_resident(self, oid: int) -> bool:
         """Pure peek: is ``oid`` pixel-cache resident at its hash owner?"""
@@ -143,14 +182,17 @@ class LatentBox:
 
     # -- durability ----------------------------------------------------------
     def flush(self) -> None:
-        """Crash-durability barrier of a persistent backend; no-op on
-        in-memory boxes (the only kind this port opens yet)."""
+        """Crash-durability barrier: every write accepted so far (including
+        write-behind puts) is on disk, and the manifest checkpoint bounds
+        the next reopen's recovery scan.  No-op on in-memory boxes."""
         flush = getattr(self._backend, "flush", None)
         if flush is not None:
             flush()
 
     def close(self) -> None:
-        """Release a persistent backend; no-op on in-memory boxes."""
+        """Seal the active segment, checkpoint the manifest, and release
+        file handles.  The box must not be used afterwards; reopen with
+        :meth:`open`.  No-op on in-memory boxes."""
         close = getattr(self._backend, "close", None)
         if close is not None:
             close()

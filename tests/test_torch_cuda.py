@@ -10,7 +10,9 @@ per-Cout scale) at ragged shapes, their bits against the fp32 path on
 the same weight values, and the quantized decode and engine gate.  The
 decode attention also at its serving shapes and at the edges of its row
 partition, its bits independent of the batch and of the cache length,
-and one device kernel per call.
+and one device kernel per call.  The persistent, sharded store on the
+card: a box it writes reopens bit-identical there and within +-1 LSB on
+the CPU, and a dead shard's replicas serve the healthy box's bits.
 
 Marked ``cuda``: these skip where no NVIDIA GPU is present.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -482,6 +484,109 @@ def test_engine_on_cuda_classifies_like_cpu(dev):
         assert (g.hit_class, g.node) == (c.hit_class, c.node)
         d = np.abs(g.payload.astype(np.int16) - c.payload.astype(np.int16))
         assert d.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the persistent, sharded store on the card: a box the card writes reopens
+# bit-identical on the card and within +-1 LSB on the CPU's plain path
+# (the same directory opened there), at ragged 24x40 latents
+# ---------------------------------------------------------------------------
+
+STORE_LATENT = (24, 40, 4)
+
+
+def _store_cfg(**kw):
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.store import StoreConfig
+    side = 2 * STORE_LATENT[0] * 2 * STORE_LATENT[1] * 3
+    return StoreConfig(n_nodes=2, cache_bytes_per_node=4 * side,
+                       image_bytes=float(side), latent_bytes=4e3,
+                       promote_threshold=2, tuner=TunerConfig(window=10**9),
+                       **kw)
+
+
+def _store_vaes(dev):
+    from repro_torch.vae.model import VAE, demo_vae, map_params
+    gvae = demo_vae(seed=0, device=dev)
+    cvae = VAE(gvae.cfg, device="cpu",
+               params=map_params(gvae.decoder, lambda t: t.cpu()),
+               encoder_params=map_params(gvae.encoder, lambda t: t.cpu()))
+    return gvae, cvae
+
+
+def _fill_store(box, n):
+    from repro_torch.core.regen_tier import Recipe
+    rng = np.random.default_rng(4)
+    for oid in range(n):
+        if oid % 5 == 4:            # an encode on the card, then demoted
+            box.put(oid, recipe=Recipe(seed=oid, height=48, width=80))
+            assert box.demote(oid)
+        else:
+            box.put(oid, latent=rng.standard_normal(STORE_LATENT)
+                    .astype(np.float16))
+
+
+def _serve_store(box, ids):
+    res = []
+    for s in range(0, len(ids), 8):
+        res += box.get_many(ids[s:s + 8])
+    return [(r.hit_class, r.node) for r in res], [r.payload for r in res]
+
+
+def _near(a, b):
+    return all(x.shape == y.shape and np.abs(x.astype(np.int16)
+                                             - y.astype(np.int16)).max() <= 1
+               for x, y in zip(a, b))
+
+
+def test_store_reopen_on_card_bit_identical_and_near_cpu(dev, tmp_path):
+    import shutil
+    from repro_torch.store import LatentBox
+    gvae, cvae = _store_vaes(dev)
+    ids = [int(i) for i in np.random.default_rng(5).integers(0, 10, 40)]
+    with LatentBox.open(tmp_path / "g", vae=gvae, config=_store_cfg(),
+                        device=dev) as box:
+        _fill_store(box, 10)
+        box.flush()
+        _, first = _serve_store(box, ids)
+        assert first[0].shape == (48, 80, 3)
+        for oid in (4, 9):
+            assert box.demote(oid) or box.stat(oid).demoted
+    shutil.copytree(tmp_path / "g", tmp_path / "c")
+    with LatentBox.open(tmp_path / "g", vae=gvae, config=_store_cfg(),
+                        device=dev) as box:
+        gsig, again = _serve_store(box, ids)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    with LatentBox.open(tmp_path / "c", vae=cvae, config=_store_cfg(),
+                        device="cpu") as box:
+        csig, cpu = _serve_store(box, ids)
+    assert csig == gsig and _near(again, cpu)
+
+
+def test_store_dead_shard_on_card_bit_identical_and_near_cpu(dev, tmp_path):
+    import shutil
+    from repro_torch.store import LatentBox
+    from repro_torch.store.faults import FaultPlan
+    gvae, cvae = _store_vaes(dev)
+    ids = [int(i) for i in np.random.default_rng(6).integers(0, 16, 64)]
+    kw = dict(config=_store_cfg(), shards=4, replication=2)
+    with LatentBox.open(tmp_path / "a", vae=gvae, device=dev, **kw) as box:
+        _fill_store(box, 16)
+    for d in ("b", "c"):
+        shutil.copytree(tmp_path / "a", tmp_path / d)
+    runs = {}
+    for d, vae, device, plan in (("a", gvae, dev, None),
+                                 ("b", gvae, dev, FaultPlan.kill(1, 16)),
+                                 ("c", cvae, "cpu", FaultPlan.kill(1, 16))):
+        with LatentBox.open(tmp_path / d, vae=vae, device=device,
+                            fault_plan=plan, **kw) as box:
+            runs[d] = _serve_store(box, ids) + (box.summary(),)
+    assert runs["b"][2]["failovers"] > 0 and runs["b"][2]["dead_shards"] == [1]
+    assert runs["a"][0] == runs["b"][0] == runs["c"][0]
+    for a, b in zip(runs["a"][1], runs["b"][1]):
+        np.testing.assert_array_equal(a, b)
+    assert _near(runs["b"][1], runs["c"][1])
 
 
 # ---------------------------------------------------------------------------

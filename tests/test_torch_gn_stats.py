@@ -16,10 +16,10 @@ channels per group and ragged pixel counts.  ``tests/test_torch_cuda.py``
 holds the kernel to the model bit for bit on the card.
 
 The facade cases: the port's ``LatentBox.engine`` takes the reference's
-keywords and raises ``NotImplementedError`` naming ROADMAP A 6 where the
-reference would build a sharded box; ``simulated`` and ``serve_stream``
-name A 6, ``open`` A 5; ``flush``, ``close`` and the context manager work
-on an in-memory box.
+keywords and builds a sharded box where the reference does (until
+ROADMAP A 6 ported it, it raised); ``simulated`` and ``open`` (A 6 and
+A 5) build their boxes; ``serve_stream`` still names A 6; ``flush``,
+``close`` and the context manager work on an in-memory box.
 """
 
 import numpy as np
@@ -290,24 +290,52 @@ def test_slices_cover_every_pixel_from_the_shape_alone(hw, c):
 
 
 # ---------------------------------------------------------------------------
-# the facade's unported entry points (ROADMAP A 5, A 6)
+# the facade's entry points, ported by ROADMAP A 5 and A 6
 # ---------------------------------------------------------------------------
 
-def _box(**kw):
+def _cfg():
     from repro_torch.core.tuner import TunerConfig
-    from repro_torch.store import LatentBox, StoreConfig
-    cfg = StoreConfig(n_nodes=2, cache_bytes_per_node=2e4, image_bytes=768.0,
-                      latent_bytes=6e2, promote_threshold=2,
-                      tuner=TunerConfig(window=10**9))
-    return LatentBox.engine(device="cpu", config=cfg, **kw)
+    from repro_torch.store import StoreConfig
+    return StoreConfig(n_nodes=2, cache_bytes_per_node=2e4, image_bytes=768.0,
+                       latent_bytes=6e2, promote_threshold=2,
+                       tuner=TunerConfig(window=10**9))
+
+
+def _box(**kw):
+    from repro_torch.store import LatentBox
+    return LatentBox.engine(device="cpu", config=_cfg(), **kw)
+
+
+def _round_trip(box):
+    z = np.random.default_rng(0).standard_normal((8, 8, 4))
+    box.put(1, latent=z.astype(np.float16))
+    r = box.get(1)
+    assert r.hit_class == "full_miss"
+    return r
+
+
+def _fault_plan():
+    from repro_torch.store.faults import FaultPlan
+    return FaultPlan()
+
+
+def _hedge():
+    from repro_torch.store.replication import HedgeConfig
+    return HedgeConfig()
 
 
 @pytest.mark.parametrize("kw", [dict(shards=2), dict(replication=2),
-                                dict(fault_plan=object()),
-                                dict(shards=3, replication=2, hedge=5.0)])
+                                dict(fault_plan=_fault_plan),
+                                dict(shards=3, replication=2, hedge=_hedge)])
 def test_engine_names_a6_where_the_reference_shards(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A 6"):
-        _box(**kw)
+    """Where the reference builds a ShardedLatentBox, so does the port
+    (this raised naming ROADMAP A 6 until A 6 ported it)."""
+    kw = {k: v() if callable(v) else v for k, v in kw.items()}
+    box = _box(**kw)
+    assert box.backend.name == "sharded"
+    assert box.backend.n_shards == kw.get("shards", 1)
+    assert box.backend.replication == kw.get("replication", 1)
+    assert _round_trip(box).payload.shape == (16, 16, 3)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(shards=1),
@@ -319,15 +347,25 @@ def test_engine_takes_the_reference_keywords(kw):
     assert box.summary() is not None
 
 
+#: each constructor with the ROADMAP item that ported it (they raised
+#: naming that item before)
 @pytest.mark.parametrize("call,item", [
-    (lambda LB: LB.simulated(), "ROADMAP A 6"),
-    (lambda LB: LB.simulated(shards=2, replication=2), "ROADMAP A 6"),
-    (lambda LB: LB.open("/nonexistent/box"), "ROADMAP A 5"),
-    (lambda LB: LB.open("box", mode="sim", shards=2), "ROADMAP A 5")])
-def test_unported_constructors_name_their_item(call, item):
+    (lambda LB, d: LB.simulated(), "ROADMAP A 6"),
+    (lambda LB, d: LB.simulated(shards=2, replication=2), "ROADMAP A 6"),
+    (lambda LB, d: LB.open(d / "box", config=_cfg(), device="cpu"),
+     "ROADMAP A 5"),
+    (lambda LB, d: LB.open(d / "box", mode="sim", shards=2), "ROADMAP A 5")])
+def test_unported_constructors_name_their_item(call, item, tmp_path):
     from repro_torch.store import LatentBox
-    with pytest.raises(NotImplementedError, match=item):
-        call(LatentBox)
+    box = call(LatentBox, tmp_path)
+    r = _round_trip(box)
+    assert (r.payload is None) == (box.backend.name != "engine")
+    if item == "ROADMAP A 5":
+        assert r.hit_class == "full_miss"
+        box.close()
+        reopened = call(LatentBox, tmp_path)
+        assert 1 in reopened         # the put survived the close
+        reopened.close()
 
 
 def test_serve_stream_names_a6():
