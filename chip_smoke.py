@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
-path, its persistent sharded store and its LM serving paths (dense,
-RWKV-6, Mamba-2 hybrid) on one NVIDIA GPU and hold every Hopper kernel
-against its plain PyTorch version.
+path, its persistent sharded store, its serving runtime and its LM
+serving paths (dense, RWKV-6, Mamba-2 hybrid) on one NVIDIA GPU and hold
+every Hopper kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -71,7 +71,24 @@ wall seconds (any failure exits non-zero):
                 ms per image through the sharded path, p50/p99 read ms
                 healthy and with the dead shard, disk and live bytes,
                 write amplification, each kernel's launches (all > 0);
-7. quant        the quantized read path: engines opened with
+7. stream       the serving runtime at SD3.5-VAE width over boxes of 240
+                latent and 16 recipe puts (8 recipe-only): a flash-crowd
+                trace served in windows of 8 and through ``serve_stream``
+                in drain mode (the same class, node and bytes for every
+                request); decode ms per batch over the buckets fitted to
+                the runtime's per-dispatch and per-image cost, beside the
+                nominal ``from_store`` model; a multi-tenant trace through
+                ``serve_stream`` with QoS and admission on under the
+                fitted model, at its own rate and at 3 plants of offered
+                decode load (``StreamReport.summary()``: served, shed,
+                degraded, deadline misses, p50/p99 per SLO class and
+                tenant, on the runtime's virtual clock); the flash crowd
+                on an engine box with ``autoscale=True`` (scale events,
+                ``decode_util``) and on a 2-shard autoscaled engine
+                cluster (shard count over time); every image byte-equal
+                to the first serving's for its object, each kernel's
+                launches (all > 0), the phase's wall seconds;
+8. quant        the quantized read path: engines opened with
                 ``weight_dtype="bfloat16"`` on the calibrated decoder and
                 ``"int8"`` on a grid-snapped copy, each gate at most 1 LSB
                 and equal to ``gate_max_lsb`` outside the engine, serving
@@ -82,15 +99,15 @@ wall seconds (any failure exits non-zero):
                 weights, ``decoder_storage``; then a raw int8 engine on
                 the unsnapped decoder, accepted or refused as its gate
                 says;
-8. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
+9. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
                 relative tolerance; and small fp32 qwen2-, RWKV-6- and
                 zamba2-family LMs' prefill and decode steps, logits and
                 caches within a relative tolerance;
-9. lm           the dense LM serving path: ``build_model`` of Qwen2-7B at
-10. ssm         full width and depth in bf16 (seeded random weights), then
-11. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
+10. lm          the dense LM serving path: ``build_model`` of Qwen2-7B at
+11. ssm         full width and depth in bf16 (seeded random weights), then
+12. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
                 built: a prefill of 4 x 2048 seeded tokens, 64 greedy
                 ``decode_step``s: parameters, peak memory, prefill and
                 decode-step ms and tokens/s, each kernel's launches
@@ -103,7 +120,7 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, quant, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
+write, store, stream, quant, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
 ``chip_smoke.jsonl`` in ``OUT_DIR`` (the repository's output directory).
@@ -1679,6 +1696,280 @@ def phase_store(torch, log, state):
          launches=dict(launches))
 
 
+STREAM_LATENTS = 240      # latent puts (oids 0-239)
+STREAM_RECIPES = 16       # recipe puts (oids 240-255)
+STREAM_RECIPE_ONLY = tuple(range(240, 248))         # demoted to recipe-only
+STREAM_REQUESTS = 448     # requests of each trace (512 took 118 s on an H100)
+STREAM_SHARDED_REQUESTS = 128
+STREAM_SEED = 31          # latents and both traces
+STREAM_OVERLOAD = 3.0     # offered decode load over one plant, overload run
+STREAM_AUTOSCALE = dict(window=32, cooldown_windows=0)
+
+
+def phase_stream(torch, log, state):
+    """The serving runtime at SD3.5-VAE width, on boxes of 240 latent and
+    16 recipe puts (8 left recipe-only, so reads regenerate).  A
+    flash-crowd trace served in windows of 8 and, on a fresh box, through
+    ``serve_stream`` in drain mode: the same hit class, node and bytes
+    for every request.  The card's service model fitted from device ms
+    per batch over the buckets and the measured regenerations.  A
+    multi-tenant trace through ``serve_stream`` with QoS and admission on
+    under that model, at its own rate and at a rate whose offered decode
+    load is ``STREAM_OVERLOAD`` plants.  The flash crowd on an engine box
+    with ``autoscale=True``, and its first requests on a 2-shard
+    autoscaled engine cluster.  Every served image byte-equal to the
+    first serving's for its object."""
+    np = state["np"]
+    from repro_torch.core.autoscale import AutoscaleConfig
+    from repro_torch.core.cost_model import params_for_store
+    from repro_torch.core.regen_tier import Recipe
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve.runtime import (SLO_INTERACTIVE, RuntimeConfig,
+                                           requests_from_trace)
+    from repro_torch.store import LatentBox, StoreConfig
+    from repro_torch.store.api import FULL_MISS, LATENT_HIT, REGEN_MISS
+    from repro_torch.trace.synth import make_trace
+    t_phase = time.perf_counter()
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    side = 8 * LATENT_HW
+    hwc = (LATENT_HW, LATENT_HW, 16)
+    n = STREAM_LATENTS + STREAM_RECIPES
+    rng = np.random.default_rng(STREAM_SEED)
+    latents = [rng.standard_normal(hwc).astype(np.float16)
+               for _ in range(STREAM_LATENTS)]
+    crowd = make_trace("flash_crowd", n_objects=n,
+                       n_requests=STREAM_REQUESTS, seed=STREAM_SEED)
+    tenants = make_trace("multi_tenant", n_objects=n,
+                         n_requests=STREAM_REQUESTS, seed=STREAM_SEED)
+    crowd_ids = [int(o) for o in crowd.object_ids]
+
+    def cfg(**kw):
+        # two nodes of 6 MB, as in the slice phase
+        return StoreConfig(n_nodes=2, cache_bytes_per_node=6e6,
+                           image_bytes=float(side * side * 3),
+                           latent_bytes=1.2e5, promote_threshold=2,
+                           tuner=TunerConfig(window=10**9),
+                           decode_buckets=(1, 2, 4, 8), **kw)
+
+    launches = Counter()
+
+    def driven(fn):
+        """Run one piece of the serving path between a reset and a read
+        of the launch counts."""
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches.update(ops.launch_counts())
+        return out
+
+    def filled(shards=1, **kw):
+        """A fresh box with the phase's corpus: latent and recipe puts,
+        the first recipes demoted to recipe-only."""
+        box = LatentBox.engine(vae=vae, config=cfg(**kw), shards=shards,
+                               device="cuda")
+
+        def puts():
+            for oid in range(n):
+                if oid < STREAM_LATENTS:
+                    box.put(oid, latent=latents[oid])
+                else:
+                    box.put(oid, recipe=Recipe(seed=3000 + oid, height=side,
+                                               width=side, scale=0.5))
+            for oid in STREAM_RECIPE_ONLY:
+                need(box.demote(oid), f"demote({oid}) refused")
+        driven(puts)
+        return box
+
+    def windows(box, ids):
+        return [r for s in range(0, len(ids), SLICE_WINDOW)
+                for r in box.get_many(ids[s:s + SLICE_WINDOW])]
+
+    # -- 1. drain conformance: serve_stream == serve_window ----------------
+    box_w = filled()
+    box_w.backend.engine.prewarm_decode(hwc)
+    t0 = time.perf_counter()
+    window = driven(lambda: windows(box_w, crowd_ids))
+    window_s = time.perf_counter() - t0
+    box_s = filled()
+    box_s.backend.engine.prewarm_decode(hwc)
+    t0 = time.perf_counter()
+    drain = driven(lambda: box_s.serve_stream(
+        crowd, RuntimeConfig.conformance(keep_payloads=True)))
+    drain_s = time.perf_counter() - t0
+    need(drain.outcomes == [(r.hit_class, r.node) for r in window],
+         "drain stream classifies unlike serve_window")
+    need(len(drain.payloads) == len(window),
+         f"drain stream kept {len(drain.payloads)} images of {len(window)}")
+    bad = [k for k, r in enumerate(window)
+           if r.payload is None or r.payload.shape != (side, side, 3)
+           or not np.array_equal(r.payload, drain.payloads[k])]
+    need(not bad, f"drain stream images differ at requests {bad[:8]}")
+    pixels = {}                    # oid -> the first serving's image
+    for r in window:
+        pixels.setdefault(r.oid, r.payload)
+    regen = [r.latency_ms["regen"] for r in window if r.regenerated]
+    need(regen, "no read of the flash crowd regenerated")
+
+    def same_pixels(report, ids, what):
+        """Every image of ``report`` equals the first serving's for its
+        object; objects that serving never read are read from its box."""
+        seen = sorted({ids[k] for k in report.payloads} - set(pixels))
+        for r in windows(box_w, seen):
+            pixels[r.oid] = r.payload
+        bad = sorted({ids[k] for k, px in report.payloads.items()
+                      if not np.array_equal(px, pixels[ids[k]])})
+        need(not bad, f"{what}: images of {bad[:8]} differ")
+        return len(report.payloads)
+
+    # -- 2. the card's service model ----------------------------------------
+    buckets = cfg().decode_buckets
+    batch_ms = {}
+    for b in buckets:
+        zb = torch.from_numpy(np.stack(
+            [z.astype(np.float32) for z in latents[:b]])).cuda()
+        batch_ms[b] = cuda_ms(torch, lambda: vae.decode_u8(zb), 3)
+    slope, intercept = np.polyfit(buckets, [batch_ms[b] for b in buckets], 1)
+    # host wall ms of the drain stream's batches, dispatch to pixels on
+    # the host, per bucket: what the fitted device model leaves out
+    served = {b: statistics.median(ms for ms, _ in v) for b, v in
+              sorted(box_s.backend.engine.batcher.bucket_ms.items())}
+    served_slope, served_intercept = np.polyfit(list(served),
+                                                list(served.values()), 1)
+    model = {"decode_fixed_ms": max(0.0, float(intercept)),
+             "decode_per_image_ms": float(slope),
+             "regen_ms": float(statistics.median(regen))}
+    nominal = RuntimeConfig.from_store(cfg())
+
+    # -- 3. QoS serving under the fitted model --------------------------------
+    tenant_ids = [int(o) for o in tenants.object_ids]
+    rcfg = RuntimeConfig.from_store(cfg(), keep_payloads=True, **model)
+
+    def qos_run(trace):
+        box = filled()
+        t0 = time.perf_counter()
+        rep = driven(lambda: box.serve_stream(trace, rcfg))
+        wall = time.perf_counter() - t0
+        served_images = same_pixels(rep, tenant_ids, "QoS serving")
+        c = rep.counters
+        need(c["served"] + c["shed"] + c["degraded"] == STREAM_REQUESTS,
+             f"requests lost: {c}")
+        need(served_images == c["served"],
+             f"{c['served']} served but {served_images} images kept")
+        summ = rep.summary()
+        classes = Counter(h for h, _ in rep.outcomes)
+        demand = (model["decode_per_image_ms"]
+                  * (classes[LATENT_HIT] + classes[FULL_MISS])
+                  + model["regen_ms"] * classes[REGEN_MISS])
+        span_ms = float(trace.timestamps[-1] - trace.timestamps[0]) * 1e3
+        reqs = requests_from_trace(trace)
+        rejected = [r.slo for r, (h, _) in zip(reqs, rep.outcomes)
+                    if h in ("shed", "degraded")]
+        need(SLO_INTERACTIVE not in rejected,
+             "admission rejected an interactive request")
+        return {"wall_s": wall, "hit_classes": dict(classes),
+                "served_decode_load": demand / span_ms, "summary": summ}
+
+    at_rate = qos_run(tenants)
+    # the model's decode demand of the whole trace over its span, in plants
+    load_factor = STREAM_OVERLOAD / at_rate["served_decode_load"]
+    hot = make_trace("multi_tenant", n_objects=n,
+                     n_requests=STREAM_REQUESTS, seed=STREAM_SEED,
+                     load_factor=load_factor)
+    overload = qos_run(hot)
+    c = overload["summary"]
+    need(c["shed"] + c["degraded"] > 0,
+         f"admission never acted at {STREAM_OVERLOAD} plants of load")
+
+    # -- 4. engine autoscaling ------------------------------------------------
+    acfg = AutoscaleConfig(**STREAM_AUTOSCALE,
+                           params=params_for_store(cfg()))
+    box_a = filled(autoscale=True, autoscale_cfg=acfg)
+    eng = box_a.backend.engine
+    need(eng.autoscaler is not None, "autoscale=True built no controller")
+    t0 = time.perf_counter()
+    scaled = driven(lambda: box_a.serve_stream(
+        crowd, RuntimeConfig.conformance(keep_payloads=True)))
+    scaled_s = time.perf_counter() - t0
+    same_pixels(scaled, crowd_ids, "autoscaled serving")
+    summ = box_a.summary()
+    need(summ["autoscale_windows"] >= STREAM_REQUESTS
+         // STREAM_AUTOSCALE["window"] - 1,
+         f"the controller stepped {summ['autoscale_windows']} windows")
+    autoscaled = {
+        "events": [{"window": e.window_index, "action": e.action,
+                    "reason": e.reason, "util": e.util,
+                    "gpus_per_node": e.state.gpus_per_node,
+                    "cache_bytes_per_node": e.state.cache_bytes_per_node}
+                   for e in eng.autoscaler.events],
+        "hit_classes": dict(Counter(h for h, _ in scaled.outcomes)),
+        "wall_s": scaled_s,
+        "gpus_per_node": eng.gpus_per_node,
+        **{k: summ[k] for k in (
+            "scale_up_events", "scale_down_events", "autoscale_windows",
+            "autoscale_gpus_per_node", "autoscale_cache_bytes_per_node",
+            "decode_gpus", "provisioned_gpu_ms", "decode_util",
+            "gpu_seconds")}}
+
+    # -- 5. sharded autoscaling -----------------------------------------------
+    box_c = filled(shards=2, autoscale=True, autoscale_cfg=acfg)
+    cluster = box_c.backend
+    head = crowd_ids[:STREAM_SHARDED_REQUESTS]
+    shards_over_time = []
+
+    def sharded():
+        out = []
+        for s in range(0, len(head), SLICE_WINDOW):
+            out += box_c.get_many(head[s:s + SLICE_WINDOW])
+            shards_over_time.append(cluster.n_shards)
+        return out
+    t0 = time.perf_counter()
+    res = driven(sharded)
+    sharded_s = time.perf_counter() - t0
+    bad = sorted({r.oid for r in res
+                  if not np.array_equal(r.payload, pixels[r.oid])})
+    need(not bad, f"sharded autoscaled serving: images of {bad[:8]} differ")
+    csumm = box_c.summary()
+
+    state["launches"]["stream"] = dict(launches)
+    path_kernels = {k for k, _ in decode_calls(vae.cfg, LATENT_HW)
+                    + encode_calls(vae.cfg, side)} & set(KERNELS)
+    need(all(launches[k] > 0 for k in path_kernels),
+         f"a kernel of the stream path was never launched: {dict(launches)}")
+    emit(log, "stream", card=state["smi"], image=[side, side],
+         latent_puts=STREAM_LATENTS, recipe_puts=STREAM_RECIPES,
+         recipe_only=list(STREAM_RECIPE_ONLY), requests=STREAM_REQUESTS,
+         drain={"window_s": window_s, "stream_s": drain_s,
+                "hit_classes": dict(Counter(h for h, _ in drain.outcomes)),
+                "dispatches": drain.counters["dispatches"],
+                "classes_equal": True, "bytes_equal": True},
+         device_batch_ms=batch_ms,
+         served_batch_wall_ms=served,
+         served_fit={"decode_fixed_ms": float(served_intercept),
+                     "decode_per_image_ms": float(served_slope)},
+         fitted_model=dict(model, intercept_ms=float(intercept)),
+         nominal_model={"decode_fixed_ms": nominal.decode_fixed_ms,
+                        "decode_per_image_ms": nominal.decode_per_image_ms,
+                        "regen_ms": nominal.regen_ms},
+         regenerations=len(regen),
+         qos_at_rate=at_rate,
+         qos_overload=dict(overload, load_factor=load_factor,
+                           offered_decode_load=STREAM_OVERLOAD),
+         autoscaled=autoscaled,
+         sharded={"requests": len(head),
+                  "shards_over_time": shards_over_time, "wall_s": sharded_s,
+                  "shard_events": [
+                      {"window": e.window_index, "action": e.action,
+                       "reason": e.reason, "util": e.util}
+                      for e in cluster.autoscaler.events],
+                  **{k: csumm[k] for k in (
+                      "scale_up_events", "scale_down_events",
+                      "autoscale_shards", "autoscale_windows",
+                      "decode_util", "provisioned_gpu_ms")}},
+         wall_s=time.perf_counter() - t_phase, wall_budget_s=120,
+         launches=dict(launches))
+
+
 def phase_quant(torch, log, state):
     """The quantized read path at SD3.5-VAE width.  Engines opened with
     bf16 weights on the calibrated decoder, int8 on a grid-snapped copy
@@ -2159,6 +2450,7 @@ def main() -> int:
         run_phase(log, "slice", phase_slice, torch, log, state)
         run_phase(log, "write", phase_write, torch, log, state)
         run_phase(log, "store", phase_store, torch, log, state)
+        run_phase(log, "stream", phase_stream, torch, log, state)
         run_phase(log, "quant", phase_quant, torch, log, state)
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:

@@ -1,1 +1,2 @@
-"""The serving engine: decode batcher and tier-walk request loop."""
+"""The serving engine (decode batcher and tier-walk request loop) and
+the event-loop serving runtime (``serve.runtime``)."""

@@ -17,11 +17,20 @@ regenerates it (recipe -> pixels -> encoder -> latent) bit-exactly.
 Pixels are served as uint8 or float32.  The uint8 path may serve
 decoder weights stored in bf16 or int8 (``StoreConfig.weight_dtype``),
 admitted only behind the +-1-LSB gate that the engine runs when it
-opens.  With a segment-log store (``StoreConfig.data_dir``) every batch
-ends with a bounded durability step: one flush of the write-behind
-appends and at most one compaction step.  The kernel autotuner and
-elastic autoscaling wait for later slices (see ROADMAP.md) and raise
-``NotImplementedError``.
+opens.  Every batch ends with bounded maintenance: with a segment-log
+store (``StoreConfig.data_dir``) one flush of the write-behind appends
+and at most one compaction step, and with ``StoreConfig.autoscale`` one
+step of the elastic autoscaler, which moves a virtual decode-fleet width
+(provisioned-cost accounting, the utilization denominator) and the
+per-node cache capacity from the batcher's measured decode occupancy.
+
+Serving is not window-only: ``admit``/``dispatch`` expose the open
+microbatch, so the event-loop serving runtime (``serve/runtime/``) feeds
+the batcher continuously; ``serve_stream`` replays a timestamped
+open-loop request stream through it, and ``serve_window`` stays the
+fixed-group path that its drain-mode conformance is defined against.
+The kernel autotuner waits for a later slice (see ROADMAP.md) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from repro_torch.core.dual_cache import IMAGE_HIT, LATENT_HIT
 from repro_torch.core.latent_store import LatentStore
 from repro_torch.core.regen_tier import (Recipe, RegenTierStore,
                                          synthesize_image)
-from repro_torch.core.tuner import MarginalHitTuner
+from repro_torch.core.tuner import MarginalHitTuner, TunerConfig
 from repro_torch.device import resolve_device
 from repro_torch.store.api import StoreConfig
 from repro_torch.store.tiers import DurableTier, RecipeTier
@@ -50,6 +59,60 @@ from repro_torch.store.walk import TierWalk
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet: "
                                f"{item}")
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """The legacy engine configuration (the JAX package's), taken by
+    :class:`ServingEngine` with explicit image and latent sizes in place
+    of a :class:`StoreConfig`."""
+
+    n_nodes: int = 2
+    cache_bytes_per_node: float = 64e6
+    alpha0: float = 0.5
+    tau: float = 0.1
+    #: Paper parameter ``h``: latent hits before promotion to the pixel
+    #: tier; doubles as the spillover queue-depth bound (the deprecated
+    #: ``theta`` alias encoded the same value).
+    promote_threshold: int = 4
+    decode_buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    #: 'uint8' serves displayable bytes off the fused decode epilogue;
+    #: 'float32' keeps the [-1, 1] float pixels.
+    pixel_format: str = "uint8"
+    #: Decoder weight storage precision for the uint8 path, applied
+    #: behind the +-1-LSB open-time gate (see :class:`StoreConfig`).
+    weight_dtype: str = "float32"
+    #: Kernel autotuning (see :class:`StoreConfig`; not ported yet).
+    autotune: bool = False
+    adaptive: bool = True               # run the marginal-hit tuner
+    tuner: TunerConfig = dataclasses.field(
+        default_factory=lambda: TunerConfig(window=500, step=0.02))
+    #: Injectable wall clock (seconds); ``None`` = ``time.time``.
+    clock: Optional[Any] = None
+    #: Deprecated alias of ``promote_threshold``: passing it is an error.
+    theta: dataclasses.InitVar[Optional[int]] = None
+
+    def __post_init__(self, theta: Optional[int]) -> None:
+        if theta is not None:
+            raise TypeError(
+                "EngineConfig.theta was merged into promote_threshold "
+                "(both encode the paper's h); pass promote_threshold "
+                "instead")
+
+    def store_config(self, image_bytes: float,
+                     latent_bytes: float) -> StoreConfig:
+        """The cache/routing half of this config, for the shared walk."""
+        return StoreConfig(
+            n_nodes=self.n_nodes,
+            cache_bytes_per_node=self.cache_bytes_per_node,
+            alpha0=self.alpha0, tau=self.tau,
+            promote_threshold=self.promote_threshold,
+            image_bytes=image_bytes, latent_bytes=latent_bytes,
+            adaptive=self.adaptive, tuner=self.tuner,
+            decode_buckets=self.decode_buckets,
+            pixel_format=self.pixel_format,
+            weight_dtype=self.weight_dtype, autotune=self.autotune,
+            clock=self.clock)
 
 
 class _Node:
@@ -283,23 +346,26 @@ class ServingEngine:
     """Single-process stand-in for the decode fleet: N logical nodes share
     one device; the cache/routing/tuning logic is the shared ``TierWalk``.
 
-    ``device`` (default ``"cuda"``, raising where CUDA is absent) is where
-    the engine decodes; ``vae`` must live there."""
+    ``cfg`` is a :class:`StoreConfig` (its ``image_bytes``/``latent_bytes``
+    win) or a legacy :class:`EngineConfig` combined with the explicit size
+    arguments.  ``device`` (default ``"cuda"``, raising where CUDA is
+    absent) is where the engine decodes; ``vae`` must live there."""
 
-    def __init__(self, vae, store: LatentStore,
-                 cfg: Optional[StoreConfig] = None,
+    def __init__(self, vae, store: LatentStore, cfg=None,
+                 image_bytes: float = 16e3, latent_bytes: float = 13e3,
                  recipes: Optional[RegenTierStore] = None, device=None):
         dev = resolve_device(device)
         if vae.device != dev:
             raise ValueError(f"the VAE lives on {vae.device}, but the "
                              f"engine was asked to run on {dev}")
-        self.cfg = cfg or StoreConfig()
+        if isinstance(cfg, StoreConfig):
+            self.cfg = cfg
+        else:
+            self.cfg = (cfg or EngineConfig()).store_config(
+                image_bytes, latent_bytes)
         if self.cfg.autotune:
             raise not_ported("autotune=True",
-                             "ROADMAP queue A, kernel autotuner")
-        if self.cfg.autoscale:
-            raise not_ported("autoscale=True on an engine box",
-                             "ROADMAP A 6, engine autoscaling")
+                             "ROADMAP A 8, kernel autotuner")
         self.vae = vae
         self.store = store
         self.recipes = recipes
@@ -331,11 +397,30 @@ class ServingEngine:
             self.gate_lsb = check_u8_gate(
                 vae, self.cfg.decode_buckets,
                 (8, 8, vae.cfg.latent_channels))
-        # decode fleet accounting (one shared device per node)
+        # -- elastic autoscaling (off by default: no controller at all) ------
+        # the engine's decode fleet is one shared device, so the GPU knob
+        # moves a virtual fleet width (provisioned-cost accounting and the
+        # utilization denominator); the cache knob is real, through the
+        # walk's capacity handoff
         self.gpus_per_node = int(self.cfg.gpus_per_node)
+        opened_s = self.cfg.now_s()
         self._gpu_ms = 0.0
         self._cache_byte_ms = 0.0
-        self._acct_mark_s = self.cfg.now_s()
+        self._acct_mark_s = opened_s
+        self._cache_bytes_per_node = float(self.cfg.cache_bytes_per_node)
+        self.autoscaler = None
+        if self.cfg.autoscale:
+            from repro_torch.core.autoscale import (AutoscaleConfig,
+                                                    AutoscaleController,
+                                                    PlantState)
+            from repro_torch.core.cost_model import params_for_store
+            acfg = self.cfg.autoscale_cfg or dataclasses.replace(
+                AutoscaleConfig(), params=params_for_store(self.cfg))
+            self.autoscaler = AutoscaleController(
+                PlantState(self.gpus_per_node, len(self.walk.caches),
+                           self._cache_bytes_per_node), acfg)
+            self._as_mark = {"reqs": 0, "now_s": opened_s,
+                             "busy": 0.0, "image_hits": 0}
 
     def prewarm_decode(self, latent_hwc: Tuple[int, int, int]) -> None:
         """Run every decode bucket once for the given latent shape, so no
@@ -539,10 +624,25 @@ class ServingEngine:
             self.admit(oid)
         return self.dispatch()
 
+    def serve_stream(self, requests, runtime_cfg=None):
+        """Replay an open-loop request stream through the event-loop
+        serving runtime (simulated clock, per-tenant QoS, SLO-aware
+        admission), feeding this engine's batcher continuously through
+        :meth:`admit`/:meth:`dispatch`.  ``requests`` is a sequence of
+        :class:`repro_torch.serve.runtime.Request` or a ``SyntheticTrace``;
+        returns a :class:`repro_torch.serve.runtime.StreamReport`."""
+        from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+        if runtime_cfg is None:
+            runtime_cfg = RuntimeConfig.from_store(self.cfg)
+        return ServingRuntime.for_engine(self, runtime_cfg).run(requests)
+
     def _maintenance(self) -> None:
-        """End-of-batch durable flush/compaction (no-ops in memory)."""
+        """End-of-batch bounded work: durable flush and at most one
+        compaction step (no-ops in memory), then one autoscaler step."""
         self.store.flush()
         self.store.maybe_compact()
+        if self.autoscaler is not None:
+            self._autoscale_step()
 
     def _account_provisioned(self) -> None:
         """Advance the provisioned GPU/cache time integrals to the clock."""
@@ -552,8 +652,41 @@ class ServingEngine:
             return
         self._gpu_ms += dt_ms * len(self.nodes) * self.gpus_per_node
         self._cache_byte_ms += (dt_ms * len(self.nodes)
-                                * self.cfg.cache_bytes_per_node)
+                                * self._cache_bytes_per_node)
         self._acct_mark_s = now_s
+
+    def _autoscale_step(self) -> None:
+        """One control step from the engine's own signals: walk hit counts
+        (arrival volume, decode fraction) and the batcher's measured decode
+        occupancy.  The engine has no plant queue, so it scales on
+        utilization alone."""
+        from repro_torch.core.autoscale import WindowObs
+        from repro_torch.store.api import HIT_CLASSES
+        mark = self._as_mark
+        reqs = sum(self.walk.counts[k] for k in HIT_CLASSES)
+        if reqs - mark["reqs"] < self.autoscaler.cfg.window:
+            return
+        now_s = self.cfg.now_s()
+        span_ms = (now_s - mark["now_s"]) * 1e3
+        n = reqs - mark["reqs"]
+        hits = self.walk.counts[IMAGE_HIT] - mark["image_hits"]
+        obs = WindowObs(
+            requests=n, span_ms=span_ms,
+            busy_ms=max(0.0, self.batcher.busy_ms - mark["busy"]),
+            decode_frac=1.0 - hits / n if n else 1.0)
+        self._as_mark = {"reqs": reqs, "now_s": now_s,
+                         "busy": self.batcher.busy_ms,
+                         "image_hits": self.walk.counts[IMAGE_HIT]}
+        ev = self.autoscaler.step(obs)
+        if ev is not None:
+            self._apply_scale(ev.state)
+
+    def _apply_scale(self, state) -> None:
+        self._account_provisioned()
+        self.gpus_per_node = int(state.gpus_per_node)
+        if state.cache_bytes_per_node != self._cache_bytes_per_node:
+            self._cache_bytes_per_node = float(state.cache_bytes_per_node)
+            self.walk.set_cache_capacity(self._cache_bytes_per_node)
 
     def _flush(self) -> Dict[int, np.ndarray]:
         try:
@@ -580,6 +713,8 @@ class ServingEngine:
                               if self._gpu_ms > 0 else 0.0)
         out["provisioned_gpu_ms"] = self._gpu_ms
         out["provisioned_cache_byte_ms"] = self._cache_byte_ms
+        if self.autoscaler is not None:
+            out.update(self.autoscaler.summary())
         out["decode_batches"] = self.batcher.stats["batches"]
         out["decodes"] = self.batcher.stats["decodes"]
         out["coalesced_decodes"] = self.batcher.stats["coalesced"]

@@ -153,6 +153,13 @@ class EngineBackend:
                             "decode": t.decode_ms, "total": total}))
         return out
 
+    def serve_stream(self, requests, runtime_cfg=None):
+        """Open-loop stream replay through the event-loop serving runtime,
+        feeding the engine's ``DecodeBatcher`` continuously (the
+        ``admit``/``dispatch`` path, no fixed windows).  Returns a
+        :class:`repro_torch.serve.runtime.StreamReport`."""
+        return self.engine.serve_stream(requests, runtime_cfg)
+
     def pixels_resident(self, oid: int) -> bool:
         return self.walk.pixels_resident(oid)
 
@@ -422,11 +429,15 @@ class SimBackend:
             self.walk.set_cache_capacity(self.cache_bytes_per_node)
 
     def serve_stream(self, requests, runtime_cfg=None):
-        """The reference's open-loop replay through the event-loop serving
-        runtime (not ported: it raises)."""
-        from repro_torch.serve.engine import not_ported
-        raise not_ported("SimBackend.serve_stream (the serving runtime)",
-                         "ROADMAP A 6, serving runtime")
+        """Open-loop stream replay through the event-loop serving runtime:
+        the scheduler owns the timeline (queue delay, deadlines, QoS) and
+        calls ``get_many`` once per dispatched microbatch for
+        classification.  Returns a
+        :class:`repro_torch.serve.runtime.StreamReport`."""
+        from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+        if runtime_cfg is None:
+            runtime_cfg = RuntimeConfig.from_store(self.cfg)
+        return ServingRuntime.for_target(self, runtime_cfg).run(requests)
 
     def pixels_resident(self, oid: int) -> bool:
         return self.walk.pixels_resident(oid)

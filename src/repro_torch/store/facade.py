@@ -20,8 +20,8 @@
 hedged reads and scripted failures; every shard decodes on the one
 ``device``.  ``LatentBox.simulated()`` swaps the backend for the discrete
 latency plant: same tier walk, same classifications, no decode.
-``serve_stream()`` (the serving runtime) raises ``NotImplementedError``
-naming ROADMAP A 6.
+``serve_stream()`` replays a timestamped request stream through the
+event-loop serving runtime (``serve/runtime/``) on any of these boxes.
 """
 
 from __future__ import annotations
@@ -32,11 +32,6 @@ import numpy as np
 
 from repro_torch.core.regen_tier import Recipe
 from repro_torch.store.api import GetResult, ObjectStat, PutResult, StoreConfig
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    from repro_torch.serve.engine import not_ported as error
-    return error(what, item)
 
 
 class LatentBox:
@@ -152,9 +147,27 @@ class LatentBox:
         return self._backend.get_many(oids, timestamps_ms=timestamps_ms)
 
     def serve_stream(self, requests, runtime_cfg=None):
-        """The reference's event-loop serving runtime (not ported)."""
-        raise not_ported("LatentBox.serve_stream (the serving runtime)",
-                         "ROADMAP A 6, serving runtime")
+        """Replay an open-loop request stream (timestamped arrivals)
+        through the event-loop serving runtime: continuous microbatching,
+        per-tenant QoS, SLO classes, and admission control.
+
+        ``requests`` is a :class:`~repro_torch.trace.synth.SyntheticTrace`
+        or a sequence of :class:`repro_torch.serve.runtime.Request`;
+        ``runtime_cfg`` a :class:`repro_torch.serve.runtime.RuntimeConfig`
+        (the default derives the service model from this box's
+        ``StoreConfig``).  Returns a
+        :class:`repro_torch.serve.runtime.StreamReport`: per-request
+        outcomes in arrival order, the columnar ``RequestLog`` (queue
+        delay, deadlines, tenants), and scheduler counters.
+        """
+        stream = getattr(self._backend, "serve_stream", None)
+        if stream is not None:          # backend owns the continuous feed
+            return stream(requests, runtime_cfg=runtime_cfg)
+        from repro_torch.serve.runtime import RuntimeConfig, ServingRuntime
+        if runtime_cfg is None:
+            runtime_cfg = RuntimeConfig.from_store(self._backend.cfg)
+        return ServingRuntime.for_target(self._backend, runtime_cfg).run(
+            requests)
 
     def pixels_resident(self, oid: int) -> bool:
         """Pure peek: is ``oid`` pixel-cache resident at its hash owner?"""

@@ -374,9 +374,37 @@ def test_summary_counters_serializable():
 
 
 def test_sim_serve_stream_names_what_is_left():
-    box = LatentBox.simulated(cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP A 6"):
-        box.backend.serve_stream([])
+    """``SimBackend.serve_stream`` raised naming ROADMAP A 6 until A 6
+    ported the serving runtime: it now serves a stream, and on a
+    replicated cluster with a shard killed mid-trace the facade replays
+    a drain stream as the reference's does, and as the port's own
+    windows of 8 (``tests/test_torch_runtime.py`` holds every
+    scenario)."""
+    from repro.serve import runtime as jax_runtime
+    from repro_torch.serve import runtime
+    ids = trace()
+    port, windowed = (sim_box(fault_plan=FaultPlan.kill(1, 40))
+                      for _ in range(2))
+    ref = JaxBox.simulated(
+        JaxStoreConfig(n_nodes=2, **CELL, tuner=JaxTunerConfig(window=10**9)),
+        shards=SHARDS, replication=2, fault_plan=JaxFaultPlan.kill(1, 40))
+    for box in (port, windowed):
+        fill(box)
+    fill(ref, recipe=JaxRecipe)
+    plain = LatentBox.simulated(cfg())
+    fill(plain)
+    rep = plain.backend.serve_stream(
+        [runtime.Request(oid=o, arrival_ms=0.0) for o in ids])
+    assert rep.counters["served"] == len(ids)
+    got = port.serve_stream(
+        [runtime.Request(oid=o, arrival_ms=0.0) for o in ids],
+        runtime_cfg=runtime.RuntimeConfig.conformance())
+    want = ref.serve_stream(
+        [jax_runtime.Request(oid=o, arrival_ms=0.0) for o in ids],
+        runtime_cfg=jax_runtime.RuntimeConfig.conformance())
+    assert got.outcomes == want.outcomes
+    assert got.counters == want.counters
+    assert got.outcomes == serve(windowed, ids)[0]
 
 
 def test_lossy_transcode_failover_matches_the_reference(vaes, tmp_path):

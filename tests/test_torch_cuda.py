@@ -12,7 +12,9 @@ decode attention also at its serving shapes and at the edges of its row
 partition, its bits independent of the batch and of the cache length,
 and one device kernel per call.  The persistent, sharded store on the
 card: a box it writes reopens bit-identical there and within +-1 LSB on
-the CPU, and a dead shard's replicas serve the healthy box's bits.
+the CPU, and a dead shard's replicas serve the healthy box's bits.  The
+serving runtime on the card: a drain stream is the window path bit for
+bit, and an autoscaled engine scales on measured decode time.
 
 Marked ``cuda``: these skip where no NVIDIA GPU is present.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -587,6 +589,58 @@ def test_store_dead_shard_on_card_bit_identical_and_near_cpu(dev, tmp_path):
     for a, b in zip(runs["a"][1], runs["b"][1]):
         np.testing.assert_array_equal(a, b)
     assert _near(runs["b"][1], runs["c"][1])
+
+
+# ---------------------------------------------------------------------------
+# the serving runtime on the card: a drain stream serves what windows of 8
+# serve, bit for bit, and an autoscaled engine scales on measured decode
+# time, at ragged 24x40 latents
+# ---------------------------------------------------------------------------
+
+def _stream_box(gvae, dev, **kw):
+    from repro_torch.store import LatentBox
+    box = LatentBox.engine(vae=gvae, config=_store_cfg(**kw), device=dev)
+    _fill_store(box, 20)
+    return box
+
+
+def test_stream_drain_is_the_window_path_on_card(dev):
+    from repro_torch.serve.runtime import RuntimeConfig
+    from repro_torch.trace.synth import make_trace
+    gvae, _ = _store_vaes(dev)
+    tr = make_trace("flash_crowd", n_objects=20, n_requests=96,
+                    span_days=2.0, seed=7)
+    ids = [int(o) for o in tr.object_ids]
+    sig, pixels = _serve_store(_stream_box(gvae, dev), ids)
+    rep = _stream_box(gvae, dev).serve_stream(
+        tr, RuntimeConfig.conformance(keep_payloads=True))
+    assert rep.outcomes == sig
+    assert {h for h, _ in sig} >= {"image_hit", "full_miss", "regen_miss"}
+    for k, px in enumerate(pixels):
+        np.testing.assert_array_equal(rep.payloads[k], px)
+
+
+def test_engine_autoscales_on_card(dev):
+    """Measured decode time on the card against a barely advancing
+    injected clock saturates utilization: the controller scales up, and
+    every image is the unscaled box's."""
+    from repro_torch.core.autoscale import AutoscaleConfig
+    gvae, _ = _store_vaes(dev)
+    clock = [1_000.0]
+    box = _stream_box(gvae, dev, clock=lambda: clock[0], autoscale=True,
+                      autoscale_cfg=AutoscaleConfig(window=8,
+                                                    cooldown_windows=0))
+    ids = [int(i) for i in np.random.default_rng(8).integers(0, 20, 48)]
+    served = []
+    for s in range(0, len(ids), 8):
+        clock[0] += 1e-3
+        served += box.get_many(ids[s:s + 8])
+    summ = box.summary()
+    assert summ["autoscale_windows"] == len(ids) // 8
+    assert summ["scale_up_events"] >= 1
+    _, plain = _serve_store(_stream_box(gvae, dev), ids)
+    for r, px in zip(served, plain):
+        np.testing.assert_array_equal(r.payload, px)
 
 
 # ---------------------------------------------------------------------------

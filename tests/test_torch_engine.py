@@ -156,13 +156,35 @@ class TestNotPorted:
     # ``data_dir`` raised until the segment log was ported; a persistent
     # box's autotuner (whose cache the reference keeps under it) still does
     @pytest.mark.parametrize("kw", [dict(autotune=True),
-                                    dict(autoscale=True),
                                     dict(data_dir="tmp", autotune=True)])
     def test_config_raises(self, vaes, kw, tmp_path):
         _, tv = vaes
         kw = {k: str(tmp_path) if v == "tmp" else v for k, v in kw.items()}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A 8"):
             LatentBox.engine(vae=tv, config=torch_cfg(**kw), device="cpu")
+
+    def test_autoscale_builds_a_controller_that_scales(self, vaes):
+        """``autoscale=True`` raised naming ROADMAP A 6 until A 6 ported
+        engine autoscaling: the engine now builds the controller, and
+        real decode time against a barely advancing clock saturates
+        utilization, so it scales up."""
+        from repro_torch.core.autoscale import AutoscaleConfig
+        _, tv = vaes
+        clock = [1_000.0]
+        box = LatentBox.engine(vae=tv, device="cpu", config=torch_cfg(
+            clock=lambda: clock[0], autoscale=True,
+            autoscale_cfg=AutoscaleConfig(window=8, cooldown_windows=0)))
+        eng = box.backend.engine
+        assert eng.autoscaler is not None
+        latents, _ = corpus()
+        for oid, z in enumerate(latents[:8]):
+            box.put(oid, latent=z)
+        for _ in range(2):
+            clock[0] += 1e-3
+            box.get_many(list(range(8)))
+        s = box.summary()
+        assert s["autoscale_windows"] == 2
+        assert s["scale_up_events"] >= 1 and eng.autoscaler.events
 
 
 W_RECIPES = 8            # objects put by recipe (the first 3 demoted)

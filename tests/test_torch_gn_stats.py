@@ -369,9 +369,17 @@ def test_unported_constructors_name_their_item(call, item, tmp_path):
 
 
 def test_serve_stream_names_a6():
+    """``serve_stream`` raised naming ROADMAP A 6 until A 6 ported the
+    serving runtime: it now replays requests through it, with the
+    service model derived from the box's ``StoreConfig``."""
+    from repro_torch.serve.runtime import Request
     box = _box()
-    with pytest.raises(NotImplementedError, match="ROADMAP A 6"):
-        box.serve_stream([], runtime_cfg=None)
+    _round_trip(box)
+    rep = box.serve_stream([Request(oid=1, arrival_ms=0.0),
+                            Request(oid=1, arrival_ms=5.0)], runtime_cfg=None)
+    assert [h for h, _ in rep.outcomes] == ["latent_hit", "latent_hit"]
+    assert rep.counters["served"] == 2
+    assert box.serve_stream([]).outcomes == []
 
 
 def test_lifecycle_on_an_in_memory_box():

@@ -21,11 +21,16 @@ COPIED = ["compression/latentcodec.py", "compression/ladder.py",
           "core/latent_store.py", "core/dual_cache.py", "core/tuner.py",
           "core/router.py", "core/regen_tier.py", "core/cost_model.py",
           "core/autoscale.py", "core/policies.py", "core/metrics.py",
-          "core/cluster.py", "store/api.py", "store/tiers.py",
+          "core/cluster.py", "core/replay.py", "store/api.py",
+          "store/tiers.py",
           "store/walk.py", "store/faults.py", "store/replication.py",
           "store/durable/__init__.py", "store/durable/segment.py",
           "store/durable/log.py", "store/durable/compact.py",
-          "store/durable/backend.py", "configs/shapes.py", "configs/granite_8b.py",
+          "store/durable/backend.py", "trace/__init__.py", "trace/synth.py",
+          "serve/runtime/__init__.py", "serve/runtime/events.py",
+          "serve/runtime/qos.py", "serve/runtime/admission.py",
+          "serve/runtime/runtime.py", "configs/shapes.py",
+          "configs/granite_8b.py",
           "configs/kimi_k2.py", "configs/mixtral_8x7b.py",
           "configs/phi4_mini.py", "configs/qwen2_7b.py",
           "configs/qwen2_vl_72b.py", "configs/qwen3_14b.py",
