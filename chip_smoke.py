@@ -99,15 +99,33 @@ wall seconds (any failure exits non-zero):
                 weights, ``decoder_storage``; then a raw int8 engine on
                 the unsnapped decoder, accepted or refused as its gate
                 says;
-9. crossdevice  the same VAE at a 16x16 latent and a 128x128 image on the
+9. autotune    the kernel autotuner at SD3.5-VAE width on a 64x64x16
+                latent: ``KernelAutotuner`` from an empty cache over
+                buckets 1 and 8 in fp32 (22 keys; for each, its candidate
+                launches, each one's output equal to the default's under
+                ``torch.equal``, ``default_us``, the winner's ``us`` and
+                knob, the seconds it took); ``decode_u8`` with the tuned
+                cache active against without it at buckets 1 and 8 (bit
+                for bit, bucket 8 equal to eight batch-1 decodes under the
+                cache, device ms per image of each arm as interleaved A/B
+                medians by CUDA events); tune-on-first-miss on
+                ``LatentBox.open(..., StoreConfig(autotune=True,
+                decode_buckets=(1, 2)), device="cuda")`` from an empty
+                cache over a seeded Zipf trace until nothing is pending
+                (the ms each maintenance step spent tuning, max and sum),
+                closed, reopened with the same entries active, every
+                image served byte-equal to the first serving's, each
+                kernel's launches (all > 0), the phase's wall seconds
+                (budget 90);
+10. crossdevice the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
                 relative tolerance; and small fp32 qwen2-, RWKV-6- and
                 zamba2-family LMs' prefill and decode steps, logits and
                 caches within a relative tolerance;
-10. lm          the dense LM serving path: ``build_model`` of Qwen2-7B at
-11. ssm         full width and depth in bf16 (seeded random weights), then
-12. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
+11. lm          the dense LM serving path: ``build_model`` of Qwen2-7B at
+12. ssm         full width and depth in bf16 (seeded random weights), then
+13. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
                 built: a prefill of 4 x 2048 seeded tokens, 64 greedy
                 ``decode_step``s: parameters, peak memory, prefill and
                 decode-step ms and tokens/s, each kernel's launches
@@ -120,7 +138,8 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, stream, quant, lm, ssm and hybrid phases), the ``nvidia-smi`` name and
+write, store, stream, quant, autotune, lm, ssm and hybrid phases), the
+``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
 ``chip_smoke.jsonl`` in ``OUT_DIR`` (the repository's output directory).
@@ -2114,6 +2133,220 @@ def phase_quant(torch, log, state):
          "a configuration above it is refused")
 
 
+AUTOTUNE_BUCKETS = (1, 8)          # the sweep's buckets: 22 keys in fp32
+AUTOTUNE_REPS = 5                  # best-of reps of each candidate
+AUTOTUNE_AB_REPS = 5               # interleaved decodes of each A/B arm
+AUTOTUNE_OBJECTS = 12              # latent puts of the engine run
+AUTOTUNE_REQUESTS = 256            # its Zipf trace, in windows of 8
+AUTOTUNE_ENGINE_BUCKETS = (1, 2)   # 22 keys to tune on first miss
+AUTOTUNE_SEED = 37
+AUTOTUNE_BUDGET_S = 90
+
+
+def phase_autotune(torch, log, state):
+    """The kernel autotuner at SD3.5-VAE width on a 64x64x16 latent.
+    (a) ``KernelAutotuner`` from an empty cache over buckets 1 and 8 in
+    fp32: 22 keys, every candidate's output equal to the default's under
+    ``torch.equal`` (``tune`` raises otherwise), each winner no slower
+    than its default.  (b) ``decode_u8`` with the tuned cache active
+    against without it at buckets 1 and 8: bit for bit, bucket 8 equal to
+    eight batch-1 decodes under the cache, device ms per image of each
+    arm as interleaved A/B medians by CUDA events.  (c) Tune-on-first-miss
+    from an empty cache: a persistent box with ``autotune=True`` and
+    buckets (1, 2) serves a seeded Zipf trace, tuning one key per
+    dispatched batch until nothing is pending (the ms each maintenance
+    step spent tuning), closes, reopens with the same entries active and
+    serves the trace again, every image byte-equal to the first serving's.
+    (d) Every kernel of the read path launched in the reopened serving."""
+    np = state["np"]
+    import tempfile
+    from repro_torch.core.tuner import TunerConfig
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+    from repro_torch.store import LatentBox, StoreConfig
+    t_phase = time.perf_counter()
+    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    side = 8 * LATENT_HW
+    hwc = (LATENT_HW, LATENT_HW, 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    need(at.get_active_cache() is None, "a tuning cache is already active")
+
+    # -- (a) the sweep from an empty cache ---------------------------------
+    specs = {at.cache_key(sp["kernel"], b, sp["h"], sp["w"], sp["cin"],
+                          sp["cout"], "float32"): sp
+             for b in AUTOTUNE_BUCKETS
+             for sp in at.decode_shapes(vae.cfg, hwc, b)}
+    cache = at.TuningCache(None)
+    tuner = at.KernelAutotuner(cache, vae.cfg, device="cuda",
+                               reps=AUTOTUNE_REPS)
+    for b in AUTOTUNE_BUCKETS:
+        tuner.note_bucket(b, hwc)
+    need(tuner.pending == len(specs) == 22,
+         f"{tuner.pending} keys queued for {len(specs)} shapes, not 22")
+    swept = []
+    t0 = time.perf_counter()
+    while tuner.pending:
+        (key,) = tuner.step(1)   # raises if a candidate changes a bit
+        e, spec = cache.get(key), specs[key]
+        knob = at.KNOBS[spec["kernel"]][0]
+        cands = at.candidates(spec["kernel"], spec, sms, "float32")
+        need(e["candidates"] == len(cands) == len(e["candidate_us"]),
+             f"{key}: {e['candidates']} candidates timed of {len(cands)}")
+        need(e["us"] <= e["default_us"], f"{key}: winner {e['us']} us "
+             f"slower than its default {e['default_us']}")
+        swept.append({"key": key, "candidates": [c[knob] for c in cands],
+                      "candidate_us": e["candidate_us"],
+                      "default_us": e["default_us"], "us": e["us"],
+                      knob: e[knob], "s": tuner.step_ms[-1] / 1e3})
+    sweep_s = time.perf_counter() - t0
+    moved = [s["key"] for s in swept
+             if s.get("layout", s.get("tile_h")) != s["candidates"][0]]
+
+    # -- (b) decodes with and without the tuned cache ------------------------
+    rng = np.random.default_rng(AUTOTUNE_SEED)
+    z8 = rng.standard_normal((8,) + hwc).astype(np.float32)
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    decode_ms = {}
+    for b in (1, 8):
+        zb = torch.from_numpy(z8[:b].copy()).cuda()
+        untuned = vae.decode_u8(zb)
+        with at.active_cache(cache):
+            tuned = vae.decode_u8(zb)
+        need(bool(torch.equal(tuned, untuned)),
+             f"bucket {b}: the tuned decode differs from the untuned one")
+        times = {"untuned": [], "tuned": []}
+        for r in range(AUTOTUNE_AB_REPS):
+            for arm in (("untuned", "tuned") if r % 2 == 0
+                        else ("tuned", "untuned")):
+                with at.active_cache(cache if arm == "tuned" else None):
+                    times[arm].append(event_ms(lambda: vae.decode_u8(zb)))
+        decode_ms[str(b)] = {f"{arm}_per_image_ms": statistics.median(v) / b
+                             for arm, v in times.items()}
+        decode_ms[str(b)]["bit_identical"] = True
+        del zb, untuned, tuned
+    with at.active_cache(cache):
+        batch = vae.decode_u8(torch.from_numpy(z8).cuda()).cpu()
+        same = [bool(torch.equal(batch[i:i + 1], vae.decode_u8(
+            torch.from_numpy(z8[i:i + 1].copy()).cuda()).cpu()))
+            for i in range(8)]
+    need(all(same), f"tuned: bucket 8 differs from batch-1 decodes: {same}")
+
+    # -- (c) tune-on-first-miss in the engine, close, reopen -----------------
+    latents = [rng.standard_normal(hwc).astype(np.float16)
+               for _ in range(AUTOTUNE_OBJECTS)]
+    ranks = np.arange(1, AUTOTUNE_OBJECTS + 1, dtype=np.float64)
+    p = ranks ** -1.1
+    trace = [int(t) for t in rng.choice(AUTOTUNE_OBJECTS, AUTOTUNE_REQUESTS,
+                                        p=p / p.sum())]
+    windows = [trace[s:s + SLICE_WINDOW]
+               for s in range(0, len(trace), SLICE_WINDOW)]
+    cfg = StoreConfig(n_nodes=2, cache_bytes_per_node=6e6,
+                      image_bytes=float(side * side * 3), latent_bytes=1.2e5,
+                      promote_threshold=2, tuner=TunerConfig(window=10**9),
+                      decode_buckets=AUTOTUNE_ENGINE_BUCKETS, autotune=True)
+    tmp = tempfile.TemporaryDirectory(prefix="lbx-autotune-",
+                                      dir=str(OUT_DIR))
+    path = Path(tmp.name) / "box"
+    first = {}
+
+    def serve(box, what):
+        """Serve the trace; every image byte-equal to the first serving's
+        for its object.  Returns the window after which nothing was
+        pending (None: never)."""
+        done_at = None
+        for i, win in enumerate(windows):
+            for r in box.get_many(win):
+                img = np.asarray(r.payload)
+                need(img.shape == (side, side, 3) and img.dtype == np.uint8,
+                     f"{what}: bad payload for {r.oid}")
+                if r.oid in first:
+                    need(bool(np.array_equal(first[r.oid], img)),
+                         f"{what}: object {r.oid} served other bytes")
+                else:
+                    first[r.oid] = img.copy()
+            s = box.summary()
+            if done_at is None and s["tuning_pending"] == 0 and \
+                    s["tuned_kernel_keys"] == 22:
+                done_at = i + 1
+        return done_at
+
+    box = LatentBox.open(path, config=cfg, vae=vae, device="cuda")
+    eng = box.backend.engine
+    need(at.get_active_cache() is eng.tuning_cache
+         and len(eng.tuning_cache) == 0, "the engine's empty cache is not "
+         "the active one")
+    for oid, z in enumerate(latents):
+        box.put(oid, latent=z)
+    eng.prewarm_decode(hwc)                 # notes both buckets' shapes
+    t0 = time.perf_counter()
+    converged = serve(box, "first serving")
+    first_s = time.perf_counter() - t0
+    need(converged is not None, f"tuning still pending after the trace: "
+         f"{box.summary()['tuning_pending']}")
+    step_ms = list(eng.autotuner.step_ms)
+    entries = dict(eng.tuning_cache.entries)
+    box.close()
+    need(at.get_active_cache() is None, "close kept the tuning cache active")
+    on_disk = at.TuningCache.load(str(path / at.CACHE_FILENAME))
+    need(on_disk.entries == entries and on_disk.device ==
+         torch.cuda.get_device_name(0), "the saved cache differs")
+    t0 = time.perf_counter()
+    box = LatentBox.open(path, config=cfg, vae=vae, device="cuda")
+    reopen_ms = (time.perf_counter() - t0) * 1e3
+    eng = box.backend.engine
+    need(eng.tuning_cache.entries == entries, "entries did not survive")
+    need(at.get_active_cache() is eng.tuning_cache,
+         "the reopened cache is not the active one")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(box, "after the reopen")
+    reopened_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    state["launches"]["autotune"] = launches
+    summ = box.summary()
+    need(summ["tuning_pending"] == 0 and summ["tuned_kernel_keys"] == 22
+         and not eng.autotuner.step_ms, "the reopened engine tuned again")
+    box.close()
+    need(at.get_active_cache() is None, "close kept the tuning cache active")
+    tmp.cleanup()
+    # -- (d) the read path's kernels ran -------------------------------------
+    path_kernels = {k for k, _ in decode_calls(vae.cfg, LATENT_HW)}
+    need(all(launches[k] > 0 for k in path_kernels),
+         f"a kernel of the tuned read path was never launched: {launches}")
+    del batch, cache, tuner
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    emit(log, "autotune", latent=list(hwc), sms=sms,
+         sweep={"buckets": list(AUTOTUNE_BUCKETS), "weight_dtype": "float32",
+                "reps": AUTOTUNE_REPS, "keys": len(swept), "sweep_s": sweep_s,
+                "bit_check": "every candidate's output torch.equal to the "
+                             "default's (tune raises otherwise)",
+                "non_default_winners": moved, "entries": swept},
+         decode={"ab_reps": AUTOTUNE_AB_REPS, "device_ms": decode_ms,
+                 "tuned_bucket8_bit_identical_to_batch1": same},
+         engine={"buckets": list(AUTOTUNE_ENGINE_BUCKETS),
+                 "objects": AUTOTUNE_OBJECTS, "requests": AUTOTUNE_REQUESTS,
+                 "window": SLICE_WINDOW, "windows": len(windows),
+                 "converged_after_windows": converged,
+                 "tuned_keys": len(entries), "tuning_steps": len(step_ms),
+                 "tuning_step_ms_max": max(step_ms),
+                 "tuning_step_ms_sum": sum(step_ms),
+                 "first_serving_s": first_s, "reopen_ms": reopen_ms,
+                 "reopened_serving_s": reopened_s,
+                 "objects_byte_equal": len(first)},
+         launches=launches, wall_s=wall, wall_budget_s=AUTOTUNE_BUDGET_S)
+
+
 def phase_crossdevice(torch, log, state):
     from repro_torch.vae.model import VAE, map_params
     vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
@@ -2452,6 +2685,7 @@ def main() -> int:
         run_phase(log, "store", phase_store, torch, log, state)
         run_phase(log, "stream", phase_stream, torch, log, state)
         run_phase(log, "quant", phase_quant, torch, log, state)
+        run_phase(log, "autotune", phase_autotune, torch, log, state)
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:
             run_phase(log, phase, phase_serve, torch, log, state, phase)

@@ -38,14 +38,17 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 #: source -> (its launch function, the C argument types); every launch
-#: function returns cudaGetLastError()
+#: function returns cudaGetLastError().  The four decode conv launches take
+#: their tile knob (``layout``, ``tile_h``; 0 the shape's default) last
+#: before the stream.
 SIGNATURES = {
     "gn_stats": ("gn_stats_launch", [P, P, P, I, I, I, I, I, F, P]),
-    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
+    "conv3x3": ("conv3x3_launch", [P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                    P]),
     "gn_silu_conv": ("gn_silu_conv3x3_launch", [P, P, P, P, P, P, P, P,
-                                                 I, I, I, I, I, I, I, P]),
+                                                 I, I, I, I, I, I, I, I, P]),
     "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P, P,
-                                                   I, I, I, I, I, I, P]),
+                                                   I, I, I, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
                                                     I, I, F, I, I, I, P]),
     "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
@@ -55,7 +58,8 @@ SIGNATURES = {
     "rwkv6_scan": ("rwkv6_scan_launch", [P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, I, P]),
     "output_epilogue": ("output_epilogue_launch", [P, P, P, P, P, P, P, P,
-                                                   I, I, I, I, I, I, I, P]),
+                                                   I, I, I, I, I, I, I, I,
+                                                   P]),
 }
 
 

@@ -5,7 +5,10 @@ On CUDA: ``csrc/conv3x3.cu``, reading the weight in its storage dtype
 (fp32, bf16, or int8 with a per-Cout scale applied to the fp32 sum):
 for Cout > 4 the 3xTF32 tensor-core tile, its K split over a thread
 block cluster of :func:`k_split` blocks where Cout <= 32; for Cout <= 4
-the CUDA-core tile.  On the CPU: the plain version, ``ref.conv3x3_ref``.
+the CUDA-core tile.  The wide tile's layout (``layout``; see
+:mod:`repro_torch.kernels.autotune`) is the active tuning cache's for the
+call's shape, or the shape's default.  On the CPU: the plain version,
+``ref.conv3x3_ref``, which takes no layout.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 
 #: kernel launches of :func:`conv3x3` in this process
 launches = 0
@@ -50,9 +53,12 @@ def k_split(h: int, w: int, cin: int, cout: int) -> int:
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             b: Optional[torch.Tensor] = None,
-            w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+            w_scale: Optional[torch.Tensor] = None,
+            layout: Optional[int] = None) -> torch.Tensor:
     """x [N, H, W, Cin], w [3, 3, Cin, Cout] (fp32, bf16, or int8 with
-    w_scale [Cout]), b [Cout] -> [N, H, W, Cout]."""
+    w_scale [Cout]), b [Cout] -> [N, H, W, Cout].  ``layout``: the tile
+    layout code (None: the tuned one or the default; a code the shape's
+    route lacks raises)."""
     global launches
     if x.device.type == "cpu":
         return ref.conv3x3_ref(x, w, b, w_scale)
@@ -65,10 +71,12 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     if tuple(w.shape[:3]) != (3, 3, cin) or tuple(b.shape) != (cout,):
         raise ValueError(f"conv3x3: w must be [3, 3, {cin}, Cout] and b "
                          f"[Cout], got {tuple(w.shape)}, {tuple(b.shape)}")
+    if layout is None:
+        layout = autotune.launch_knob("conv3x3", x.shape, cout, w)
     out = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
     build.check(build.lib("conv3x3").conv3x3_launch(
         x.data_ptr(), w.data_ptr(), sptr, b.data_ptr(), out.data_ptr(), n,
-        h, wd, cin, cout, k_split(h, wd, cin, cout), wcode,
-        build.stream_of(x)), "conv3x3")
+        h, wd, cin, cout, k_split(h, wd, cin, cout), wcode, layout,
+        build.stream_of(x)), f"conv3x3 (layout {layout})")
     launches += 1
     return out

@@ -33,31 +33,35 @@
 namespace {
 
 template <class WT>
-int launch_tc(const rt::ConvArgs& a, int ksplit, cudaStream_t stream) {
-  if (a.Cout <= tcc::Narrow::BN) return tcc::launch_narrow<WT>(a, ksplit, stream);
+int launch_tc(const rt::ConvArgs& a, int ksplit, int layout, cudaStream_t stream) {
+  if (a.Cout <= tcc::Narrow::BN) {
+    if (layout != tcc::kRule) return (int)cudaErrorInvalidValue;   // one layout
+    return tcc::launch_narrow<WT>(a, ksplit, stream);
+  }
   if (ksplit != 1) return (int)cudaErrorInvalidValue;
-  return tcc::launch_wide<tcc::kRaw, 9, WT>(a, stream);
+  return tcc::launch_wide<tcc::kRaw, 9, WT>(a, layout, stream);
 }
 
 }  // namespace
 
 // x [N, H, W, Cin], w [3, 3, Cin, Cout] in its storage type wtype (0 fp32,
 // 1 bf16, 2 int8 with wscale [Cout]), b [Cout], out [N, H, W, Cout] fp32,
-// all contiguous; K split over ksplit blocks where 4 < Cout <= 32 (else 1).
+// all contiguous; K split over ksplit blocks where 4 < Cout <= 32 (else 1);
+// layout a tcc::Layout code for Cout > 32 (else 0: those routes have one).
 extern "C" int conv3x3_launch(const float* x, const void* w, const float* wscale,
                               const float* b, float* out, int N, int H, int W,
-                              int Cin, int Cout, int ksplit, int wtype,
+                              int Cin, int Cout, int ksplit, int wtype, int layout,
                               cudaStream_t stream) {
   rt::ConvArgs a{x, nullptr, nullptr, nullptr, w, wscale, b, out, N, H, W, Cin, Cout, 1};
   if (Cout <= 4) {
-    if (ksplit != 1) return (int)cudaErrorInvalidValue;
+    if (ksplit != 1 || layout != tcc::kRule) return (int)cudaErrorInvalidValue;
     return rt::launch_narrow_conv(a, wtype, stream);
   }
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
   switch (wtype) {
-    case rt::kF32: return launch_tc<float>(a, ksplit, stream);
-    case rt::kBF16: return launch_tc<rt::bf16w>(a, ksplit, stream);
-    case rt::kI8: return launch_tc<int8_t>(a, ksplit, stream);
+    case rt::kF32: return launch_tc<float>(a, ksplit, layout, stream);
+    case rt::kBF16: return launch_tc<rt::bf16w>(a, ksplit, layout, stream);
+    case rt::kI8: return launch_tc<int8_t>(a, ksplit, layout, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,28 +29,33 @@
 namespace {
 
 template <class WT>
-int launch_typed(const rt::ConvArgs& a, cudaStream_t stream) {
-  if (a.Cout <= 4) return rt::launch_conv_tile<rt::NarrowCfg, 1, WT>(a, stream);
-  return tcc::launch_wide<tcc::kGnSilu, 9, WT>(a, stream);
+int launch_typed(const rt::ConvArgs& a, int layout, cudaStream_t stream) {
+  if (a.Cout <= 4) {
+    if (layout != tcc::kRule) return (int)cudaErrorInvalidValue;   // one layout
+    return rt::launch_conv_tile<rt::NarrowCfg, 1, WT>(a, stream);
+  }
+  return tcc::launch_wide<tcc::kGnSilu, 9, WT>(a, layout, stream);
 }
 
 }  // namespace
 
 // x [N, H, W, Cin], stats [N, G, 2] (mean, rstd), gamma/beta [Cin], w [3, 3,
 // Cin, Cout] in its storage type wtype (0 fp32, 1 bf16, 2 int8 with wscale
-// [Cout]), b [Cout], out [N, H, W, Cout]; the rest fp32; all contiguous.
+// [Cout]), b [Cout], out [N, H, W, Cout]; the rest fp32; all contiguous;
+// layout a tcc::Layout code for Cout > 4 (else 0).
 extern "C" int gn_silu_conv3x3_launch(const float* x, const float* stats, const float* gamma,
                                       const float* beta, const void* w, const float* wscale,
                                       const float* b, float* out, int N, int H, int W, int Cin,
-                                      int Cout, int G, int wtype, cudaStream_t stream) {
+                                      int Cout, int G, int wtype, int layout,
+                                      cudaStream_t stream) {
   rt::ConvArgs a{x, stats, gamma, beta, w, wscale, b, out, N, H, W, Cin, Cout, G};
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || N > 65535 || G <= 0 ||
       Cin % G != 0)
     return (int)cudaErrorInvalidValue;
   switch (wtype) {
-    case rt::kF32: return launch_typed<float>(a, stream);
-    case rt::kBF16: return launch_typed<rt::bf16w>(a, stream);
-    case rt::kI8: return launch_typed<int8_t>(a, stream);
+    case rt::kF32: return launch_typed<float>(a, layout, stream);
+    case rt::kBF16: return launch_typed<rt::bf16w>(a, layout, stream);
+    case rt::kI8: return launch_typed<int8_t>(a, layout, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

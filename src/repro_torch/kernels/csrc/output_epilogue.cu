@@ -15,9 +15,18 @@
 // not stay in the 50 MB L2), so the two passes together cannot go below
 // 0.080 ms.
 //
-// Design.  A block computes a 16 x 32 pixel tile of one image for three
-// output channels (grid: tiles, Cout / 3 rounded up, images), 512 threads,
-// one block per SM:
+// Design.  A block computes a TH x 32 pixel tile of one image for three
+// output channels (grid: tiles, Cout / 3 rounded up, images): TH = 16, 512
+// threads, one block per SM; or, by the launch's tile_h (the autotuner's
+// knob, kernels/autotune.py), TH = 8, 256 threads, two blocks per SM,
+// compiled for the vectorised path only.  A thread's outputs and their sum
+// order below do not depend on TH, so both heights give the same bits
+// (at 512 x 512 x 128 they ran within 3 % of each other at buckets 1 and
+// 8, the faster one changing between two sweeps; chip_smoke.py phase
+// autotune, H100 80GB HBM3, 700 W).  TH
+// = 32 is not compiled: its three-stage ring alone takes 228,480 of a
+// block's 232,448 bytes of shared memory (32 channels of filter left), and
+// 1024 threads leave 64 registers a thread.
 //  - Weights: the block's whole filter, 9 x Cin x 3 fp32 (13.8 KB at Cin =
 //    128), is staged in shared memory once, converted from its storage
 //    type (bf16 and int8 are exact in fp32), as float4s over four channels
@@ -68,20 +77,37 @@
 
 namespace {
 
-constexpr int TH = 16, TW = 32;          // output tile
-constexpr int HH = TH + 2, HWD = TW + 2;  // halo
+constexpr int TW = 32, HWD = TW + 2;     // output tile width, halo width
 constexpr int HROW = HWD + 1;             // a halo row in shared memory (odd)
 constexpr int BK = 16, UNITS = BK / 4;    // channels per chunk, float4 units per pixel
 constexpr int TPM = 4, NC = 3;            // pixels and output channels per thread
 constexpr int KQ = UNITS;                 // quarters of a chunk: one unit each
-constexpr int PT = TH * TW / TPM;         // threads of one quarter
-constexpr int THREADS = KQ * PT;          // 512
 constexpr int STAGES = 3;                 // computed, activated, in flight
 constexpr int TAPS = 9;
-constexpr int STAGE = HH * HROW * UNITS;  // float4 per stage
-constexpr int HUNITS = HH * HWD * UNITS;  // units a chunk copies
-constexpr int PER_THREAD = (HUNITS + THREADS - 1) / THREADS;   // ... per thread
 constexpr int MAX_SMEM = 232448;          // a block's shared memory on the H100
+constexpr int W_BYTES = TAPS * NC * 4;    // a channel's staged weights
+
+// the geometry of a TH x TW output tile
+template <int TH_>
+struct Geo {
+  static constexpr int TH = TH_;
+  static constexpr int HH = TH + 2;                      // halo rows
+  static constexpr int PT = TH * TW / TPM;               // threads of one quarter
+  static constexpr int THREADS = KQ * PT;                // 512 at TH = 16
+  static constexpr int STAGE = HH * HROW * UNITS;        // float4 per stage
+  static constexpr int HUNITS = HH * HWD * UNITS;        // units a chunk copies
+  static constexpr int PER_THREAD = (HUNITS + THREADS - 1) / THREADS;   // ... per thread
+  static constexpr int RING_BYTES = STAGES * STAGE * 16;
+  static_assert(TH % 4 == 0 && PT % 32 == 0, "four rows a warp");
+};
+// The weight segment: channels of one weight staging, a function of Cin
+// alone (sized beside the taller tile's ring, so every height stages the
+// same segments).
+inline int weight_segment(int Cin) {
+  const int cpad = (Cin + BK - 1) / BK * BK;
+  const int wcap = (MAX_SMEM - Geo<16>::RING_BYTES) / W_BYTES / BK * BK;
+  return cpad < wcap ? cpad : wcap;
+}
 
 struct Args {
   const float* x;       // [N, H, W, Cin]
@@ -113,8 +139,12 @@ __device__ __forceinline__ uint8_t to_u8(float v) {
   return (uint8_t)rintf((fminf(fmaxf(v, -1.f), 1.f) + 1.f) * 127.5f);
 }
 
-template <bool V4, class WT>
-__global__ void __launch_bounds__(THREADS, 1) epilogue_kernel(Args a) {
+template <int TH_, bool V4, class WT>
+__global__ void __launch_bounds__(Geo<TH_>::THREADS, 512 / Geo<TH_>::THREADS)
+epilogue_kernel(Args a) {
+  using G = Geo<TH_>;
+  constexpr int TH = G::TH, PT = G::PT, THREADS = G::THREADS, STAGE = G::STAGE;
+  constexpr int HUNITS = G::HUNITS, PER_THREAD = G::PER_THREAD;
   extern __shared__ __align__(16) float4 smem[];
   float4* const Ws = smem + STAGES * STAGE;   // [wseg / 4][TAPS][NC] channel quads
   auto ring = [&](int ch) { return smem + (ch % STAGES) * STAGE; };
@@ -316,29 +346,32 @@ __global__ void __launch_bounds__(THREADS, 1) epilogue_kernel(Args a) {
   }
 }
 
-template <bool V4, class WT>
+template <int TH_, bool V4, class WT>
 int launch(Args a, cudaStream_t stream) {
+  using G = Geo<TH_>;
   if (rt::Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
-  constexpr int RING_BYTES = STAGES * STAGE * 16;
-  const int cpad = (a.Cin + BK - 1) / BK * BK;
-  constexpr int W_BYTES = TAPS * NC * 4;   // a channel's weights
-  const int wcap = (MAX_SMEM - RING_BYTES) / W_BYTES / BK * BK;
-  a.wseg = cpad < wcap ? cpad : wcap;
-  const int smem = RING_BYTES + a.wseg * W_BYTES;
-  auto kernel = epilogue_kernel<V4, WT>;
+  a.wseg = weight_segment(a.Cin);
+  const int smem = G::RING_BYTES + a.wseg * W_BYTES;
+  auto kernel = epilogue_kernel<TH_, V4, WT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW);
+  const int tiles = ((a.H + G::TH - 1) / G::TH) * ((a.W + TW - 1) / TW);
   const dim3 grid(tiles, (a.Cout + NC - 1) / NC, a.N);
-  kernel<<<grid, THREADS, smem, stream>>>(a);
+  kernel<<<grid, G::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// tile_h: 0 or 16, or 8 (the vectorised path only); any other is refused
 template <class WT>
-int launch_typed(const Args& a, cudaStream_t stream) {
+int launch_typed(const Args& a, int tile_h, cudaStream_t stream) {
   const bool v4 = a.Cin % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  return v4 ? launch<true, WT>(a, stream) : launch<false, WT>(a, stream);
+  switch (tile_h) {
+    case 0:
+    case 16: return v4 ? launch<16, true, WT>(a, stream) : launch<16, false, WT>(a, stream);
+    case 8: return v4 ? launch<8, true, WT>(a, stream) : (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -346,21 +379,21 @@ int launch_typed(const Args& a, cudaStream_t stream) {
 // x [N, H, W, Cin] fp32, stats [N, G, 2] (mean, rstd) from gn_stats_launch,
 // gamma/beta [Cin], w [3, 3, Cin, Cout] in its storage type wtype (0 fp32,
 // 1 bf16, 2 int8 with wscale [Cout]), b [Cout] fp32, out [N, H, W, Cout]
-// uint8; all contiguous.
+// uint8; all contiguous; tile_h the tile's height (0: 16).
 extern "C" int output_epilogue_launch(const float* x, const float* stats,
                                       const float* gamma, const float* beta,
                                       const void* w, const float* wscale,
                                       const float* b, uint8_t* out, int N,
                                       int H, int W, int Cin, int Cout, int G,
-                                      int wtype, cudaStream_t stream) {
+                                      int wtype, int tile_h, cudaStream_t stream) {
   if (N <= 0 || N > 65535 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
       (Cout + NC - 1) / NC > 65535 || G <= 0 || Cin % G != 0)
     return (int)cudaErrorInvalidValue;
   const Args a{x, stats, gamma, beta, w, wscale, b, out, N, H, W, Cin, Cout, G, 0};
   switch (wtype) {
-    case rt::kF32: return launch_typed<float>(a, stream);
-    case rt::kBF16: return launch_typed<rt::bf16w>(a, stream);
-    case rt::kI8: return launch_typed<int8_t>(a, stream);
+    case rt::kF32: return launch_typed<float>(a, tile_h, stream);
+    case rt::kBF16: return launch_typed<rt::bf16w>(a, tile_h, stream);
+    case rt::kI8: return launch_typed<int8_t>(a, tile_h, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -25,13 +25,21 @@
 //         exists.
 //   Tile  the Cout tile and warp layout: 128 wide, eight warps (2 along M
 //         x 4 along N, each 64 pixels x 32 channels), two blocks per SM;
-//         128 wide with sixteen warps (2 x 8, each 64 x 16) where the grid
-//         fits the SMs once over; or 32 wide (Cout <= 32), eight warps (4 x
-//         2, each 32 x 16), its K optionally split over a thread block
-//         cluster (below).  A pixel's place in its m16 tile and every sum's
-//         order are the same in the two 128-wide layouts, so they give the
+//         128 wide with sixteen warps (2 x 8, each 64 x 16); 64 wide, eight
+//         warps (2 x 4, each 64 x 16), twice the blocks of a 128-wide grid;
+//         or 32 wide (Cout <= 32), eight warps (4 x 2, each 32 x 16), its K
+//         optionally split over a thread block cluster (below).  A pixel's
+//         place in its m16 tile, a channel's in its n8 tile and every sum's
+//         order are the same in the three wide layouts, so they give the
 //         same bits, and a batch's images are independent of how many share
-//         the launch.
+//         the launch.  Which wide layout runs is the launch's `layout`
+//         argument (Layout below): 0 is the rule by grid size, the others
+//         are what the autotuner (kernels/autotune.py) may pick per shape.
+//         In two sweeps of a 64 x 64 latent's decode at buckets 1 and 8
+//         (chip_smoke.py phase autotune, H100 80GB HBM3, 700 W) the rule's
+//         pick was the fastest at every shape of 0.5 ms or more, by 5-25 %;
+//         only the decoder's conv_in at bucket 1 (50 us, a host-timed call)
+//         went to the 64-wide tile in one sweep and not in the other.
 // One block barrier per step.
 //   Weights: each step's [16 x BN] slice comes by cp.async into a ring of
 //   three stages, issued two steps ahead, and is split into hi and lo as
@@ -120,7 +128,13 @@ struct Tile {
 };
 using Wide = Tile<128, 256, 2>;
 using WideOnce = Tile<128, 512, 2>;
+using Half = Tile<64, 256, 2>;
 using Narrow = Tile<32, 256, 4>;
+
+// The launch's layout codes.  kRule picks kWide8 or kWide16 by grid size;
+// kHalf8 is compiled for the vectorised path only (every decode shape is
+// vectorised); a code a route does not have is cudaErrorInvalidValue.
+enum Layout { kRule = 0, kWide8 = 1, kWide16 = 2, kHalf8 = 3 };
 
 // one weight stage of WT: BK rows of BN weights at a row stride of RS
 // weights, a multiple of 16 bytes, 8 mod 32 words for fp32 and 4, 12 or
@@ -435,22 +449,33 @@ bool vec4(const rt::ConvArgs& a) {
   return a.Cin % 4 == 0 && a.Cout % Stage<WT, BN>::VEC == 0 && p % 16 == 0;
 }
 
-// The 128-wide tile: 16 warps per block where the grid fits the SMs once
-// over (one 64 x 64 latent's 3x3 convs: 128 blocks), else 8 warps and two
-// blocks per SM.  a.N <= 65535, a.Cout > 0.
+// The wide tile.  layout kRule: 16 warps per block where the 128-wide grid
+// fits the SMs once over (one 64 x 64 latent's 3x3 convs: 128 blocks), else
+// 8 warps and two blocks per SM; kWide8, kWide16 and kHalf8 as named.
+// a.N <= 65535, a.Cout > 0.
 template <int PRO, int TAPS, class WT>
-int launch_wide(const rt::ConvArgs& a, cudaStream_t stream) {
+int launch_wide(const rt::ConvArgs& a, int layout, cudaStream_t stream) {
   if (rt::Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
-  const int sms = tc::sm_count();
-  if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  const long blocks = (long)a.N * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW) *
-                      ((a.Cout + Wide::BN - 1) / Wide::BN) * (TAPS == 4 ? 4 : 1);
+  if (layout == kRule) {
+    const int sms = tc::sm_count();
+    if (sms <= 0) return (int)cudaErrorInvalidDevice;
+    const long blocks = (long)a.N * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW) *
+                        ((a.Cout + Wide::BN - 1) / Wide::BN) * (TAPS == 4 ? 4 : 1);
+    layout = blocks <= sms ? kWide16 : kWide8;
+  }
   const bool v4 = vec4<PRO, WT, Wide::BN>(a);
-  if (blocks <= sms)
-    return v4 ? launch_tile<PRO, TAPS, WideOnce, 1, WT, false>(a, 1, stream)
-              : launch_tile<PRO, TAPS, WideOnce, 0, WT, false>(a, 1, stream);
-  return v4 ? launch_tile<PRO, TAPS, Wide, 1, WT, false>(a, 1, stream)
-            : launch_tile<PRO, TAPS, Wide, 0, WT, false>(a, 1, stream);
+  switch (layout) {
+    case kWide8:
+      return v4 ? launch_tile<PRO, TAPS, Wide, 1, WT, false>(a, 1, stream)
+                : launch_tile<PRO, TAPS, Wide, 0, WT, false>(a, 1, stream);
+    case kWide16:
+      return v4 ? launch_tile<PRO, TAPS, WideOnce, 1, WT, false>(a, 1, stream)
+                : launch_tile<PRO, TAPS, WideOnce, 0, WT, false>(a, 1, stream);
+    case kHalf8:
+      if (!v4) return (int)cudaErrorInvalidValue;
+      return launch_tile<PRO, TAPS, Half, 1, WT, false>(a, 1, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The 32-wide tile (Cout <= 32), no prologue, 3x3 taps, its K split over a

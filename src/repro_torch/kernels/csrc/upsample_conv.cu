@@ -34,20 +34,20 @@
 
 // x [N, H, W, Cin], wc [2, 2, 2, 2, Cin, Cout] in its storage type wtype
 // (0 fp32, 1 bf16, 3 int16 with wscale [Cout]), b [Cout], out [N, 2H, 2W,
-// Cout], all contiguous
+// Cout], all contiguous; layout a tcc::Layout code
 extern "C" int upsample_conv3x3_launch(const float* x, const void* wc,
                                        const float* wscale, const float* b,
                                        float* out, int N, int H, int W,
-                                       int Cin, int Cout, int wtype,
+                                       int Cin, int Cout, int wtype, int layout,
                                        cudaStream_t stream) {
   rt::ConvArgs a{x, nullptr, nullptr, nullptr, wc, wscale, b, out,
                  N, H, W, Cin, Cout, 1};
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || N > 65535)
     return (int)cudaErrorInvalidValue;
   switch (wtype) {
-    case rt::kF32: return tcc::launch_wide<tcc::kRaw, 4, float>(a, stream);
-    case rt::kBF16: return tcc::launch_wide<tcc::kRaw, 4, rt::bf16w>(a, stream);
-    case rt::kI16: return tcc::launch_wide<tcc::kRaw, 4, int16_t>(a, stream);
+    case rt::kF32: return tcc::launch_wide<tcc::kRaw, 4, float>(a, layout, stream);
+    case rt::kBF16: return tcc::launch_wide<tcc::kRaw, 4, rt::bf16w>(a, layout, stream);
+    case rt::kI16: return tcc::launch_wide<tcc::kRaw, 4, int16_t>(a, layout, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,10 @@ then ``csrc/gn_silu_conv.cu`` normalises, activates and convolves the
 input halo in shared memory (the normalised activation never reaches
 device memory), an implicit GEMM in 3xTF32 on the tensor cores (two
 TF32 products per product for bf16 and int8 weights, which TF32 holds
-exactly).  On the CPU: the plain version, ``ref.gn_silu_conv3x3_ref``.
+exactly).  The tile's layout (``layout``; see
+:mod:`repro_torch.kernels.autotune`) is the active tuning cache's for the
+call's shape, or the shape's default.  On the CPU: the plain version,
+``ref.gn_silu_conv3x3_ref``, which takes no layout.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 
 #: kernel launches of :func:`gn_silu_conv3x3` in this process
 launches = 0
@@ -78,10 +81,12 @@ def check_gn_conv(what, x, scale, bias, w, b, groups, w_scale=None):
 def gn_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     w: torch.Tensor, b: Optional[torch.Tensor] = None,
                     groups: int = 32, eps: float = 1e-6,
-                    w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    w_scale: Optional[torch.Tensor] = None,
+                    layout: Optional[int] = None) -> torch.Tensor:
     """``conv3x3(silu(group_norm(x)))``.  x [N, H, W, Cin] NHWC, scale/bias
     [Cin], w [3, 3, Cin, Cout] (fp32, bf16, or int8 with w_scale [Cout]),
-    b [Cout] -> [N, H, W, Cout]."""
+    b [Cout] -> [N, H, W, Cout].  ``layout`` as for
+    :func:`repro_torch.kernels.conv3x3.conv3x3`."""
     global launches
     if x.device.type == "cpu":
         return ref.gn_silu_conv3x3_ref(x, scale, bias, w, b, groups, eps,
@@ -90,11 +95,14 @@ def gn_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                    groups, w_scale)
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
+    if layout is None:
+        layout = autotune.launch_knob("gn_silu_conv3x3", x.shape, cout, w)
     stats = gn_stats(x, groups, eps)
     out = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
     build.check(build.lib("gn_silu_conv").gn_silu_conv3x3_launch(
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         w.data_ptr(), sptr, b.data_ptr(), out.data_ptr(), n, h, wd, cin,
-        cout, groups, wcode, build.stream_of(x)), "gn_silu_conv3x3")
+        cout, groups, wcode, layout, build.stream_of(x)),
+        f"gn_silu_conv3x3 (layout {layout})")
     launches += 1
     return out

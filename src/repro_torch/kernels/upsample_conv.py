@@ -8,8 +8,12 @@ rounding as the JAX package's collapse does), then
 ``csrc/upsample_conv.cu`` computes the four phases from the
 pre-upsample tensor in 3xTF32 on the tensor cores; the 4x upsampled
 intermediate never exists.  :func:`upsample_conv3x3_taps` is the launch
-alone, from taps collapsed beforehand.  On the CPU: the plain versions,
-``ref.upsample_conv3x3_ref`` and ``ref.upsample_conv3x3_phase_ref``.
+alone, from taps collapsed beforehand.  The tile's layout (``layout``;
+see :mod:`repro_torch.kernels.autotune`) is the active tuning cache's for
+the call's shape, keyed by the filter's storage dtype (int8 taps, though
+launched in int16, key as ``"int8"``), or the shape's default.  On the
+CPU: the plain versions, ``ref.upsample_conv3x3_ref`` and
+``ref.upsample_conv3x3_phase_ref``, which take no layout.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import autotune, build, ref
 
 #: kernel launches of :func:`upsample_conv3x3` (and of
 #: :func:`upsample_conv3x3_taps`, which it calls) in this process
@@ -27,9 +31,11 @@ launches = 0
 
 def upsample_conv3x3(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None,
-                     w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     w_scale: Optional[torch.Tensor] = None,
+                     layout: Optional[int] = None) -> torch.Tensor:
     """x [N, H, W, Cin], w [3, 3, Cin, Cout] (fp32, bf16, or int8 with
-    w_scale [Cout]), b [Cout] -> [N, 2H, 2W, Cout]."""
+    w_scale [Cout]), b [Cout] -> [N, 2H, 2W, Cout].  ``layout`` as for
+    :func:`repro_torch.kernels.conv3x3.conv3x3`."""
     if x.device.type == "cpu":
         return ref.upsample_conv3x3_ref(x, w, b, w_scale)
     cin = x.shape[-1]
@@ -38,13 +44,13 @@ def upsample_conv3x3(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"upsample_conv3x3: w must be [3, 3, {cin}, Cout], "
                          f"got {tuple(w.shape)}")
     wc = ref.storage_phase_weights(w).contiguous()   # [2, 2, 2, 2, Cin, Cout]
-    return upsample_conv3x3_taps(x, wc, b, w_scale)
+    return upsample_conv3x3_taps(x, wc, b, w_scale, layout)
 
 
 def upsample_conv3x3_taps(x: torch.Tensor, wc: torch.Tensor,
                           b: Optional[torch.Tensor] = None,
-                          w_scale: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          w_scale: Optional[torch.Tensor] = None,
+                          layout: Optional[int] = None) -> torch.Tensor:
     """The upsampler from collapsed taps: x [N, H, W, Cin], wc [2, 2, 2, 2,
     Cin, Cout] (``ref.storage_phase_weights`` of the filter: fp32, bf16,
     or int16 with w_scale [Cout]), b [Cout] -> [N, 2H, 2W, Cout]."""
@@ -62,10 +68,13 @@ def upsample_conv3x3_taps(x: torch.Tensor, wc: torch.Tensor,
         raise ValueError(f"upsample_conv3x3: wc must be [2, 2, 2, 2, {cin}, "
                          f"Cout] and b [Cout], got {tuple(wc.shape)}, "
                          f"{tuple(b.shape)}")
+    if layout is None:
+        layout = autotune.launch_knob("upsample_conv3x3", x.shape, cout, wc)
     out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.float32,
                       device=x.device)
     build.check(build.lib("upsample_conv").upsample_conv3x3_launch(
         x.data_ptr(), wc.data_ptr(), sptr, b.data_ptr(), out.data_ptr(),
-        n, h, wd, cin, cout, wcode, build.stream_of(x)), "upsample_conv3x3")
+        n, h, wd, cin, cout, wcode, layout, build.stream_of(x)),
+        f"upsample_conv3x3 (layout {layout})")
     launches += 1
     return out

@@ -22,20 +22,23 @@ store (``StoreConfig.data_dir``) one flush of the write-behind appends
 and at most one compaction step, and with ``StoreConfig.autoscale`` one
 step of the elastic autoscaler, which moves a virtual decode-fleet width
 (provisioned-cost accounting, the utilization denominator) and the
-per-node cache capacity from the batcher's measured decode occupancy.
+per-node cache capacity from the batcher's measured decode occupancy,
+and with ``StoreConfig.autotune`` at most one missing kernel-shape key
+tuned on the card (tune-on-first-miss, :mod:`repro_torch.kernels.autotune`;
+its cache lives at ``data_dir/tuning_cache.json`` and steers every later
+launch, without changing a bit of any output).
 
 Serving is not window-only: ``admit``/``dispatch`` expose the open
 microbatch, so the event-loop serving runtime (``serve/runtime/``) feeds
 the batcher continuously; ``serve_stream`` replays a timestamped
 open-loop request stream through it, and ``serve_window`` stays the
 fixed-group path that its drain-mode conformance is defined against.
-The kernel autotuner waits for a later slice (see ROADMAP.md) and
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -54,11 +57,6 @@ from repro_torch.device import resolve_device
 from repro_torch.store.api import StoreConfig
 from repro_torch.store.tiers import DurableTier, RecipeTier
 from repro_torch.store.walk import TierWalk
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet: "
-                               f"{item}")
 
 
 @dataclasses.dataclass
@@ -82,7 +80,8 @@ class EngineConfig:
     #: Decoder weight storage precision for the uint8 path, applied
     #: behind the +-1-LSB open-time gate (see :class:`StoreConfig`).
     weight_dtype: str = "float32"
-    #: Kernel autotuning (see :class:`StoreConfig`; not ported yet).
+    #: Persistent kernel autotuning (tune-on-first-miss; see
+    #: :class:`StoreConfig`).
     autotune: bool = False
     adaptive: bool = True               # run the marginal-hit tuner
     tuner: TunerConfig = dataclasses.field(
@@ -172,6 +171,10 @@ class DecodeBatcher:
         self._zmemo: "OrderedDict[int, Tuple[bytes, np.ndarray]]" = \
             OrderedDict()
         self._warm: set = set()       # buckets whose decode shape has run
+        # (bucket, latent shape) pairs this batcher has decoded, in first-
+        # seen order: the kernel autotuner's tune-on-first-miss feed
+        self._shape_log: List[Tuple[int, Tuple[int, ...]]] = []
+        self._shapes_seen: set = set()
         self.stats = {"decodes": 0, "batches": 0, "coalesced": 0,
                       "padded_slots": 0, "decompressions": 0, "memo_hits": 0}
         self.last_per_image_ms: Dict[int, float] = {}
@@ -243,12 +246,34 @@ class DecodeBatcher:
 
     def prewarm(self, latent_hwc: Tuple[int, int, int]) -> None:
         """Run every bucket's decode shape once up front (building and
-        loading the kernels on the first), so no serving window pays it."""
+        loading the kernels on the first), so no serving window pays it.
+        Each bucket's shape is noted for the kernel autotuner."""
         for b in self.buckets:
+            self._note_shape(b, latent_hwc)
             if b not in self._warm:
                 self._wait(self._dispatch(
                     np.zeros((b,) + tuple(latent_hwc), np.float32)))
                 self._warm.add(b)
+
+    def _note_shape(self, bucket: int, latent_hwc) -> None:
+        key = (int(bucket), tuple(int(v) for v in latent_hwc))
+        if key not in self._shapes_seen:
+            self._shapes_seen.add(key)
+            self._shape_log.append(key)
+
+    def drain_shapes(self) -> List[Tuple[int, Tuple[int, ...]]]:
+        """(bucket, latent shape) pairs first seen since the last drain:
+        the engine forwards them to the kernel autotuner."""
+        out, self._shape_log = self._shape_log, []
+        return out
+
+    def rewarm(self) -> None:
+        """Called by the engine after a tuning step; does nothing, by
+        design.  A tuned launch only changes a launch argument: every
+        layout was compiled when the kernels were built and has been
+        loaded and run by the sweep that chose it, so the next decode pays
+        no build and nothing needs a throwaway decode per bucket (the JAX
+        package drops its compiled decodes here, to retrace them)."""
 
     def _latent_of(self, oid: int, blob: bytes) -> np.ndarray:
         """Memoised host decompression."""
@@ -273,6 +298,7 @@ class DecodeBatcher:
         zs = [self._latent_of(oid, blob) for oid, (blob, _) in chunk]
         zs.extend([zs[-1]] * (bucket - n_real))   # pad with the last real z
         zb = np.stack(zs)
+        self._note_shape(bucket, zb.shape[1:])
         if bucket not in self._warm:
             # first run of this shape outside the timed region
             self._wait(self._dispatch(np.zeros_like(zb)))
@@ -363,9 +389,6 @@ class ServingEngine:
         else:
             self.cfg = (cfg or EngineConfig()).store_config(
                 image_bytes, latent_bytes)
-        if self.cfg.autotune:
-            raise not_ported("autotune=True",
-                             "ROADMAP A 8, kernel autotuner")
         self.vae = vae
         self.store = store
         self.recipes = recipes
@@ -421,6 +444,19 @@ class ServingEngine:
                            self._cache_bytes_per_node), acfg)
             self._as_mark = {"reqs": 0, "now_s": opened_s,
                              "busy": 0.0, "image_hits": 0}
+        # -- persistent kernel autotuner (tune-on-first-miss) ---------------
+        self.autotuner = None
+        self.tuning_cache = None
+        if self.cfg.autotune:
+            from repro_torch.kernels import autotune as _at
+            path = (os.path.join(self.cfg.data_dir, _at.CACHE_FILENAME)
+                    if self.cfg.data_dir else None)
+            self.tuning_cache = _at.TuningCache.load(path)
+            _at.set_active_cache(self.tuning_cache)
+            self.autotuner = _at.KernelAutotuner(
+                self.tuning_cache, vae.cfg,
+                weight_dtype=self.cfg.weight_dtype,
+                device=self.batcher.device)
 
     def prewarm_decode(self, latent_hwc: Tuple[int, int, int]) -> None:
         """Run every decode bucket once for the given latent shape, so no
@@ -638,11 +674,18 @@ class ServingEngine:
 
     def _maintenance(self) -> None:
         """End-of-batch bounded work: durable flush and at most one
-        compaction step (no-ops in memory), then one autoscaler step."""
+        compaction step (no-ops in memory), then one autoscaler step, and
+        with autotuning on at most one missing kernel-shape key tuned
+        (tune-on-first-miss) and persisted."""
         self.store.flush()
         self.store.maybe_compact()
         if self.autoscaler is not None:
             self._autoscale_step()
+        if self.autotuner is not None:
+            for bucket, hwc in self.batcher.drain_shapes():
+                self.autotuner.note_bucket(bucket, hwc)
+            if self.autotuner.step(1):
+                self.batcher.rewarm()
 
     def _account_provisioned(self) -> None:
         """Advance the provisioned GPU/cache time integrals to the clock."""
@@ -724,5 +767,8 @@ class ServingEngine:
         out["weight_dtype"] = self.cfg.weight_dtype
         if self.gate_lsb is not None:
             out["quantize_gate_lsb"] = dict(self.gate_lsb)
+        if self.tuning_cache is not None:
+            out["tuned_kernel_keys"] = len(self.tuning_cache)
+            out["tuning_pending"] = self.autotuner.pending
         out["device"] = str(self.batcher.device)
         return out

@@ -190,6 +190,14 @@ class EngineBackend:
     def close(self) -> None:
         if self.durable_log is not None:
             self.store.close()
+        tc = getattr(self.engine, "tuning_cache", None)
+        if tc is not None:
+            # persist any wins and release the process-global launch hook:
+            # a closed box must not keep steering the kernels' layouts
+            from repro_torch.kernels import autotune as _at
+            tc.save()
+            if _at.get_active_cache() is tc:
+                _at.set_active_cache(None)
 
     def summary(self) -> Dict:
         out = self.engine.summary()

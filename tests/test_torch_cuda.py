@@ -1148,3 +1148,163 @@ def test_gn_kernels_count_one_launch_per_call_and_issue_three(dev):
         assert sum(ops.launch_counts().values()) == 2
     for name in ("output_epilogue", "group_norm_silu"):
         assert device_nodes_of(calls[name]) == [0, 0, 0], name
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's launches (kernels/autotune.py): every tile layout of the
+# tensor-core conv and every epilogue height gives layout 0's bits, at
+# ragged shapes, for every weight dtype and both of the upsampler's forms;
+# a code the kernel lacks raises
+# ---------------------------------------------------------------------------
+
+# H and W multiples of neither the 4 x 32 conv tile nor the 16 x 32 and
+# 8 x 32 epilogue tiles; Cin 3 (one value at a time: no 64-wide layout, no
+# 8-row epilogue) and 20; Cout 64, 96 and 520 (int8 at 520 is not
+# vectorised either); the grids span both sides of the rule's 132 blocks
+TUNE_SHAPES = [(n, h, w, cin, cout) for n, h, w in ((1, 13, 37), (3, 21, 70))
+               for cin in (3, 20) for cout in (64, 96, 520)]
+LAYOUT_CODES = (1, 2, 3)
+
+
+def tuned_weight(wt, weight_dtype):
+    """(the weight in its storage dtype, its w_scale or None)."""
+    if weight_dtype == "float32":
+        return wt, None
+    return plain_args(stored(wt, weight_dtype))
+
+
+def layouts_hold(call, kernel, spec, weight_dtype, codes, knob="layout"):
+    """Each code that ``candidates`` lists gives code 0's bits; each other
+    code raises (the kernel lacks it for this shape)."""
+    from repro_torch.kernels import autotune as at
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    listed = {c[knob] for c in at.candidates(kernel, spec, sms,
+                                             weight_dtype)}
+    base = call(0)
+    for code in codes:
+        if code in listed:
+            assert torch.equal(call(code), base), (kernel, code)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                call(code)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        call(7)                                   # no such code
+    return listed
+
+
+@pytest.mark.parametrize("weight_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,h,w,cin,cout", TUNE_SHAPES)
+def test_tile_layouts_give_layout_0_bits(dev, weight_dtype, n, h, w, cin,
+                                         cout):
+    from repro_torch.kernels import conv3x3 as c3
+    from repro_torch.kernels import gn_silu_conv as gsc
+    from repro_torch.kernels import upsample_conv as uc
+    groups = 1 if cin == 3 else 4
+    x, sc, gb, wt, b = randn(dev, 41, (n, h, w, cin), (cin,), (cin,),
+                             (3, 3, cin, cout), (cout,))
+    wq, s = tuned_weight(wt * (9 * cin) ** -0.5, weight_dtype)
+    wc = ref.storage_phase_weights(wq).contiguous()
+    spec = {"n": n, "h": h, "w": w, "cin": cin, "cout": cout}
+    calls = {
+        "conv3x3": lambda c: c3.conv3x3(x, wq, b, w_scale=s, layout=c),
+        "gn_silu_conv3x3": lambda c: gsc.gn_silu_conv3x3(
+            x, sc, gb, wq, b, groups=groups, w_scale=s, layout=c),
+        "upsample_conv3x3": lambda c: uc.upsample_conv3x3(
+            x, wq, b, w_scale=s, layout=c)}
+    for kernel, call in calls.items():
+        listed = layouts_hold(call, kernel, dict(spec, kernel=kernel),
+                              weight_dtype, LAYOUT_CODES)
+        assert {1, 2} <= listed                  # both 128-wide layouts
+        assert (3 in listed) == (cin % 4 == 0 and not (
+            weight_dtype == "int8" and kernel != "upsample_conv3x3"
+            and cout % 16))
+    # the launch from collapsed taps takes the same codes
+    layouts_hold(lambda c: uc.upsample_conv3x3_taps(x, wc, b, w_scale=s,
+                                                    layout=c),
+                 "upsample_conv3x3", dict(spec, kernel="upsample_conv3x3"),
+                 weight_dtype, LAYOUT_CODES)
+
+
+@pytest.mark.parametrize("weight_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 13, 37, 3, 3),
+                                            (2, 21, 70, 20, 3),
+                                            (1, 37, 70, 128, 3),
+                                            (2, 9, 45, 20, 5)])
+def test_epilogue_heights_give_the_default_bits(dev, weight_dtype, n, h, w,
+                                                cin, cout):
+    from repro_torch.kernels import output_epilogue as oe
+    groups = 1 if cin == 3 else 4
+    x, sc, gb, wt, b = randn(dev, 42, (n, h, w, cin), (cin,), (cin,),
+                             (3, 3, cin, cout), (cout,))
+    wq, s = tuned_weight(wt * 0.1 / max(1.0, (cin / 32) ** 0.5),
+                         weight_dtype)
+    listed = layouts_hold(
+        lambda th: oe.output_epilogue(x, sc, gb, wq, b, groups=groups,
+                                      w_scale=s, tile_h=th),
+        "output_epilogue", {"kernel": "output_epilogue", "n": n, "h": h,
+                            "w": w, "cin": cin, "cout": cout},
+        weight_dtype, (16, 8, 32), knob="tile_h")
+    assert listed == ({16, 8} if cin % 4 == 0 else {16})
+
+
+def test_single_layout_routes_refuse_other_codes(dev):
+    """conv3x3's 32-wide tile (4 < Cout <= 32) and the CUDA-core tiles
+    (Cout <= 4) have one launch: any other code raises."""
+    from repro_torch.kernels import conv3x3 as c3
+    from repro_torch.kernels import gn_silu_conv as gsc
+    x, sc, gb, w32, w3, b32, b3 = randn(dev, 43, (1, 9, 40, 16), (16,),
+                                        (16,), (3, 3, 16, 32), (3, 3, 16, 3),
+                                        (32,), (3,))
+    for call in (lambda c: c3.conv3x3(x, w32, b32, layout=c),
+                 lambda c: c3.conv3x3(x, w3, b3, layout=c),
+                 lambda c: gsc.gn_silu_conv3x3(x, sc, gb, w3, b3, groups=4,
+                                               layout=c)):
+        call(0)
+        for code in LAYOUT_CODES:
+            with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                call(code)
+
+
+def test_wrappers_launch_the_active_cache_layout(dev, tmp_path):
+    """With a tuning cache active, a wrapper launches the entry's layout
+    (a code the shape lacks then raises, so the lookup is seen to reach
+    the launch) and gives the default's bits; a miss runs the default."""
+    from repro_torch.kernels import autotune as at
+    x, sc, gb, wt, b = randn(dev, 44, (1, 9, 40, 6), (6,), (6,),
+                             (3, 3, 6, 64), (64,))
+    base = ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2)
+    cache = at.TuningCache(None)
+    key = at.cache_key("gn_silu_conv3x3", 1, 9, 40, 6, 64, "float32")
+    with at.active_cache(cache):
+        cache.put(key, {"layout": at.WIDE8})
+        assert torch.equal(ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2),
+                           base)
+        cache.put(key, {"layout": at.HALF8})     # Cin 6: not compiled
+        with pytest.raises(RuntimeError, match="layout 3"):
+            ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2)
+        cache.put(key, {"rows": 8, "block_cout": 32})   # not this package's
+        assert torch.equal(ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2),
+                           base)
+
+
+def test_autotuner_sweeps_on_the_card(dev, tmp_path):
+    """A sweep of the demo decoder's keys on the card: every entry is the
+    kernels' (impl "cuda"), its winner no slower than its default, and a
+    decode under the tuned cache gives the untuned bits."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.vae.model import DEMO_VAE, demo_vae
+    cache = at.TuningCache(str(tmp_path / at.CACHE_FILENAME))
+    tuner = at.KernelAutotuner(cache, DEMO_VAE, device="cuda", reps=2)
+    assert tuner.note_bucket(2, (8, 8, 4)) == 6
+    while tuner.pending:
+        tuner.step(2)
+    assert at.TuningCache.load(cache.path).device == \
+        torch.cuda.get_device_name(0)
+    for e in cache.entries.values():
+        assert e["impl"] == "cuda" and e["us"] <= e["default_us"]
+    vae = demo_vae(seed=0, device="cuda")
+    z = torch.from_numpy(np.random.default_rng(45).standard_normal(
+        (2, 8, 8, 4)).astype(np.float32)).cuda()
+    untuned = vae.decode_u8(z)
+    with at.active_cache(cache):
+        assert torch.equal(vae.decode_u8(z), untuned)

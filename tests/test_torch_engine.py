@@ -153,15 +153,31 @@ class TestDevice:
 
 
 class TestNotPorted:
-    # ``data_dir`` raised until the segment log was ported; a persistent
-    # box's autotuner (whose cache the reference keeps under it) still does
     @pytest.mark.parametrize("kw", [dict(autotune=True),
                                     dict(data_dir="tmp", autotune=True)])
     def test_config_raises(self, vaes, kw, tmp_path):
+        """``autotune=True`` raised naming ROADMAP A 8 until the kernel
+        autotuner was ported: the engine now builds it on its own device,
+        its cache (under ``data_dir`` where there is one, else in memory)
+        active until the box closes, and saved at the close."""
+        import os
+        from repro_torch.kernels import autotune as at
         _, tv = vaes
         kw = {k: str(tmp_path) if v == "tmp" else v for k, v in kw.items()}
-        with pytest.raises(NotImplementedError, match="ROADMAP A 8"):
-            LatentBox.engine(vae=tv, config=torch_cfg(**kw), device="cpu")
+        box = LatentBox.engine(vae=tv, config=torch_cfg(**kw), device="cpu")
+        eng = box.backend.engine
+        assert isinstance(eng.autotuner, at.KernelAutotuner)
+        assert eng.autotuner.device == torch.device("cpu")
+        assert at.get_active_cache() is eng.tuning_cache
+        path = (os.path.join(str(tmp_path), at.CACHE_FILENAME)
+                if "data_dir" in kw else None)
+        assert eng.tuning_cache.path == path
+        s = box.summary()
+        assert s["tuned_kernel_keys"] == 0 and s["tuning_pending"] == 0
+        box.close()
+        assert at.get_active_cache() is None
+        assert path is None or (os.path.exists(path) and
+                                at.TuningCache.load(path).device == "cpu")
 
     def test_autoscale_builds_a_controller_that_scales(self, vaes):
         """``autoscale=True`` raised naming ROADMAP A 6 until A 6 ported
