@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
-path, its persistent sharded store, its serving runtime and its LM
-serving paths (dense, RWKV-6, Mamba-2 hybrid) on one NVIDIA GPU and hold
-every Hopper kernel against its plain PyTorch version.
+path, its persistent sharded store, its serving runtime, its launcher,
+quickstart and decode cost model, and its LM serving paths (dense,
+RWKV-6, Mamba-2 hybrid) on one NVIDIA GPU and hold every Hopper kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -117,15 +118,31 @@ wall seconds (any failure exits non-zero):
                 image served byte-equal to the first serving's, each
                 kernel's launches (all > 0), the phase's wall seconds
                 (budget 90);
-10. crossdevice the same VAE at a 16x16 latent and a 128x128 image on the
+10. launch      the launch layer: ``repro_torch.launch.serve.main`` at its
+                defaults on the card (its ``[serve]`` lines, each
+                kernel's launches, all > 0 for the six of the decode and
+                the recipe put's encode); ``examples/quickstart_torch.py``
+                in a child process on the card (exit 0: its cached and
+                regenerated reads bit-identical to the first); the
+                analytic decode model (``repro_torch.vae.serve``) beside
+                the card at SD3.5-VAE width: 512x512 at buckets 1 and 8
+                and 1024x1024 at bucket 1, the model's FLOPs and bytes
+                (bf16 and fp32), the sum of ``work`` over
+                ``decode_calls``, ``decode_ms_estimate``, the device ms
+                per image (CUDA events around ``decode_u8``), the
+                achieved TFLOP/s and its share of ``PEAK_FLOPS_TF32 /
+                3``; the bucket-8 512x512 images' raw, ``png_like_size``,
+                ``jpeg_like`` (quality 95) and fp16 latent blob bytes;
+                the phase's wall seconds (budget 60);
+11. crossdevice the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
                 relative tolerance; and small fp32 qwen2-, RWKV-6- and
                 zamba2-family LMs' prefill and decode steps, logits and
                 caches within a relative tolerance;
-11. lm          the dense LM serving path: ``build_model`` of Qwen2-7B at
-12. ssm         full width and depth in bf16 (seeded random weights), then
-13. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
+12. lm          the dense LM serving path: ``build_model`` of Qwen2-7B at
+13. ssm         full width and depth in bf16 (seeded random weights), then
+14. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
                 built: a prefill of 4 x 2048 seeded tokens, 64 greedy
                 ``decode_step``s: parameters, peak memory, prefill and
                 decode-step ms and tokens/s, each kernel's launches
@@ -138,7 +155,8 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, stream, quant, autotune, lm, ssm and hybrid phases), the
+write, store, stream, quant, autotune, launch, lm, ssm and hybrid
+phases; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
 ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
@@ -292,20 +310,6 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def card_peaks(name: str):
-    """(fp32 FLOP/s outside the tensor cores, HBM bytes/s, description,
-    dense bf16 tensor-core FLOP/s, dense TF32 tensor-core FLOP/s) of the
-    part, from NVIDIA's data sheets, read off the device name."""
-    if "PCIe" in name:
-        return (51e12, 2.0e12, "H100 PCIe: 51 TFLOP/s fp32, 756 TFLOP/s "
-                "bf16 and 378 TF32 dense tensor, 2.0 TB/s", 756e12, 378e12)
-    if "NVL" in name:
-        return (60e12, 3.9e12, "H100 NVL: 60 TFLOP/s fp32, 835 TFLOP/s bf16 "
-                "and 417 TF32 dense tensor, 3.9 TB/s", 835e12, 417e12)
-    return (67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 989 TFLOP/s bf16 "
-            "and 495 TF32 dense tensor, 3.35 TB/s", 989e12, 495e12)
-
-
 def ops_ms(state, kernel, flops, dtype="float32", cout=None,
            cuda_cores=False):
     """The least time (ms) of ``flops`` on what ``kernel`` runs them on:
@@ -435,6 +439,7 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def phase_device(torch, log, state):
     from repro_torch.kernels import build
+    from repro_torch.launch.mesh import card_peaks
     t0 = time.perf_counter()
     secs = build.build_all()
     wall = time.perf_counter() - t0
@@ -1137,8 +1142,16 @@ def sd35_vae(torch, device):
     return vae, gain
 
 
+def shared_vae(torch, state):
+    """(the calibrated SD3.5 VAE on the card, its gain), built by the
+    first phase that asks and kept in ``state`` for the others."""
+    if "vae" not in state:
+        state["vae"] = sd35_vae(torch, "cuda")
+    return state["vae"]
+
+
 def phase_invariance(torch, log, state):
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     rng = state["np"].random.default_rng(5)
     z = rng.standard_normal((8, LATENT_HW, LATENT_HW, 16)).astype("float32")
     batch = vae.decode_u8(z).cpu()
@@ -1156,7 +1169,7 @@ def phase_slice(torch, log, state):
     from repro_torch.core.tuner import TunerConfig
     from repro_torch.kernels import ops
     from repro_torch.store import LatentBox, StoreConfig
-    vae, gain = state.setdefault("vae", sd35_vae(torch, "cuda"))
+    vae, gain = shared_vae(torch, state)
     side = 8 * LATENT_HW
     image_bytes = float(side * side * 3)
     rng = np.random.default_rng(11)
@@ -1243,7 +1256,7 @@ def phase_write(torch, log, state):
     from repro_torch.kernels import ops
     from repro_torch.store import LatentBox, StoreConfig
     from repro_torch.vae.model import param_count
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     side = 8 * LATENT_HW
     rng = np.random.default_rng(17)
     n = WRITE_RECIPES + WRITE_IMAGES
@@ -1455,7 +1468,7 @@ def phase_store(torch, log, state):
     from repro_torch.kernels import ops
     from repro_torch.store import LatentBox, StoreConfig
     from repro_torch.store.replication import HedgeConfig
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     side = 8 * LATENT_HW
     image_bytes = side * side * 3
     rng = np.random.default_rng(23)
@@ -1750,7 +1763,7 @@ def phase_stream(torch, log, state):
     from repro_torch.store.api import FULL_MISS, LATENT_HIT, REGEN_MISS
     from repro_torch.trace.synth import make_trace
     t_phase = time.perf_counter()
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     side = 8 * LATENT_HW
     hwc = (LATENT_HW, LATENT_HW, 16)
     n = STREAM_LATENTS + STREAM_RECIPES
@@ -2003,7 +2016,7 @@ def phase_quant(torch, log, state):
     from repro_torch.kernels import ops
     from repro_torch.store import LatentBox, StoreConfig
     from repro_torch.vae import quantize as Q
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     side = 8 * LATENT_HW
     rng = np.random.default_rng(29)
     latents = [rng.standard_normal((LATENT_HW, LATENT_HW, 16))
@@ -2165,7 +2178,7 @@ def phase_autotune(torch, log, state):
     from repro_torch.kernels import ops
     from repro_torch.store import LatentBox, StoreConfig
     t_phase = time.perf_counter()
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     side = 8 * LATENT_HW
     hwc = (LATENT_HW, LATENT_HW, 16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2347,9 +2360,217 @@ def phase_autotune(torch, log, state):
          launches=launches, wall_s=wall, wall_budget_s=AUTOTUNE_BUDGET_S)
 
 
+LAUNCH_DECODES = ((LATENT_HW, 1), (LATENT_HW, 8), (2 * LATENT_HW, 1))
+LAUNCH_REPS = 5                    # timed decodes of each cost-model row
+LAUNCH_SEED = 41
+LAUNCH_BUDGET_S = 60
+#: the kernels of the launcher's path: the decode's and the recipe put's
+#: encode (``group_norm_silu``)
+LAUNCH_KERNELS = ("conv3x3", "gn_silu_conv3x3", "flash_attention",
+                  "upsample_conv3x3", "output_epilogue", "group_norm_silu")
+
+
+def plain_decode_u8(torch, params, z, cfg):
+    """uint8 decode of ``z`` (fp32, on the card) through the kernels'
+    plain versions (``kernels/ref.py``) and plain tensor code: the graph
+    of ``vae/model.py``'s ``decode_u8`` spelled out without ``ops``, so
+    no kernel runs."""
+    from repro_torch.kernels import ref
+    g = cfg.groups
+
+    def dense(y, w, b):
+        return torch.matmul(y, w) + b
+
+    def resnet(x, p):
+        h = ref.gn_silu_conv3x3_ref(x, p["norm1"]["scale"], p["norm1"]["bias"],
+                                    p["conv1"]["w"], p["conv1"]["b"], g)
+        h = ref.gn_silu_conv3x3_ref(h, p["norm2"]["scale"], p["norm2"]["bias"],
+                                    p["conv2"]["w"], p["conv2"]["b"], g)
+        if "shortcut" in p:
+            x = dense(x, p["shortcut"]["w"][0, 0], p["shortcut"]["b"])
+        return x + h
+
+    def attention(x, p):
+        n, h, w, c = x.shape
+        mean, rstd = ref.gn_stats_ref(x, g)
+        y = ((x.reshape(n, h * w, g, c // g) - mean[:, None, :, None])
+             * rstd[:, None, :, None]).reshape(n, h * w, c)
+        y = y * p["norm"]["scale"] + p["norm"]["bias"]
+        q, k, v = (dense(y, p[t]["w"], p[t]["b"])[:, None] for t in "qkv")
+        o = ref.flash_attention_ref(q, k, v)[:, 0]
+        return x + dense(o, p["proj"]["w"], p["proj"]["b"]).reshape(n, h, w, c)
+
+    x = ref.conv3x3_ref(z / cfg.scaling_factor + cfg.shift_factor,
+                        params["conv_in"]["w"], params["conv_in"]["b"])
+    x = resnet(x, params["mid"]["res1"])
+    x = attention(x, params["mid"]["attn"])
+    x = resnet(x, params["mid"]["res2"])
+    for level in params["up"]:
+        for blk in level["blocks"]:
+            x = resnet(x, blk)
+        if "upsample" in level:
+            conv = level["upsample"]["conv"]
+            x = ref.upsample_conv3x3_ref(x, conv["w"], conv["b"])
+    return ref.output_epilogue_ref(
+        x, params["norm_out"]["scale"], params["norm_out"]["bias"],
+        params["conv_out"]["w"], params["conv_out"]["b"], g)
+
+
+def max_lsb(np, a, b) -> int:
+    """Largest difference of two uint8 arrays, in LSB."""
+    return int(np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16)).max())
+
+
+def phase_launch(torch, log, state):
+    """The launch layer and the cost model.  (a) The serving launcher,
+    ``repro_torch.launch.serve`` at its defaults on the card: its
+    ``[serve]`` lines and each kernel's launches (all > 0), and every
+    served payload within +-1 LSB of the same launcher's on the CPU
+    (the plain path) at the same arguments.  (b)
+    ``examples/quickstart_torch.py`` in a child process on the card: it
+    exits 0, so its two bit-identity assertions held.  (c) The analytic
+    decode model at SD3.5-VAE width against the card: uint8 decodes of
+    512x512 at buckets 1 and 8 and of 1024x1024 at bucket 1 (CUDA events
+    around ``decode_u8``), each held first within +-1 LSB of
+    :func:`plain_decode_u8` on the same latents, beside ``decoder_flops_per_image``,
+    ``decoder_bytes_per_image`` (bf16 and fp32), the sum of ``work`` over
+    ``decode_calls``, ``decode_ms_estimate``, the achieved TFLOP/s and
+    its share of the 3xTF32 peak.  (d) Storage sizes of the bucket-8
+    512x512 images: raw uint8, ``png_like_size``, ``jpeg_like`` at
+    quality 95 and the fp16 latent's compressed blob (printed only)."""
+    np = state["np"]
+    import contextlib
+    import io
+    import os
+    from repro_torch.compression.latentcodec import compress_latent
+    from repro_torch.compression.lossy import jpeg_like
+    from repro_torch.compression.png_proxy import png_like_size
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import PEAK_FLOPS_TF32
+    from repro_torch.vae import serve as vserve
+    t_phase = time.perf_counter()
+
+    # -- (a) the serving launcher at its defaults ---------------------------
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, served = serve.run(serve.parse_args([]))
+    launcher_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    state["launches"]["launch"] = launches
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    need(len(lines) == 5 and all(ln.startswith("[serve] ") for ln in lines),
+         f"the launcher printed {lines}")
+    need(f"on {torch.cuda.get_device_name(0)}," in lines[2],
+         f"the launcher's timing line names no card: {lines[2]}")
+    need(all(launches[k] > 0 for k in LAUNCH_KERNELS),
+         f"a kernel of the launcher's path was never launched: {launches}")
+    # the same launcher on the CPU: the same trace, and each payload
+    # within +-1 LSB (recipe puts encode on each device, and fp32 sums
+    # differ in order; the tuner may serve other classes after a window)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, plain = serve.run(serve.parse_args(["--device", "cpu"]))
+    cpu_launcher_s = time.perf_counter() - t0
+    need([r.oid for r in served] == [r.oid for r in plain],
+         "the card's and the CPU's launchers served other traces")
+    need(all(r.payload is not None and r.payload.shape == (32, 32, 3)
+             and r.payload.dtype == np.uint8 for r in served),
+         "the launcher served a bad payload")
+    launcher_lsb = max(max_lsb(np, a.payload, b.payload)
+                       for a, b in zip(served, plain))
+    need(launcher_lsb <= 1,
+         f"the launcher's pixels differ from the CPU's by {launcher_lsb} LSB")
+    launcher_equal = sum(bool(np.array_equal(a.payload, b.payload))
+                         for a, b in zip(served, plain))
+
+    # -- (b) the quickstart in a child process on the card ------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    quickstart_s = time.perf_counter() - t0
+    need(proc.returncode == 0,
+         f"the quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
+    need(proc.stdout.strip().endswith("latent-first roundtrip OK on cuda"),
+         f"the quickstart printed {proc.stdout[-500:]}")
+
+    # -- (c) the decode cost model against the card -------------------------
+    vae = shared_vae(torch, state)[0]
+    cfg = vae.cfg
+    need(vae.weight_dtype == "float32", f"the VAE serves {vae.weight_dtype}")
+    torch.backends.cuda.matmul.allow_tf32 = False       # the plain decode
+    peak = PEAK_FLOPS_TF32 / 3
+    rng = np.random.default_rng(LAUNCH_SEED)
+    rows, images, latents = [], None, None
+    for side, bucket in LAUNCH_DECODES:
+        res = cfg.spatial_factor * side
+        z = rng.standard_normal((bucket, side, side, cfg.latent_channels)
+                                ).astype(np.float32)
+        zc = torch.from_numpy(z).cuda()
+        got = vae.decode_u8(zc).cpu().numpy()
+        lsb = max_lsb(np, got,
+                      plain_decode_u8(torch, vae.decoder, zc, cfg).cpu())
+        need(got.shape == (bucket, res, res, 3), f"decode shape {got.shape}")
+        need(lsb <= 1, f"the {res}x{res} bucket-{bucket} decode differs "
+             f"from the plain one by {lsb} LSB")
+        ms = cuda_ms(torch, lambda: vae.decode_u8(zc), LAUNCH_REPS) / bucket
+        flops = vserve.decoder_flops_per_image(cfg, res)
+        calls = decode_calls(cfg, side)
+        work_flops = sum(work(k, a)[0] for k, a in calls)
+        est = vserve.decode_ms_estimate(res)
+        rows.append({
+            "resolution": res, "bucket": bucket, "plain_max_lsb": lsb,
+            "model_flops": flops, "work_flops": work_flops,
+            "model_bytes_bf16": vserve.decoder_bytes_per_image(cfg, res, 2),
+            "model_bytes_fp32": vserve.decoder_bytes_per_image(cfg, res, 4),
+            "work_bytes": sum(work(k, a)[1] for k, a in calls),
+            "estimate_ms": est["decode_ms"],
+            "device_ms_per_image": ms,
+            "measured_over_estimate": ms / est["decode_ms"],
+            "tflops": flops / (ms * 1e-3) / 1e12,
+            "share_of_3xtf32_peak": flops / (ms * 1e-3) / peak,
+            "work_tflops": work_flops / (ms * 1e-3) / 1e12})
+        if (side, bucket) == (LATENT_HW, 8):
+            images, latents = got, z
+        del zc, got
+    torch.cuda.empty_cache()
+    side = cfg.spatial_factor * LATENT_HW
+    need(images is not None and images.shape == (8, side, side, 3)
+         and images.dtype == np.uint8, "no bucket-8 images")
+
+    # -- (d) storage sizes of the decoded 512x512 images --------------------
+    sizes = [{"raw": int(img.nbytes), "png_like": png_like_size(img),
+              "jpeg_q95": jpeg_like(img, 95)[0],
+              "latent_blob": len(compress_latent(z.astype(np.float16)))}
+             for img, z in zip(images, latents)]
+    storage = {k: statistics.mean(s[k] for s in sizes) for k in sizes[0]}
+    wall = time.perf_counter() - t_phase
+    emit(log, "launch", launcher={"argv": [], "lines": lines,
+                                  "wall_s": launcher_s,
+                                  "cpu_wall_s": cpu_launcher_s,
+                                  "requests": len(served),
+                                  "cpu_max_lsb": launcher_lsb,
+                                  "cpu_equal_payloads": launcher_equal},
+         quickstart={"returncode": proc.returncode, "wall_s": quickstart_s,
+                     "stdout": proc.stdout.splitlines()},
+         cost_model={"peak_flops": peak,
+                     "peak": "PEAK_FLOPS_TF32 / 3 (fp32 on 3xTF32)",
+                     "plain_tol_lsb": 1,
+                     "reps": LAUNCH_REPS, "rows": rows},
+         storage={"images": len(sizes), "mean_bytes": storage,
+                  "per_image": sizes},
+         launches=launches, wall_s=wall, wall_budget_s=LAUNCH_BUDGET_S)
+
+
 def phase_crossdevice(torch, log, state):
     from repro_torch.vae.model import VAE, map_params
-    vae = state.setdefault("vae", sd35_vae(torch, "cuda"))[0]
+    vae = shared_vae(torch, state)[0]
     cpu = VAE(vae.cfg, device="cpu",
               params=map_params(vae.decoder, lambda t: t.cpu()),
               encoder_params=map_params(vae.encoder, lambda t: t.cpu()))
@@ -2686,6 +2907,7 @@ def main() -> int:
         run_phase(log, "stream", phase_stream, torch, log, state)
         run_phase(log, "quant", phase_quant, torch, log, state)
         run_phase(log, "autotune", phase_autotune, torch, log, state)
+        run_phase(log, "launch", phase_launch, torch, log, state)
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:
             run_phase(log, phase, phase_serve, torch, log, state, phase)

@@ -14,7 +14,9 @@ and one device kernel per call.  The persistent, sharded store on the
 card: a box it writes reopens bit-identical there and within +-1 LSB on
 the CPU, and a dead shard's replicas serve the healthy box's bits.  The
 serving runtime on the card: a drain stream is the window path bit for
-bit, and an autoscaled engine scales on measured decode time.
+bit, and an autoscaled engine scales on measured decode time.  The launch
+layer on the card: ``make_decode_step`` against the same step on the
+CPU, and the serving launcher at a tiny size.
 
 Marked ``cuda``: these skip where no NVIDIA GPU is present.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -1308,3 +1310,47 @@ def test_autotuner_sweeps_on_the_card(dev, tmp_path):
     untuned = vae.decode_u8(z)
     with at.active_cache(cache):
         assert torch.equal(vae.decode_u8(z), untuned)
+
+
+def test_make_decode_step_on_card_matches_cpu(dev):
+    """The launch layer's decode step on the card against the same step
+    on the CPU, at a ragged latent, within the float decode's 1e-4."""
+    from repro_torch.vae.model import DEMO_VAE, demo_vae, map_params
+    from repro_torch.vae.serve import make_decode_step
+    gpu = demo_vae(seed=3, device=dev)
+    z = np.random.default_rng(46).standard_normal((3, 7, 9, 4)).astype(
+        np.float32)
+    got = make_decode_step(DEMO_VAE)(gpu.decoder, z)
+    assert got.is_cuda and tuple(got.shape) == (3, 14, 18, 3)
+    want = make_decode_step(DEMO_VAE, device="cpu")(
+        map_params(gpu.decoder, lambda t: t.cpu()), z)
+    assert max_err(got.cpu(), want) <= 1e-4
+
+
+def test_serve_launcher_on_card(dev, capsys):
+    """``python -m repro_torch.launch.serve`` at a tiny size on the card:
+    the reference's lines, the device named, every kernel of the decode
+    and the recipe put's encode launched, and the same request classes
+    as the launcher on the CPU (fewer requests than the tuner's window,
+    so no class depends on a measured time), each payload within +-1 LSB
+    of the CPU's (recipe puts encode on each device; fp32 sums differ in
+    order)."""
+    from repro_torch.launch import serve
+    argv = ["--objects", "6", "--requests", "40", "--res", "16"]
+    ops.reset_launch_counts()
+    _, got = serve.run(serve.parse_args(argv))
+    launches = ops.launch_counts()
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 5 and all(ln.startswith("[serve] ") for ln in lines)
+    assert f"on {torch.cuda.get_device_name(0)}, window=8" in lines[2]
+    for k in ("conv3x3", "gn_silu_conv3x3", "flash_attention",
+              "upsample_conv3x3", "output_epilogue", "group_norm_silu"):
+        assert launches[k] > 0, k
+    _, want = serve.run(serve.parse_args(argv + ["--device", "cpu"]))
+    assert [(r.oid, r.hit_class, r.node) for r in got] == \
+        [(r.oid, r.hit_class, r.node) for r in want]
+    for g, w in zip(got, want):
+        assert g.payload.shape == w.payload.shape == (16, 16, 3)
+        assert g.payload.dtype == np.uint8
+        assert np.abs(g.payload.astype(np.int16)
+                      - w.payload.astype(np.int16)).max() <= 1, g.oid

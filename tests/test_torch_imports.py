@@ -18,6 +18,8 @@ REF = ROOT / "src" / "repro"
 
 #: modules the port copies from the JAX package with imports rewritten
 COPIED = ["compression/latentcodec.py", "compression/ladder.py",
+          "compression/lossy.py", "compression/metrics.py",
+          "compression/png_proxy.py", "launch/costs.py",
           "core/latent_store.py", "core/dual_cache.py", "core/tuner.py",
           "core/router.py", "core/regen_tier.py", "core/cost_model.py",
           "core/autoscale.py", "core/policies.py", "core/metrics.py",
@@ -71,7 +73,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "chip_compare.py"]))
+    + ["chip_smoke.py", "chip_compare.py", "examples/quickstart_torch.py",
+       "examples/serve_trace_replay_torch.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), path
