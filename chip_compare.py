@@ -23,7 +23,8 @@ same checks and timed by the same code:
   times and bounds (a ``kernel`` line per shape, ``kernel_quant`` lines
   for the quantized weight cases);
 - ``--phases``, in order: ``vae_times`` (below), a serving phase of
-  ``chip_smoke.SERVE`` (``lm``, ``ssm``, ``hybrid``), ``rwkv6`` or
+  ``chip_smoke.SERVE`` (``lm``, ``ssm``, ``hybrid``, ``moe``, ``vlm``,
+  ``encdec``), ``rwkv6`` or
   ``lm_attention`` (``chip_smoke.<name>_checks``), or any other
   ``chip_smoke.phase_<name>`` (``invariance``, ``slice``, ...).
 

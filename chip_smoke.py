@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
 path, its persistent sharded store, its serving runtime, its launcher,
 quickstart and decode cost model, and its LM serving paths (dense,
-RWKV-6, Mamba-2 hybrid) on one NVIDIA GPU and hold every Hopper kernel
-against its plain PyTorch version.
+RWKV-6, Mamba-2 hybrid, MoE, VLM, enc-dec) on one NVIDIA GPU and hold
+every Hopper kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -17,7 +17,13 @@ wall seconds (any failure exits non-zero):
                 float decode of the SD3.5-width VAE give it, at the
                 Qwen2-7B prefill's and decode step's attention shapes (bf16
                 and fp32, with a sliding-window case), at zamba2-2.7b's
-                shared-block attention shapes (head_dim 80), and
+                shared-block attention shapes (head_dim 80), at
+                mixtral-8x7b's and qwen2-vl-72b's (bf16), at
+                whisper-large-v3's (head_dim 64: the encoder's non-causal
+                1500 x 1500, the decoder's causal 384 x 384 and its
+                cross-attention of 384 queries over 1500 keys; the decode
+                step's self-attention over 448 slots and cross-attention
+                at length 1500; bf16, the cross shapes also fp32), and
                 ``rwkv6_scan`` at the rwkv6-7b prefill's shape (with and
                 without an initial state, and with decays from w = -10 to
                 w = 4) and decode step's (t = 1, the state updated in
@@ -137,25 +143,35 @@ wall seconds (any failure exits non-zero):
 11. crossdevice the same VAE at a 16x16 latent and a 128x128 image on the
                 GPU and on the CPU (the plain path): uint8 within +-1 LSB,
                 float trunk, float decode and encoder mean within a
-                relative tolerance; and small fp32 qwen2-, RWKV-6- and
-                zamba2-family LMs' prefill and decode steps, logits and
-                caches within a relative tolerance;
-12. lm          the dense LM serving path: ``build_model`` of Qwen2-7B at
-13. ssm         full width and depth in bf16 (seeded random weights), then
-14. hybrid      rwkv6-7b, then zamba2-2.7b, each freed before the next is
-                built: a prefill of 4 x 2048 seeded tokens, 64 greedy
-                ``decode_step``s: parameters, peak memory, prefill and
-                decode-step ms and tokens/s, each kernel's launches
-                (checked exactly per prefill and per step),
-                decode-after-prefill logits against a prefill one token
-                longer (bf16, and fp32 on the same weights cast exactly),
-                and a ``torch.profiler`` window of a prefill and four
-                steps (device-busy share, top kernels).
+                relative tolerance; and small fp32 qwen2-, RWKV-6-, zamba2-,
+                mixtral- (at the published capacity factor 1.25, so its
+                decode steps drop entries), qwen2-vl- (7 seeded embeds
+                first) and whisper-family (150 seeded frames) LMs' prefill
+                and decode steps, logits and every cache leaf within a
+                relative tolerance, the positions equal;
+12. lm          the LM serving paths: ``build_model`` of Qwen2-7B,
+13. ssm         rwkv6-7b, zamba2-2.7b, mixtral-8x7b (4 of its 32 layers),
+14. hybrid      qwen2-vl-72b (4 of its 80 layers) and whisper-large-v3,
+15. moe         at full width in bf16 (seeded random weights; the depth
+16. vlm         cuts in ``DEPTH_CUT``, printed under ``reduced``), each
+17. encdec      freed before the next is built: a prefill of 4 seeded
+                sequences (2048 tokens; the VLM 256 seeded vision embeds
+                and 1792 tokens; the enc-dec 1500 seeded frames and 384
+                tokens), 64 greedy ``decode_step``s: parameters, peak
+                memory, prefill and decode-step ms and tokens/s, each
+                kernel's launches (checked exactly per prefill and per
+                step), decode-after-prefill logits against a prefill one
+                token longer (bf16, and fp32 on the same weights cast
+                exactly; the MoE's at capacity factor E / k, where nothing
+                drops, its bf16 figure ungated, and its expert capacity at
+                the timed prefill and step), and a ``torch.profiler``
+                window of a prefill and four steps (device-busy share, top
+                kernels).
 
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, stream, quant, autotune, launch, lm, ssm and hybrid
+write, store, stream, quant, autotune, launch and the six serving
 phases; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
 ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
@@ -194,15 +210,34 @@ GATE_LATENT = (8, 8, 16)  # the engine's gate probes 8x8 latents
 LM_ARCH = "qwen2-7b"
 SSM_ARCH = "rwkv6-7b"
 HYBRID_ARCH = "zamba2-2.7b"
+MOE_ARCH = "mixtral-8x7b"
+VLM_ARCH = "qwen2-vl-72b"
+ENCDEC_ARCH = "whisper-large-v3"
 LM_BATCH = 4
 LM_PROMPT = 2048          # prompt tokens per sequence
 LM_MAX_LEN = 2112         # KV-cache slots: prompt + 64 steps
 LM_STEPS = 64             # greedy decode steps
 LM_WINDOW = 512           # the sliding-window kernel case
 DECODE_LENGTHS = (2049, 2080, 1500, 7)    # ragged cache lengths, one step
+VLM_PREFIX = 256          # seeded vision embeds before each VLM prompt
+ENCDEC_PROMPT = 384       # decoder prompt tokens of the enc-dec phase
+ENCDEC_MAX_LEN = 448      # its self-attention slots: Whisper's published
+                          # max_target_positions, prompt + 64 steps
+ENCDEC_LENGTHS = (385, 448, 416, 400)     # ragged self-attention lengths
 VAE_PASSES = ("decode", "encode", "float_decode")
 #: each LM serving phase -> the model it serves
-SERVE = {"lm": LM_ARCH, "ssm": SSM_ARCH, "hybrid": HYBRID_ARCH}
+SERVE = {"lm": LM_ARCH, "ssm": SSM_ARCH, "hybrid": HYBRID_ARCH,
+         "moe": MOE_ARCH, "vlm": VLM_ARCH, "encdec": ENCDEC_ARCH}
+#: serving phases cut in depth (full width): phase -> (layers, why)
+DEPTH_CUT = {
+    "moe": (4, "mixtral-8x7b is 93.4 GB of bf16 weights at its 32 layers, "
+               "more than one 80 GB card; 4 layers are 12.1 GB, and the "
+               "fp32 twin of the consistency check adds 24.3 (at 8 layers "
+               "the two would need about 72 GB)"),
+    "vlm": (4, "qwen2-vl-72b is 145 GB of bf16 weights at its 80 layers; 4 "
+               "layers and the embeddings are 12.0 GB, and the fp32 twin "
+               "adds 24"),
+}
 PASSES = VAE_PASSES + tuple(f"{ph}_{p}" for ph in SERVE
                             for p in ("prefill", "decode_step"))
 _BF16 = ("bf16 weights and activations: the decode step's [4, 1] products "
@@ -215,6 +250,16 @@ CONSISTENCY_TOL = {
     "hybrid": (1e-1, _BF16 + "; 63 bf16 blocks (54 Mamba-2 layers, 9 shared "
                "attention blocks), more than twice Qwen2-7B's 28; the "
                "path itself is held to the fp32 tolerance"),
+    "moe": (None, "not gated in bf16: under bf16 rounding a near-tie in the "
+                  "router can send a token to another expert in the [4, 1] "
+                  "step than in the [4, 2049] prefill (about 1 % a token "
+                  "and layer), which moves its logits by O(1); the fp32 "
+                  "twin is gated, both at capacity factor E / k, where "
+                  "nothing drops"),
+    "vlm": (2e-2, _BF16.replace("[4, 2049]", "[4, 2049] (256 embeds + 1793 "
+                                "tokens)")),
+    "encdec": (2e-2, _BF16.replace("[4, 2049]", "[4, 385]") + "; the "
+               "encoder's 32 layers see the same frames in both"),
 }
 FP32_CONSISTENCY_TOL = 1e-3
 
@@ -833,7 +878,15 @@ def lm_attention_cases(get_config):
     2112 slots with ragged lengths (28 calls per step), in bf16 (the
     model's type) and fp32 (checked, in no pass).  zamba2-2.7b's shared
     block (head_dim 80, 32 q over 32 kv heads): its causal prefill and its
-    decode step, 9 calls each per pass, bf16."""
+    decode step, 9 calls each per pass, bf16.  mixtral-8x7b (32 q over 8
+    kv heads of 128, window 4096) and qwen2-vl-72b (64 over 8; 256 embeds
+    and 1792 tokens) at the depth of their phases: the causal prefill and
+    the decode step, bf16.  whisper-large-v3 (20 heads of 64 over 20): the
+    encoder's non-causal 1500 x 1500, the decoder's causal 384 x 384 and
+    its cross-attention, non-causal 384 queries over 1500 keys (32 calls
+    each per prefill); the decode step's self-attention against 448 slots
+    and its cross-attention at length 1500 (32 each per step); bf16, and
+    the two cross shapes also in fp32 (checked, in no pass)."""
     cases = []
     cfg = get_config(LM_ARCH)
     n, hq, hkv, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -860,6 +913,40 @@ def lm_attention_cases(get_config):
                   dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
                        lengths=list(DECODE_LENGTHS)), "bfloat16",
                   {"hybrid_decode_step": napp}))
+    for phase in ("moe", "vlm"):
+        c = serve_config(get_config, phase)
+        n, hq, hkv, d = LM_BATCH, c.n_heads, c.n_kv_heads, c.head_dim
+        cases.append((SERVE[phase], "flash_attention",
+                      dict(n=n, hq=hq, hkv=hkv, sq=LM_PROMPT, skv=LM_PROMPT,
+                           d=d, causal=True, window=c.sliding_window),
+                      "bfloat16", {f"{phase}_prefill": c.n_layers}))
+        cases.append((SERVE[phase], "decode_attention",
+                      dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
+                           lengths=list(DECODE_LENGTHS)), "bfloat16",
+                      {f"{phase}_decode_step": c.n_layers}))
+    wc = get_config(ENCDEC_ARCH)
+    n, hq, hkv, d = LM_BATCH, wc.n_heads, wc.n_kv_heads, wc.head_dim
+    se, L = wc.encoder_seq, wc.n_layers
+    attn = dict(n=n, hq=hq, hkv=hkv, d=d, window=None)
+    cross = dict(attn, sq=ENCDEC_PROMPT, skv=se, causal=False)
+    cross_step = dict(n=n, hq=hq, hkv=hkv, s=se, d=d, lengths=[se] * n)
+    cases += [
+        (ENCDEC_ARCH, "flash_attention", dict(attn, sq=se, skv=se,
+                                              causal=False),
+         "bfloat16", {"encdec_prefill": wc.encoder_layers}),
+        (ENCDEC_ARCH, "flash_attention",
+         dict(attn, sq=ENCDEC_PROMPT, skv=ENCDEC_PROMPT, causal=True),
+         "bfloat16", {"encdec_prefill": L}),
+        (ENCDEC_ARCH, "flash_attention", cross, "bfloat16",
+         {"encdec_prefill": L}),
+        (ENCDEC_ARCH, "flash_attention", cross, "float32", {}),
+        (ENCDEC_ARCH, "decode_attention",
+         dict(n=n, hq=hq, hkv=hkv, s=ENCDEC_MAX_LEN, d=d,
+              lengths=list(ENCDEC_LENGTHS)), "bfloat16",
+         {"encdec_decode_step": L}),
+        (ENCDEC_ARCH, "decode_attention", cross_step, "bfloat16",
+         {"encdec_decode_step": L}),
+        (ENCDEC_ARCH, "decode_attention", cross_step, "float32", {})]
     return cases
 
 
@@ -907,9 +994,12 @@ def lm_attention_checks(torch, log, state, totals, max_err):
             kw = dict(causal=shape["causal"], window=shape["window"])
             run = lambda: ops.flash_attention(q, k, v, **kw)       # noqa: E731
             plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
-            if shape["window"] is None:
+            w = shape["window"]
+            if w is None or w >= shape["skv"]:
+                # causal cases are square: SDPA's top-left alignment is
+                # ours; a window over the whole sequence masks nothing more
                 lib = lambda: F.scaled_dot_product_attention(       # noqa: E731
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=shape["causal"], enable_gqa=True)
             else:
                 pos = torch.arange(shape["sq"], device="cuda")
                 mask = (pos[None, :] <= pos[:, None]) & \
@@ -2605,7 +2695,10 @@ def phase_crossdevice(torch, log, state):
          u8_max_lsb=lsb, u8_tol=1, lms=lms)
 
 
-#: small fp32 models of each served family for the crossdevice phase
+#: small fp32 models of each served family for the crossdevice phase (the
+#: MoE at its published 8 experts, top-2 and capacity factor 1.25, so its
+#: steps drop entries; the VLM at head_dim 128 for the published M-RoPE
+#: sections)
 CROSS_LMS = {
     LM_ARCH: dict(n_layers=4, d_model=512, n_heads=8, n_kv_heads=2,
                   d_ff=1024, vocab_size=4096),
@@ -2614,28 +2707,51 @@ CROSS_LMS = {
     HYBRID_ARCH: dict(n_layers=4, attn_every=2, d_model=640, n_heads=8,
                       n_kv_heads=8, ssm_head_dim=64, ssm_state=64,
                       d_ff=1024, vocab_size=4096),
+    MOE_ARCH: dict(n_layers=4, d_model=512, n_heads=8, n_kv_heads=2,
+                   d_ff=1024, vocab_size=4096),
+    VLM_ARCH: dict(n_layers=4, d_model=1024, n_heads=8, n_kv_heads=2,
+                   d_ff=1024, vocab_size=4096),
+    ENCDEC_ARCH: dict(n_layers=4, encoder_layers=4, encoder_seq=150,
+                      d_model=512, n_heads=8, n_kv_heads=8, d_ff=1024,
+                      vocab_size=4096),
 }
+CROSS_PREFIX = 7          # vision embeds before the small VLM's tokens
+
+
+def cache_leaves(cache, prefix=""):
+    """A cache tree as {"k": leaf, "ssm.s": leaf, ...}."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(cache_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def crossdevice_lm(torch, state, arch):
     """A small fp32 model of ``arch``'s family (``CROSS_LMS``; the zamba2
     one at head_dim 80) on the card and on the CPU from the same weights:
-    prefill of 2 x 45 tokens, then 4 decode steps; logits, and the KV or
-    SSM state caches, within 1e-4 of their max (TF32 off)."""
+    prefill of 2 x 45 tokens (after 7 seeded embeds for the VLM; with 150
+    seeded frames for the enc-dec), then 4 decode steps; logits, and every
+    cache leaf (KV, cross K/V, SSM state), within 1e-4 of their max, and
+    the positions equal (TF32 off)."""
     import dataclasses
     from repro_torch.configs import build_model, get_config
-    from repro_torch.models.lm import CausalLM
+    from repro_torch.models.blocks import moe_capacity
     from repro_torch.vae.model import map_params
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
                               **CROSS_LMS[arch])
     gpu = build_model(cfg, device="cuda", seed=7)
-    cpu = CausalLM(cfg, device="cpu",
-                   params=map_params(gpu.params, lambda t: t.cpu()))
+    cpu = type(gpu)(cfg, device="cpu",
+                    params=map_params(gpu.params, lambda t: t.cpu()))
     toks = state["np"].random.default_rng(19).integers(0, cfg.vocab_size,
                                                        (2, 49))
-    gl, gc = gpu.prefill(toks[:, :45], max_len=56)
-    cl, cc = cpu.prefill(toks[:, :45], max_len=56)
+    side = side_input(torch, cfg, 2, CROSS_PREFIX, 19)
+    gl, gc = prefill_of(gpu, side)(toks[:, :45], max_len=56)
+    cl, cc = prefill_of(cpu, None if side is None else side.cpu())(
+        toks[:, :45], max_len=56)
     errs = []
     for t in range(45, 50):
         errs.append(float((gl.cpu() - cl).abs().max() / cl.abs().max()))
@@ -2644,18 +2760,26 @@ def crossdevice_lm(torch, state, arch):
         if t < 49:
             gl, gc = gpu.decode_step(gc, toks[:, t])
             cl, cc = cpu.decode_step(cc, toks[:, t])
-    leaves = {k: (gc[k], cc[k]) for k in ("k", "shared_k") if k in cc}
-    leaves.update({f"ssm.{k}": (gc["ssm"][k], v)
-                   for k, v in cc.get("ssm", {}).items()})
+    got, want = cache_leaves(gc), cache_leaves(cc)
+    need(sorted(got) == sorted(want), f"small {arch} cache leaves differ")
+    need(torch.equal(got.pop("pos").cpu(), want.pop("pos")),
+         f"small {arch} cache positions differ")
     cache_rel = {}
-    for key, (g, c) in leaves.items():
-        cache_rel[key] = float((g.cpu() - c).abs().max()
+    for key, c in want.items():
+        cache_rel[key] = float((got[key].cpu() - c).abs().max()
                                / max(float(c.abs().max()), 1e-30))
         need(cache_rel[key] <= 1e-4, f"small {arch} cache {key} differs by "
              f"{cache_rel[key]} > 1e-4")
+    extra = {}
+    if cfg.family == "moe":
+        extra = dict(capacity_factor=cfg.capacity_factor,
+                     cap_prefill=moe_capacity(2 * 45, cfg),
+                     cap_decode_step=moe_capacity(2, cfg))
     return {"arch": arch, "config": dict(model_shape(cfg), dtype="float32"),
             "prompt": [2, 45], "decode_steps": 4,
-            "logits_rel_err": errs, "cache_rel_err": cache_rel, "tol": 1e-4}
+            "prefix_embeds": CROSS_PREFIX if cfg.family == "vlm" else 0,
+            **extra, "logits_rel_err": errs, "cache_rel_err": cache_rel,
+            "tol": 1e-4}
 
 
 def device_ms(torch, fn, reps: int):
@@ -2696,10 +2820,15 @@ def profile_share(torch, fn, steps: int):
 def expected_launches(cfg):
     """(per prefill, per decode step) kernel launches of a serving run:
     RWKV-6 one ``rwkv6_scan`` per layer; the hybrid one attention kernel
-    per shared-block application (Mamba-2 has no kernel); dense one per
-    layer."""
+    per shared-block application (Mamba-2 has no kernel); the enc-dec a
+    ``flash_attention`` per encoder layer and two per decoder layer (self
+    and cross) per prefill, and two ``decode_attention`` per decoder layer
+    per step; dense, MoE and VLM one per layer."""
     if cfg.ssm_type == "rwkv6":
         return {"rwkv6_scan": cfg.n_layers}, {"rwkv6_scan": cfg.n_layers}
+    if cfg.family == "encdec":
+        return ({"flash_attention": cfg.encoder_layers + 2 * cfg.n_layers},
+                {"decode_attention": 2 * cfg.n_layers})
     n = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
          else cfg.n_layers)
     return {"flash_attention": n}, {"decode_attention": n}
@@ -2720,27 +2849,87 @@ def model_shape(cfg):
                    ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
                    conv_width=cfg.conv_width, attn_every=cfg.attn_every,
                    shared_applications=cfg.n_layers // cfg.attn_every)
+    if cfg.family == "moe":
+        out.update(experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                   capacity_factor=cfg.capacity_factor,
+                   window=cfg.sliding_window)
+    if cfg.family == "vlm":
+        out.update(mrope_sections=list(cfg.mrope_sections))
+    if cfg.family == "encdec":
+        out.update(encoder_layers=cfg.encoder_layers,
+                   encoder_seq=cfg.encoder_seq, act=cfg.act)
     return out
 
 
+def serve_config(get_config, phase: str):
+    """The config a serving phase runs: the published one, with the depth
+    of ``DEPTH_CUT`` where the phase cuts it."""
+    import dataclasses
+    cfg = get_config(SERVE[phase])
+    if phase in DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUT[phase][0])
+    return cfg
+
+
+def serve_lengths(cfg):
+    """(prompt tokens, prefix embeds, cache slots) per sequence of a
+    serving phase: the enc-dec's decoder prompt, the VLM's vision prefix,
+    the LM's prompt."""
+    if cfg.family == "encdec":
+        return ENCDEC_PROMPT, 0, ENCDEC_MAX_LEN
+    if cfg.family == "vlm":
+        return LM_PROMPT - VLM_PREFIX, VLM_PREFIX, LM_MAX_LEN
+    return LM_PROMPT, 0, LM_MAX_LEN
+
+
+def side_input(torch, cfg, batch: int, prefix: int, seed: int,
+               device="cuda"):
+    """The input a model takes beside its tokens, seeded on ``device``:
+    an enc-dec's frames [B, encoder_seq, d] (N(0, 1), the stub frontend's
+    output), a VLM's vision embeds [B, prefix, d] at the token
+    embeddings' scale (N(0, 0.02^2)), else None."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "encdec":
+        return torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                           generator=gen, device=device).to(cfg.dtype)
+    if cfg.family == "vlm":
+        return (torch.randn((batch, prefix, cfg.d_model), generator=gen,
+                            device=device) * 0.02).to(cfg.dtype)
+    return None
+
+
+def prefill_of(model, side):
+    """``model``'s prefill as ``fn(tokens, max_len=None)``, with its side
+    input: an EncDecLM's frames, a VLM's embeds."""
+    if model.cfg.family == "encdec":
+        return lambda toks, max_len=None: model.prefill(toks, side, max_len)
+    if side is not None:
+        return lambda toks, max_len=None: model.prefill(toks, max_len, side)
+    return model.prefill
+
+
 def phase_serve(torch, log, state, phase: str):
-    """One LM serving path (``SERVE[phase]``) at full width and depth in
-    bf16: one prefill of 4 x 2048 seeded tokens, then 64 greedy decode
+    """One LM serving path (``SERVE[phase]``) at full width in bf16, at
+    full depth but where ``DEPTH_CUT`` cuts it: one prefill of 4 seeded
+    sequences (2048 tokens; the VLM 256 seeded embeds and 1792 tokens; the
+    enc-dec 1500 seeded frames and 384 tokens), then 64 greedy decode
     steps, each kernel's launches checked exactly; then decode-after-
     prefill logits against a prefill one token longer, in bf16 and in
-    fp32 (the same weights cast exactly), and a profiler window of a
-    prefill and four steps.  The model is freed on return."""
+    fp32 (the same weights cast exactly; the MoE both at capacity factor
+    E / k, where nothing drops), and a profiler window of a prefill and
+    four steps.  The model is freed on return."""
     import dataclasses
     np = state["np"]
     from repro_torch.configs import build_model, get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.lm import CausalLM
+    from repro_torch.models.blocks import moe_capacity
     state.pop("vae", None)                      # free the VAE phases' memory
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     arch = SERVE[phase]
-    cfg = get_config(arch)
+    cfg = serve_config(get_config, phase)
+    prompt, prefix, max_len = serve_lengths(cfg)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -2748,13 +2937,15 @@ def phase_serve(torch, log, state, phase: str):
     weights_bytes = torch.cuda.memory_allocated()
     n_params = model.n_params
     prompts = np.random.default_rng(23).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+        0, cfg.vocab_size, (LM_BATCH, prompt))
+    side = side_input(torch, cfg, LM_BATCH, prefix, 29)
+    run = prefill_of(model, side)
     per_prefill, per_step = expected_launches(cfg)
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, max_len=LM_MAX_LEN)
+    logits, cache = run(prompts, max_len=max_len)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = ops.launch_counts()
@@ -2783,29 +2974,22 @@ def phase_serve(torch, log, state, phase: str):
          f"{arch} run launched {launches}, expected {want_all}")
     need(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size) and
          bool(torch.isfinite(logits.float()).all()), "bad decode logits")
-    need(bool((cache["pos"] == LM_PROMPT + LM_STEPS).all()),
+    need(bool((cache["pos"] == prefix + prompt + LM_STEPS).all()),
          f"cache positions {cache['pos'].tolist()}")
     peak = torch.cuda.max_memory_allocated()
     cache_bytes = sum(t.numel() * t.element_size() for t in flat_leaves(cache))
     del cache, logits
 
-    # decode_step on x after prefill(p) against the last logits of
-    # prefill(p + [x]): 2049 positions
     t0 = time.perf_counter()
-    lp, c = model.prefill(prompts, max_len=LM_MAX_LEN)
+    lp, c = run(prompts, max_len=max_len)
     torch.cuda.synchronize()
     warm_prefill_ms = (time.perf_counter() - t0) * 1e3
-    ld, c = model.decode_step(c, first)
-    del c
-    longer = np.concatenate([prompts, first.cpu().numpy()[:, None]], axis=1)
-    lf, _ = model.prefill(longer)
-    del _
     # where the time goes: device kernel time against wall time, one
     # prefill and four decode steps under torch.profiler
     holder = {}
 
     def run_prefill():
-        holder["l"], holder["c"] = model.prefill(prompts, max_len=LM_MAX_LEN)
+        holder["l"], holder["c"] = run(prompts, max_len=max_len)
 
     def run_step():
         holder["l"], holder["c"] = model.decode_step(
@@ -2814,38 +2998,75 @@ def phase_serve(torch, log, state, phase: str):
     prof_prefill = profile_share(torch, run_prefill, 1)
     prof_step = profile_share(torch, run_step, 4)
     del holder
+
+    # decode_step on x after prefill(p) against the last logits of
+    # prefill(p + [x]); the MoE at capacity factor E / k (cap = T: no entry
+    # dropped), on the same weights
+    extra = {}
+    cons_cfg, cons = cfg, model
+    if cfg.family == "moe":
+        cf = cfg.n_experts / cfg.experts_per_token
+        cons_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        cons = type(model)(cons_cfg, device="cuda", params=model.params)
+        t_pre, t_step = LM_BATCH * prompt, LM_BATCH
+        extra = dict(cap_prefill=moe_capacity(t_pre, cfg),
+                     cap_decode_step=moe_capacity(t_step, cfg),
+                     consistency_capacity_factor=cf,
+                     consistency_cap_prefill=[
+                         moe_capacity(t_pre, cons_cfg),
+                         moe_capacity(t_pre + LM_BATCH, cons_cfg)],
+                     consistency_cap_decode_step=moe_capacity(t_step,
+                                                              cons_cfg),
+                     timed_capacity_factor=cfg.capacity_factor)
+        del lp, c
+        _, c = prefill_of(cons, side)(prompts, max_len=max_len)
+    ld, c = cons.decode_step(c, first)
+    del c
+    longer = np.concatenate([prompts, first.cpu().numpy()[:, None]], axis=1)
+    lf, _ = prefill_of(cons, side)(longer)
+    del _
     err = float((ld.float() - lf.float()).abs().max())
     scale = float(lf.float().abs().max())
     tol, tol_reason = CONSISTENCY_TOL[phase]
-    need(err <= tol * scale, f"{arch} decode-after-prefill logits differ "
-         f"from a prefill of {LM_PROMPT + 1} tokens by {err} > {tol} * "
-         f"{scale}")
+    if tol is not None:
+        need(err <= tol * scale, f"{arch} decode-after-prefill logits differ "
+             f"from a prefill of {prefix + prompt + 1} positions by {err} > "
+             f"{tol} * {scale}")
     # the same check in fp32, on the bf16 weights cast exactly: the path's
     # own error without bf16 rounding; and how far the bf16 logits of the
     # longer prefill lie from the fp32 ones (the bf16 noise floor)
-    twin = CausalLM(dataclasses.replace(cfg, dtype=torch.float32),
-                    device="cuda", params=model.params)
-    del model
+    twin = type(model)(dataclasses.replace(cons_cfg, dtype=torch.float32),
+                       device="cuda", params=model.params)
+    del model, cons, run
     gc.collect()
     torch.cuda.empty_cache()
-    _, c = twin.prefill(prompts, max_len=LM_MAX_LEN)
+    side32 = None if side is None else side.float()
+    _, c = prefill_of(twin, side32)(prompts, max_len=max_len)
     ld32, c = twin.decode_step(c, first)
     del c
-    lf32, _ = twin.prefill(longer)
-    del _, twin
+    lf32, _ = prefill_of(twin, side32)(longer)
+    del _, twin, side, side32
     scale32 = float(lf32.abs().max())
     err32 = float((ld32 - lf32).abs().max())
     floor = float((lf.float() - lf32).abs().max()) / scale32
     need(err32 <= FP32_CONSISTENCY_TOL * scale32, f"{arch} fp32 decode-"
          f"after-prefill logits differ by {err32} > {FP32_CONSISTENCY_TOL} "
          f"* {scale32}")
-    steps = LM_BATCH * LM_PROMPT
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = LM_BATCH * (prefix + prompt)
+    cut = DEPTH_CUT.get(phase)
     emit(log, phase, arch=arch, family=cfg.family, dtype="bfloat16",
          **model_shape(cfg),
+         reduced=None if cut is None else dict(
+             layers=[cut[0], get_config(arch).n_layers], why=cut[1]),
          params=n_params, param_count_config=cfg.param_count(),
+         param_count_published=get_config(arch).param_count(),
          weights_bytes=weights_bytes, cache_bytes=cache_bytes,
          init_s=init_s, max_memory_allocated=peak, batch=LM_BATCH,
-         prompt=LM_PROMPT, max_len=LM_MAX_LEN, decode_steps=LM_STEPS,
+         prompt=prompt, prefix_embeds=prefix,
+         encoder_frames=cfg.encoder_seq if cfg.family == "encdec" else 0,
+         max_len=max_len, decode_steps=LM_STEPS,
          prefill_ms=prefill_ms, prefill_tokens_per_s=steps / prefill_ms * 1e3,
          warm_prefill_ms=warm_prefill_ms,
          warm_prefill_tokens_per_s=steps / warm_prefill_ms * 1e3,
@@ -2855,7 +3076,7 @@ def phase_serve(torch, log, state, phase: str):
          decode_tokens_per_s=LM_BATCH / statistics.median(dev) * 1e3,
          launches=launches, launches_after_prefill=after_prefill,
          launches_per_prefill=per_prefill, launches_per_step=per_step,
-         first_tokens=first.tolist(),
+         first_tokens=first.tolist(), **extra,
          profile_prefill=prof_prefill, profile_decode_step=prof_step,
          consistency_max_abs_err=err, consistency_logit_max=scale,
          consistency_rel_err=err / scale, consistency_tol=tol,

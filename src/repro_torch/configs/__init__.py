@@ -64,10 +64,13 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0):
-    """A :class:`~repro_torch.models.lm.CausalLM` of ``cfg`` with seeded
-    random weights on ``device`` (``"cuda"`` unless the caller asks for
-    the CPU).  The dense, ssm and hybrid families: the others raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    """The model of ``cfg`` with seeded random weights on ``device``
+    (``"cuda"`` unless the caller asks for the CPU): an
+    :class:`~repro_torch.models.encdec.EncDecLM` for the encdec family, a
+    :class:`~repro_torch.models.lm.CausalLM` for every other."""
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg, device=device, seed=seed)
     from repro_torch.models.lm import CausalLM
     return CausalLM(cfg, device=device, seed=seed)
 

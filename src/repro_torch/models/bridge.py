@@ -9,9 +9,11 @@ layer axis into the port's list of per-layer dicts, and the hybrid's
 which holds every bf16 value) and :class:`CausalLM` then gives each the
 dtype the JAX init gives it, so an fp32 leaf (RWKV-6's ``w0`` and ``u``,
 Mamba-2's ``A_log``, ``D`` and ``dt_bias``) never passes through
-``cfg.dtype``::
+``cfg.dtype``.  The enc-dec tree (the JAX ``EncDecLM.init``) splits
+its ``enc_layers`` and ``dec_layers`` the same way::
 
     lm_from_numpy(cfg, tree, device=...)
+    encdec_from_numpy(cfg, tree, device=...)
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Dict
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import CausalLM
 from repro_torch.vae.bridge import params_from_numpy
 from repro_torch.vae.model import map_params
@@ -30,8 +33,27 @@ def lm_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     """A port :class:`CausalLM` on ``device`` (``"cuda"`` unless the
     caller asks for the CPU) holding the exported tree."""
     dev = resolve_device(device)
-    params = params_from_numpy(tree, device=dev)
-    stacked = params["layers"]
-    params["layers"] = [map_params(stacked, lambda t, i=i: t[i])
-                        for i in range(cfg.n_layers)]
+    params = _split(params_from_numpy(tree, device=dev), "layers",
+                    cfg.n_layers)
     return CausalLM(cfg, device=dev, params=params)
+
+
+def encdec_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                      device=None) -> EncDecLM:
+    """A port :class:`EncDecLM` on ``device`` (``"cuda"`` unless the
+    caller asks for the CPU) holding the exported tree; ``pos_embed``'s
+    rows set its ``max_target_positions``."""
+    dev = resolve_device(device)
+    params = params_from_numpy(tree, device=dev)
+    params = _split(params, "enc_layers", cfg.encoder_layers)
+    params = _split(params, "dec_layers", cfg.n_layers)
+    return EncDecLM(cfg, device=dev, params=params,
+                    max_target_positions=params["pos_embed"].shape[0])
+
+
+def _split(params: Dict[str, Any], key: str, n: int) -> Dict[str, Any]:
+    """``params[key]``'s stacked ``[n, ...]`` leaves -> a list of ``n``
+    per-layer trees."""
+    stacked = params[key]
+    params[key] = [map_params(stacked, lambda t, i=i: t[i]) for i in range(n)]
+    return params

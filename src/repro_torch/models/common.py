@@ -3,9 +3,8 @@ inits (counterpart of the JAX package's ``models/common.py``).
 
 One flat ``ModelConfig`` covers the whole architecture pool (dense GQA /
 MoE / RWKV6 / Mamba2-hybrid / enc-dec / VLM), with the JAX package's
-fields and parameter accounting; the port serves the dense, SSM and
-hybrid families so far.  Configs for the concrete architectures live in
-``repro_torch.configs``.
+fields and parameter accounting.  Configs for the concrete architectures
+live in ``repro_torch.configs``.
 """
 
 from __future__ import annotations
@@ -124,6 +123,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return (xf * inv * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in fp32 (population variance), the
+    result in ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
@@ -141,6 +151,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  positions3: [3, ..., seq] (t, h, w ids);
+    the d/2 frequency slots are split into ``sections``: the first
+    ``sections[0]`` follow the temporal stream, then height, then width."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # [d/2]
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])
+    angles = positions3[..., None].float() * freqs     # [3, ..., s, d/2]
+    idx = sec.expand(angles.shape[1:])[None]
+    angles = torch.gather(angles, 0, idx)[0]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """[length, dim] fp32: sin at the even columns, cos at the odd ones."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,255 @@
+"""Encoder-decoder LM (Whisper-style) in PyTorch (counterpart of the JAX
+package's ``models/encdec.py``).
+
+The conv frontend is a stub: the caller gives precomputed frame
+embeddings [B, encoder_seq, d] (what Whisper's two conv layers would
+make of the mel spectrogram).  Backbone: a bidirectional encoder
+(sinusoidal positions) and a causal decoder with cross-attention (learned
+positions), LayerNorm with bias, GELU MLPs, no RoPE.
+
+Serving: the prefill encodes the frames once and keeps each decoder
+layer's cross-attention K/V in the cache (``xk``/``xv`` ``[L, B, H, Se,
+dh]``); a decode step reads them through ``decode_attention`` at length
+Se and writes only its own token's self-attention K/V (``k``/``v`` ``[L,
+B, H, max_len, dh]``, no window), in place.  The parameter tree is the
+JAX package's with the stacked ``enc_layers`` and ``dec_layers`` as lists
+of per-layer dicts.  ``loss`` and training wait for ROADMAP A 16.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import blocks as B
+from repro_torch.models import common as C
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.lm import TRAINING, leaf_dtypes
+from repro_torch.vae.model import param_count
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _ln_init(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                device=device),
+            "bias": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                device=device)}
+
+
+def _enc_layer_init(gen: torch.Generator, cfg: ModelConfig):
+    return {"ln1": _ln_init(cfg, gen.device), "attn": B.attn_init(gen, cfg),
+            "ln2": _ln_init(cfg, gen.device), "mlp": B.mlp_init(gen, cfg)}
+
+
+def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig):
+    return {"ln1": _ln_init(cfg, gen.device),
+            "self_attn": B.attn_init(gen, cfg),
+            "lnx": _ln_init(cfg, gen.device),
+            "cross_attn": B.attn_init(gen, cfg),
+            "ln2": _ln_init(cfg, gen.device), "mlp": B.mlp_init(gen, cfg)}
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                max_pos: int) -> Dict[str, Any]:
+    """Seeded random parameters at the JAX package's scales: embed and
+    ``pos_embed`` ([max_pos, d]) N(0, 0.02), dense weights N(0, 1/cin),
+    LayerNorm scale 1 and bias 0."""
+    return {
+        "embed": C.normal(gen, (cfg.vocab_size, cfg.d_model), cfg.dtype,
+                          0.02),
+        "pos_embed": C.normal(gen, (max_pos, cfg.d_model), cfg.dtype, 0.02),
+        "enc_layers": C.stacked(lambda g: _enc_layer_init(g, cfg), gen,
+                                cfg.encoder_layers),
+        "enc_norm": _ln_init(cfg, gen.device),
+        "dec_layers": C.stacked(lambda g: _dec_layer_init(g, cfg), gen,
+                                cfg.n_layers),
+        "final_norm": _ln_init(cfg, gen.device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward passes (plain functions on a parameter tree)
+# ---------------------------------------------------------------------------
+
+def _ln(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    return C.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames [B, Se, d] (the stub frontend's output) -> encoder states:
+    non-causal attention over the frames in every layer."""
+    b, se, _ = frames.shape
+    pos = C.sinusoidal_positions(se, cfg.d_model, frames.device)
+    x = frames.to(cfg.dtype) + pos.to(cfg.dtype)[None]
+    positions = _positions(b, se, frames.device)
+    for p in params["enc_layers"]:
+        h, _, _ = B.attention(p["attn"], _ln(x, p["ln1"], cfg), cfg,
+                              positions, causal=False)
+        x = x + h
+        x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+    return _ln(x, params["enc_norm"], cfg)
+
+
+def cross_kv(p_attn, enc_out: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention k and v [B, Se, Hkv, dh] from the
+    encoder states."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
+    kx = (enc_out @ p_attn["wk"]).reshape(shape)
+    vx = (enc_out @ p_attn["wv"]).reshape(shape)
+    if cfg.qkv_bias:
+        kx = kx + p_attn["bk"].to(kx.dtype).reshape(shape[2:])
+        vx = vx + p_attn["bv"].to(vx.dtype).reshape(shape[2:])
+    return kx, vx
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               encoder_seq: Optional[int] = None) -> Dict[str, Any]:
+    """``pos`` [B] int32, ``k``/``v`` [L, B, H, max_len, dh] and
+    ``xk``/``xv`` [L, B, H, Se, dh] (Se = ``encoder_seq``, by default the
+    config's), zeros."""
+    L, se = cfg.n_layers, encoder_seq or cfg.encoder_seq
+    k = torch.zeros((L, batch, cfg.n_kv_heads, max_len, cfg.head_dim),
+                    dtype=cfg.dtype, device=device)
+    xk = torch.zeros((L, batch, cfg.n_kv_heads, se, cfg.head_dim),
+                     dtype=cfg.dtype, device=device)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "k": k, "v": torch.zeros_like(k),
+            "xk": xk, "xv": torch.zeros_like(xk)}
+
+
+def prefill(params, tokens: torch.Tensor, frames: torch.Tensor,
+            cfg: ModelConfig, max_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Encode ``frames``, run the decoder over ``tokens`` [B, S] (causal
+    self-attention, non-causal cross-attention to the encoder states) and
+    return (logits of the last position [B, V], the filled cache).
+    ``max_len`` (>= S) sizes the self-attention cache."""
+    enc_out = encode(params, frames, cfg)
+    b, s = tokens.shape
+    max_len = max(max_len or s, s)
+    cache = init_cache(cfg, b, max_len, tokens.device, enc_out.shape[1])
+    x = params["embed"][tokens] + params["pos_embed"][:s][None]
+    positions = _positions(b, s, tokens.device)
+    for i, p in enumerate(params["dec_layers"]):
+        h, kt, vt = B.attention(p["self_attn"], _ln(x, p["ln1"], cfg), cfg,
+                                positions, causal=True)
+        cache["k"][i, :, :, :s] = kt
+        cache["v"][i, :, :, :s] = vt
+        x = x + h
+        h, xkt, xvt = B.attention(p["cross_attn"], _ln(x, p["lnx"], cfg),
+                                  cfg, positions, causal=False,
+                                  kv=cross_kv(p["cross_attn"], enc_out, cfg))
+        cache["xk"][i] = xkt
+        cache["xv"][i] = xvt
+        x = x + h
+        x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+    cache["pos"].fill_(s)
+    h = _ln(x[:, -1], params["final_norm"], cfg)
+    return h @ params["embed"].T, cache
+
+
+def decode_step(params, cache: Dict[str, Any], tokens: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens [B] -> (logits [B, V], the cache, updated in place).  The
+    learned position is ``pos_embed[min(pos, max_pos - 1)]``."""
+    b = tokens.shape[0]
+    pos = cache["pos"]
+    max_pos = params["pos_embed"].shape[0]
+    x = (params["embed"][tokens]
+         + params["pos_embed"][torch.clamp(pos, max=max_pos - 1)])[:, None]
+    se = cache["xk"].shape[3]
+    lengths = torch.full((b,), se, dtype=torch.int32, device=tokens.device)
+    for i, p in enumerate(params["dec_layers"]):
+        x = x + B.attention_decode(p["self_attn"], _ln(x, p["ln1"], cfg),
+                                   cfg, cache["k"][i], cache["v"][i], pos)
+        # cross-attention against the cached encoder K/V
+        pa = p["cross_attn"]
+        q = (_ln(x, p["lnx"], cfg) @ pa["wq"]).reshape(b, cfg.n_heads,
+                                                       cfg.head_dim)
+        if cfg.qkv_bias:
+            q = q + pa["bq"].to(q.dtype).reshape(cfg.n_heads, cfg.head_dim)
+        o = ops.decode_attention(q, cache["xk"][i], cache["xv"][i], lengths)
+        x = x + o.reshape(b, 1, cfg.q_dim) @ pa["wo"]
+        x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+    cache["pos"] = pos + 1
+    h = _ln(x[:, 0], params["final_norm"], cfg)
+    return h @ params["embed"].T, cache
+
+
+# ---------------------------------------------------------------------------
+# the model on one device
+# ---------------------------------------------------------------------------
+
+class EncDecLM:
+    """Config + parameters on one device, and the serving entry points
+    ``encode``, ``prefill(tokens, frames, max_len)`` and
+    ``decode_step(cache, tokens)``.
+
+    As :class:`repro_torch.models.lm.CausalLM`: ``params`` (e.g. from
+    :func:`repro_torch.models.bridge.encdec_from_numpy`) replaces the
+    seeded initialisation; ``device`` defaults to ``"cuda"`` and raises
+    where CUDA is absent; every entry point runs under
+    ``torch.inference_mode()``.  ``max_target_positions`` is the rows of
+    ``pos_embed`` (the JAX package's default, 32768).
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
+                 params: Optional[Dict[str, Any]] = None,
+                 max_target_positions: int = 32768):
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name}: EncDecLM serves the encdec "
+                             f"family, not {cfg.family!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        with torch.inference_mode():
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    int(seed))
+                params = init_params(gen, cfg, max_target_positions)
+            self.params = leaf_dtypes(params, cfg, lambda t, dt: t.to(
+                device=self.device, dtype=dt).contiguous())
+        self.max_pos = self.params["pos_embed"].shape[0]
+
+    @property
+    def n_params(self) -> int:
+        return param_count(self.params)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(frames, device=self.device)
+
+    def encode(self, frames) -> torch.Tensor:
+        with torch.inference_mode():
+            return encode(self.params, self._frames(frames), self.cfg)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        return init_cache(self.cfg, batch, max_len, self.device)
+
+    def prefill(self, tokens, frames, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        with torch.inference_mode():
+            return prefill(self.params, self._tokens(tokens),
+                           self._frames(frames), self.cfg, max_len)
+
+    def decode_step(self, cache: Dict[str, Any], tokens
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        with torch.inference_mode():
+            return decode_step(self.params, cache, self._tokens(tokens),
+                               self.cfg)
+
+    def loss(self, batch):
+        raise NotImplementedError(f"{self.cfg.name}: {TRAINING}")

@@ -1,6 +1,7 @@
 """Decoder-only causal LM in PyTorch (counterpart of the JAX package's
-``models/lm.py``) for the dense, SSM (RWKV-6) and hybrid (Mamba-2 plus a
-shared attention block, Zamba2) families: the serving entry points
+``models/lm.py``) for the dense, MoE, SSM (RWKV-6), hybrid (Mamba-2 plus
+a shared attention block, Zamba2) and VLM (M-RoPE, a prefix of
+precomputed vision embeds) families: the serving entry points
 ``prefill`` and ``decode_step``, and ``hidden`` / ``logits``.
 
 The parameter tree is the JAX package's, with one difference: JAX's
@@ -12,9 +13,9 @@ the layers run in a Python loop where JAX scans.  The hybrid family's
 cache has the JAX package's tree: ``pos [B]`` int32; ``k``/``v`` ``[L, B,
 Hkv, S, dh]`` (dense); ``ssm`` with each state leaf stacked on L (SSM and
 hybrid); ``shared_k``/``shared_v`` ``[napp, B, Hkv, S, dh]`` (hybrid).
-``decode_step`` updates it in place.  ``loss`` and training, and the MoE,
-enc-dec and VLM families, wait for their slices of the port
-(``NOT_PORTED``).
+``decode_step`` updates it in place.  The enc-dec family is
+:class:`repro_torch.models.encdec.EncDecLM`, as in the JAX package;
+``loss`` and training wait for ROADMAP A 16.
 """
 
 from __future__ import annotations
@@ -30,25 +31,16 @@ from repro_torch.models import ssm as S
 from repro_torch.models.common import ModelConfig
 from repro_torch.vae.model import param_count
 
-#: families the port does not serve yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "moe": "ROADMAP A 11 (MoE)",
-    "encdec": "ROADMAP A 14 (enc-dec)",
-    "vlm": "ROADMAP A 15 (VLM / M-RoPE)",
-}
+#: the families this model serves (the enc-dec family is ``EncDecLM``)
+CAUSAL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
+#: what training needs and the port does not have yet
+TRAINING = "training (loss, optimiser, data) waits for ROADMAP A 16"
 
 #: parameter leaves the JAX init makes fp32 whatever ``cfg.dtype`` is:
 #: RWKV-6's decay base and bonus, Mamba-2's decay, skip and step bias, and
-#: (with the MoE slice) the router
+#: the MoE router
 FP32_LEAVES = frozenset({"w0", "u", "A_log", "D", "dt_bias", "router"})
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family waits for "
-            f"{NOT_PORTED[cfg.family]}; the port serves the dense, ssm and "
-            "hybrid families")
 
 
 def leaf_dtypes(params, cfg: ModelConfig, fn):
@@ -87,14 +79,19 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
                 "mix": S.rwkv6_init(gen, cfg)}
     if cfg.ssm_type == "mamba2":
         return {"ln1": ones, "mix": S.mamba2_init(gen, cfg)}
-    return {"ln1": ones, "attn": B.attn_init(gen, cfg),
-            "ln2": ones.clone(), "mlp": B.mlp_init(gen, cfg)}
+    layer = {"ln1": ones, "attn": B.attn_init(gen, cfg), "ln2": ones.clone()}
+    if cfg.family == "moe":
+        layer["moe"] = B.moe_init(gen, cfg)
+    else:
+        layer["mlp"] = B.mlp_init(gen, cfg)
+    return layer
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Seeded random parameters on ``gen``'s device at the JAX package's
     scales and dtypes: embed N(0, 0.02), dense weights N(0, 1/cin), norms
-    1, biases 0; the SSM leaves as ``ssm.rwkv6_init`` / ``mamba2_init``."""
+    1, biases 0; the SSM leaves as ``ssm.rwkv6_init`` / ``mamba2_init``,
+    the experts as ``blocks.moe_init``."""
     params: Dict[str, Any] = {
         "embed": C.normal(gen, (cfg.vocab_size, cfg.d_model), cfg.dtype,
                           0.02),
@@ -121,6 +118,9 @@ def _norm(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig):
 
 
 def _mlp_residual(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x + ffn(norm(x))``: the experts of a MoE layer, else the MLP."""
+    if "moe" in p:
+        return x + B.moe(p["moe"], _norm(x, p["ln2"], cfg), cfg)
     return x + B.mlp(p["mlp"], _norm(x, p["ln2"], cfg), cfg)
 
 
@@ -144,9 +144,9 @@ def _store_kv(kt: torch.Tensor, vt: torch.Tensor, k_dst: torch.Tensor,
 
 def _attn_block(p, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, kv=None) -> torch.Tensor:
-    """Pre-norm attention and MLP over a full sequence: a dense layer or
-    the hybrid's shared block.  ``kv`` = (k, v) cache slices take the
-    roped k and v."""
+    """Pre-norm attention and MLP (or experts) over a full sequence: a
+    dense, MoE or VLM layer, or the hybrid's shared block.  ``kv`` = (k,
+    v) cache slices take the roped k and v."""
     h, kt, vt = B.attention(p["attn"], _norm(x, p["ln1"], cfg), cfg,
                             positions)
     if kv is not None:
@@ -201,9 +201,23 @@ def _forward(params, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def hidden(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Token ids [B, S] -> final hidden states [B, S, d]."""
-    x = params["embed"][tokens]
+def embed_inputs(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The input sequence [B, S, d]: precomputed frontend ``embeds`` (cast
+    to ``cfg.dtype``) and then the tokens' embeddings."""
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(cfg.dtype))
+    if tokens is not None:
+        parts.append(params["embed"][tokens])
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def hidden(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
+           embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids [B, S] (and/or frontend embeds, put first) -> final
+    hidden states [B, S_total, d]."""
+    x = embed_inputs(params, tokens, cfg, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return _norm(_forward(params, x, cfg, positions), params["final_norm"],
@@ -240,15 +254,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: Optional[int] = None
+def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
+            max_len: Optional[int] = None,
+            embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (logits for the last position [B, V], filled cache).
 
-    ``max_len`` sizes the KV caches (>= prompt length) so decode steps
-    have free slots; defaults to the prompt length.  The SSM state does
-    not depend on it."""
-    x = params["embed"][tokens]
+    ``embeds`` (the VLM's vision prefix) go before the tokens; positions
+    run over both, and ``pos`` ends at the total length.  ``max_len``
+    sizes the KV caches (>= that length) so decode steps have free slots;
+    defaults to that length.  The SSM state does not depend on it."""
+    x = embed_inputs(params, tokens, cfg, embeds)
     b, s_total, _ = x.shape
     max_len = max(max_len or s_total, s_total)
     positions = torch.arange(s_total, device=x.device)[None].expand(
@@ -295,12 +311,16 @@ class CausalLM:
     (:func:`leaf_dtypes`).  ``device`` defaults to ``"cuda"`` and raises
     where CUDA is absent; pass ``device="cpu"`` for the plain path.  Every
     entry point runs under ``torch.inference_mode()`` and takes token ids
-    as anything ``torch.as_tensor`` reads.
+    (and a VLM's ``embeds`` [B, P, d]) as anything ``torch.as_tensor``
+    reads.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
                  params: Optional[Dict[str, Any]] = None):
-        require_ported(cfg)
+        if cfg.family not in CAUSAL_FAMILIES:
+            raise ValueError(f"{cfg.name}: CausalLM serves the families "
+                             f"{CAUSAL_FAMILIES}, not {cfg.family!r} (the "
+                             "enc-dec family is models.encdec.EncDecLM)")
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.inference_mode():
@@ -318,9 +338,15 @@ class CausalLM:
     def n_params(self) -> int:
         return param_count(self.params)
 
-    def hidden(self, tokens) -> torch.Tensor:
+    def _inputs(self, tokens, embeds):
+        return (None if tokens is None else self._tokens(tokens),
+                None if embeds is None
+                else torch.as_tensor(embeds, device=self.device))
+
+    def hidden(self, tokens=None, embeds=None) -> torch.Tensor:
         with torch.inference_mode():
-            return hidden(self.params, self._tokens(tokens), self.cfg)
+            toks, emb = self._inputs(tokens, embeds)
+            return hidden(self.params, toks, self.cfg, emb)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -329,14 +355,17 @@ class CausalLM:
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         return init_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, tokens, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, tokens=None, max_len: Optional[int] = None,
+                embeds=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         with torch.inference_mode():
-            return prefill(self.params, self._tokens(tokens), self.cfg,
-                           max_len)
+            toks, emb = self._inputs(tokens, embeds)
+            return prefill(self.params, toks, self.cfg, max_len, emb)
 
     def decode_step(self, cache: Dict[str, Any], tokens
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         with torch.inference_mode():
             return decode_step(self.params, cache, self._tokens(tokens),
                                self.cfg)
+
+    def loss(self, batch):
+        raise NotImplementedError(f"{self.cfg.name}: {TRAINING}")

@@ -16,7 +16,11 @@ the CPU, and a dead shard's replicas serve the healthy box's bits.  The
 serving runtime on the card: a drain stream is the window path bit for
 bit, and an autoscaled engine scales on measured decode time.  The launch
 layer on the card: ``make_decode_step`` against the same step on the
-CPU, and the serving launcher at a tiny size.
+CPU, and the serving launcher at a tiny size.  The MoE, VLM and enc-dec
+families: small fp32 models on the card against the CPU (the MoE at the
+published capacity, so its steps drop entries), the attention kernels at
+their serving shapes (whisper's head_dim 64, non-causal, 384 queries over
+1500 keys), and the MoE on CUDA tensors with no synchronising call.
 
 Marked ``cuda``: these skip where no NVIDIA GPU is present.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -131,7 +135,15 @@ LM_ATTENTION = [(1, 4, 4, 70, 70, 128, True, None),
                 (1, 2, 1, 150, 150, 132, True, 50),
                 (1, 4, 4, 130, 257, 132, True, None),
                 (1, 1, 1, 70, 300, 512, False, None),
-                (1, 2, 2, 190, 190, 512, True, 100)]
+                (1, 2, 2, 190, 190, 512, True, 100),
+                # whisper-large-v3's d 64, rep 1: the encoder (non-causal,
+                # 1500 keys: not a multiple of a key tile), the decoder's
+                # causal self-attention and its cross-attention (384
+                # queries over 1500 keys); qwen2-vl-72b's 64 over 8 heads
+                (1, 20, 20, 1500, 1500, 64, False, None),
+                (2, 20, 20, 384, 384, 64, True, None),
+                (2, 20, 20, 384, 1500, 64, False, None),
+                (1, 64, 8, 300, 300, 128, True, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -156,9 +168,15 @@ DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
           (2, 24, 2, 257, 256, (257, 100)),
           (1, 12, 1, 130, 128, (130,)),
           (4, 32, 32, 200, 80, (200, 129, 64, 1)),
-          # the serving shapes of chip_smoke.py: Qwen2-7B and zamba2-2.7b
+          # the serving shapes of chip_smoke.py: Qwen2-7B, zamba2-2.7b,
+          # mixtral-8x7b, qwen2-vl-72b, and whisper-large-v3's decoder
+          # self-attention (448 slots) and cross-attention (1500 keys)
           (4, 28, 4, 2112, 128, (2049, 2080, 1500, 7)),
           (4, 32, 32, 2112, 80, (2049, 2080, 1500, 7)),
+          (4, 32, 8, 2112, 128, (2049, 2080, 1500, 7)),
+          (4, 64, 8, 2112, 128, (2049, 2080, 1500, 7)),
+          (4, 20, 20, 448, 64, (385, 448, 416, 400)),
+          (4, 20, 20, 1500, 64, (1500, 1500, 1500, 1500)),
           # the partition's edges: a tile of 32 rows (fp32 d 128) or 64
           # (bf16 d 128, d 80) +-1; a CTA's span of the 8-way split steps
           # by 16 rows at len 128 k -> 128 k + 1; S itself; lengths that
@@ -309,6 +327,85 @@ def test_lm_on_card_matches_cpu(dev):
         cl, cc = cpu.decode_step(cc, toks[:, t])
     assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
     assert max_err(gc["k"].cpu(), cc["k"]) <= 1e-4 * float(cc["k"].abs().max())
+
+
+def small_family_model(arch, dev, seed):
+    """A small fp32 model of ``arch``'s family on the card and the same
+    weights on the CPU."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config, reduced_config
+    from repro_torch.vae.model import map_params
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), n_layers=3)
+    if cfg.family == "moe":        # the published capacity: steps drop
+        cfg = dataclasses.replace(cfg, capacity_factor=1.25)
+    gpu = build_model(cfg, device=dev, seed=seed)
+    cpu = type(gpu)(cfg, device="cpu",
+                    params=map_params(gpu.params, lambda t: t.cpu()))
+    return cfg, gpu, cpu
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-vl-72b",
+                                  "whisper-large-v3"])
+def test_moe_vlm_encdec_on_card_match_cpu(dev, arch):
+    """Small fp32 MoE (capacity factor 1.25), VLM (an embeds prefix) and
+    enc-dec models: prefill and decode steps on the card through both
+    attention kernels against the plain CPU path, logits and every cache
+    leaf; each kernel's launches per prefill and per step."""
+    cfg, gpu, cpu = small_family_model(arch, dev, seed=8)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (3, 40))
+    side = None
+    if cfg.family == "vlm":
+        side = rng.standard_normal((3, 6, cfg.d_model)).astype(np.float32)
+    elif cfg.family == "encdec":
+        side = rng.standard_normal((3, 70, cfg.d_model)).astype(np.float32)
+
+    def prefill(model):
+        if cfg.family == "encdec":
+            return model.prefill(toks[:, :37], side, max_len=48)
+        return model.prefill(toks[:, :37], max_len=48, embeds=side)
+
+    ops.reset_launch_counts()
+    gl, gc = prefill(gpu)
+    layers = cfg.encoder_layers + 2 * cfg.n_layers \
+        if cfg.family == "encdec" else cfg.n_layers
+    assert ops.launch_counts()["flash_attention"] == layers
+    cl, cc = prefill(cpu)
+    for t in range(37, 40):
+        assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
+        ops.reset_launch_counts()
+        gl, gc = gpu.decode_step(gc, toks[:, t])
+        assert ops.launch_counts()["decode_attention"] == (
+            2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers)
+        cl, cc = cpu.decode_step(cc, toks[:, t])
+    assert max_err(gl.cpu(), cl) <= 1e-4 * float(cl.abs().max())
+    assert torch.equal(gc["pos"].cpu(), cc["pos"])
+    for key in [k for k in cc if k != "pos"]:
+        assert max_err(gc[key].cpu(), cc[key]) <= \
+            1e-4 * float(cc[key].abs().max()), key
+
+
+@pytest.mark.parametrize("t", [4, 37, 300])
+def test_moe_on_card_matches_cpu_without_a_host_sync(dev, t):
+    """``blocks.moe`` on CUDA tensors makes no synchronising call (a
+    decode step stays one stream of launches), drops what the CPU drops at
+    capacity factor 1.25, and gives the CPU's values in fp32."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import blocks as B
+    cfg = dataclasses.replace(reduced_config(get_config("mixtral-8x7b")),
+                              capacity_factor=1.25)
+    g = torch.Generator(device=dev).manual_seed(t)
+    params = B.moe_init(g, cfg)
+    x = torch.randn((1, t, cfg.d_model), generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = B.moe(params, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = B.moe({k: v.cpu() for k, v in params.items()}, x.cpu(), cfg)
+    assert max_err(got.cpu(), want) <= 1e-4 * float(want.abs().max())
 
 
 def test_gn_stats_against_float64(dev):

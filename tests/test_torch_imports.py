@@ -54,6 +54,8 @@ def port_modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = list(port_modules())
     assert len(mods) > 20
+    assert {"repro_torch.models.encdec", "repro_torch.models.blocks",
+            "repro_torch.models.lm", "repro_torch.models.bridge"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

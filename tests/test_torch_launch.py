@@ -385,7 +385,10 @@ def run_example(name, *args):
                            *args], capture_output=True, text=True,
                           timeout=300, cwd=ROOT,
                           env={**os.environ,
-                               "PYTHONPATH": str(ROOT / "src")})
+                               "PYTHONPATH": str(ROOT / "src"),
+                               # this module's thread cap, for the child
+                               # and the launcher it starts
+                               "OMP_NUM_THREADS": "2"})
 
 
 def test_quickstart_example_on_the_cpu():

@@ -8,8 +8,8 @@ reference's max |value| (fp32 with other summation orders).  Also a
 sliding window with a prompt longer than the window (the cache roll),
 one case with the JAX side on its Pallas kernels in interpret mode, the
 port's own prefill/decode consistency (atol 5e-3, as
-``tests/test_models.py``), the config registry, and the families that
-wait for later slices.
+``tests/test_models.py``), the config registry, and every other family
+built as the JAX package builds it.
 """
 
 import dataclasses
@@ -156,16 +156,24 @@ def test_qwen2_7b_full_width_parameter_count():
 @pytest.mark.parametrize("arch", [a for a in RC.ARCH_IDS
                                   if RC.get_config(a).family != "dense"])
 def test_other_families_wait_for_their_slice(arch):
-    """The ssm and hybrid families build (``tests/test_torch_ssm.py``
-    holds them to the JAX package); the others raise, naming their
-    ROADMAP item."""
+    """Every family builds, as the JAX package's ``build_model`` builds
+    it: an ``EncDecLM`` for enc-dec, a ``CausalLM`` for the rest
+    (``tests/test_torch_{moe,ssm,encdec,vlm}.py`` hold them to the JAX
+    package), with the reference's parameter count.  Only training
+    waits: ``loss`` raises, naming its ROADMAP item."""
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.lm import CausalLM
     cfg = TC.reduced_config(TC.get_config(arch))
-    if cfg.family in ("ssm", "hybrid"):
-        model = TC.build_model(cfg, device="cpu")
-        assert model.n_params > 0
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A 1"):
-        TC.build_model(cfg, device="cpu")
+    model = TC.build_model(cfg, device="cpu")
+    jm = RC.build_model(RC.reduced_config(RC.get_config(arch)))
+    assert type(model).__name__ == type(jm).__name__
+    assert isinstance(model, EncDecLM if cfg.family == "encdec"
+                      else CausalLM)
+    want = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
+        jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))))
+    assert model.n_params == want
+    with pytest.raises(NotImplementedError, match="ROADMAP A 16"):
+        model.loss({})
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

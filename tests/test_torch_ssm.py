@@ -388,4 +388,5 @@ def test_full_width_configs():
             zb.conv_width, zb.attn_every, zb.n_heads, zb.head_dim, zb.d_ff,
             zb.tie_embeddings) == \
         (54, 2560, 5120, 80, 64, 4, 6, 32, 80, 10240, True)
-    assert TL.NOT_PORTED.keys() == {"moe", "encdec", "vlm"}
+    assert set(TL.CAUSAL_FAMILIES) | {"encdec"} == \
+        {TC.get_config(a).family for a in TC.ARCH_IDS}
