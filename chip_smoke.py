@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
 path, its persistent sharded store, its serving runtime, its launcher,
-quickstart and decode cost model, and its LM serving paths (dense,
-RWKV-6, Mamba-2 hybrid, MoE, VLM, enc-dec) on one NVIDIA GPU and hold
-every Hopper kernel against its plain PyTorch version.
+quickstart and decode cost model, its LM serving paths (dense, RWKV-6,
+Mamba-2 hybrid, MoE, VLM, enc-dec) and its training loop on one NVIDIA
+GPU and hold every Hopper kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -166,13 +166,34 @@ wall seconds (any failure exits non-zero):
                 drops, its bf16 figure ungated, and its expert capacity at
                 the timed prefill and step), and a ``torch.profiler``
                 window of a prefill and four steps (device-busy share, top
-                kernels).
+                kernels);
+18. train       training on one card: a CUDA wrapper with no backward
+                (``rwkv6_scan``, ``conv3x3``) refuses an input that
+                requires grad (f); ``FlashAttention`` forward (the kernel)
+                and backward (``flash_attention_bwd_ref``) at a training
+                call's shapes, q [2, 28, 2048, 128] and k, v [2, 4, 2048,
+                128] bf16 causal, against fp32 autograd through the plain
+                version (a), with the forward's, the backward's and SDPA's
+                forward plus backward ms; small fp32 dense, MoE (capacity
+                factor E / k), VLM, hybrid and enc-dec models' loss and
+                every gradient leaf on the card against the CPU (b);
+                Qwen2-7B at full width, cut to 4 of 28 layers
+                (``DEPTH_CUT``), bf16, ``Trainer.run`` for 8 AdamW steps
+                of 4 x 2048 Zipf tokens in 2 microbatches with remat and
+                async checkpoints every 4, then a second trainer resumed
+                from step 4 whose losses match the first run's (c),
+                finite losses that fall (d), ``flash_attention`` launches
+                per step = layers x microbatches x 2 (e); step wall and
+                device ms, tokens/s, TFLOP/s and its share of the bf16
+                peak, peak memory, checkpoint bytes and a profile of one
+                step (the kernel's forward, the plain attention backward,
+                other GEMMs, AdamW, the rest).
 
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, stream, quant, autotune, launch and the six serving
-phases; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
+write, store, stream, quant, autotune, launch, the six serving phases
+and the train phase's first run; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
 ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
@@ -3091,6 +3112,408 @@ def phase_serve(torch, log, state, phase: str):
          bf16_vs_fp32_prefill_rel=floor)
 
 
+# ---------------------------------------------------------------------------
+# training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = LM_ARCH
+TRAIN_BATCH = 4           # sequences a step
+TRAIN_SEQ = 2048          # tokens a sequence
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+#: (a)'s shapes: one attention call of a training microbatch of Qwen2-7B
+TRAIN_ATTENTION = ((2, 28, 2048, 128), (2, 4, 2048, 128))
+TRAIN_ATTENTION_TOL = (
+    2e-2, "bf16 q, k, v and gradients (2^-9 relative each) against fp32 "
+          "autograd through flash_attention_ref; the kernel's P is rounded "
+          "to bf16 before P V, and the backward's row sums D read the bf16 "
+          "output; relative to each gradient's max |value|")
+#: (b)'s families: small fp32 models whose loss reaches attention
+TRAIN_CROSS = (LM_ARCH, MOE_ARCH, VLM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)
+TRAIN_CROSS_TOL = (
+    1e-4, "fp32 (TF32 off) with other summation orders on the two devices; "
+          "relative to each gradient leaf's max |value|, or to a thousandth "
+          "of the largest leaf's where a gradient is zero but for rounding "
+          "(the enc-dec's key biases under the softmax's shift invariance)")
+TRAIN_RESUME_TOL = (
+    2e-3, "the resumed run replays steps 4-7 from the step-4 checkpoint "
+          "(bf16 parameters, fp32 moments, bit for bit); on CUDA the "
+          "embedding's backward (an indexed add over repeated token ids) "
+          "and the bf16 GEMMs' split-K reductions may add in another order "
+          "from run to run, and AdamW turns a gradient's last bit into a "
+          "whole update on an element whose gradient is near 0; relative "
+          "to the loss")
+DEPTH_CUT["train"] = (
+    4, "Qwen2-7B's 7.62 B parameters train with bf16 weights and "
+       "gradients, an fp32 gradient accumulator and fp32 AdamW moments: "
+       "16 bytes a parameter, 122 GB, more than one 80 GB card; 4 of 28 "
+       "layers (4 x 233.06 M) with the embedding and the untied head (2 x "
+       "545.0 M) are 2.02 B parameters, 32.4 GB, plus about 6 GB of fp32 "
+       "logits and their gradient per microbatch of 2 x 2048 tokens")
+
+
+def train_config(get_config):
+    import dataclasses
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=DEPTH_CUT["train"][0])
+
+
+def grad_rel_errs(got, want):
+    """Per leaf path: max |got - want| over max(max |want|, a thousandth
+    of the largest |want|), got moved to want's device."""
+    gmax = max(float(t.abs().max()) for t in want.values())
+    return {k: float((g.to(want[k].device).float() - want[k].float())
+                     .abs().max())
+            / max(float(want[k].abs().max()), 1e-3 * gmax, 1e-30)
+            for k, g in got.items()}
+
+
+def train_attention_check(torch, state):
+    """(a): ``FlashAttention`` forward and backward at a training call's
+    shapes in bf16, causal, against autograd through
+    ``flash_attention_ref`` in fp32 on the card; the forward (the kernel),
+    the PyTorch backward and SDPA's forward plus backward timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    qs, kvs = TRAIN_ATTENTION
+    q, k, v, do = (torch.randn(s, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for s in (qs, kvs, kvs, qs))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_in = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*ref_in, causal=True), ref_in, do.float())
+    tol, why = TRAIN_ATTENTION_TOL
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((g.float() - w).abs().max() / w.abs().max())
+        need(g.dtype == torch.bfloat16 and errs[name] <= tol,
+             f"FlashAttention {name} differs by {errs[name]} > {tol}")
+    o = fa.flash_attention(q, k, v, causal=True)
+    fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
+                     REPS)
+    bwd_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, do, causal=True), REPS)
+    sq = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa():
+        y = F.scaled_dot_product_attention(*sq, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(y, sq, do)
+
+    sdpa_ms = cuda_ms(torch, sdpa, REPS)
+    n, hq, s, d = qs
+    causal_flops = 2.0 * n * hq * s * s * d       # Q K^T and P V, half
+    return {"q": list(qs), "kv": list(kvs), "dtype": "bfloat16",
+            "causal": True, "rel_err": errs, "tol": tol, "tol_reason": why,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms,
+            "forward_bound_ms": ops_ms(state, "flash_attention",
+                                       causal_flops, "bfloat16"),
+            "backward_bound_ms": ops_ms(state, "flash_attention",
+                                        2.5 * causal_flops, "bfloat16"),
+            "bwd_block_rows": ref.BWD_BLOCK_ROWS}
+
+
+def train_cross_check(torch, state, arch):
+    """(b): a small fp32 model of ``arch``'s family (``CROSS_LMS``; the
+    MoE at capacity factor E / k) on the card and on the CPU from the
+    same weights: the loss and every gradient leaf."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.models.lm import batch_on_device
+    from repro_torch.train.tree import flatten_with_paths, leaves
+    from repro_torch.vae.model import map_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                              **CROSS_LMS[arch])
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    gpu = build_model(cfg, device="cuda", seed=11)
+    cpu = type(gpu)(cfg, device="cpu",
+                    params=map_params(gpu.params, lambda t: t.cpu()))
+    toks = state["np"].random.default_rng(47).integers(0, cfg.vocab_size,
+                                                       (2, 45))
+    batch = {"tokens": toks, "labels": toks}
+    side = side_input(torch, cfg, 2, CROSS_PREFIX, 47, device="cpu")
+    if side is not None:
+        batch["frames" if cfg.family == "encdec" else "vision_embeds"] = side
+    out = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        flat = leaves(model.params)
+        for p in flat:
+            p.requires_grad_(True)
+        loss = model.loss(batch_on_device(batch, model.device))
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        out[name] = (loss.item(), {k: (torch.zeros_like(p) if g is None
+                                       else g)
+                                   for (k, p), g in zip(
+                                       flatten_with_paths(model.params),
+                                       grads)})
+    tol, why = TRAIN_CROSS_TOL
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    errs = grad_rel_errs(out["cuda"][1], out["cpu"][1])
+    worst = max(errs, key=errs.get)
+    need(loss_rel <= tol, f"small {arch} loss differs by {loss_rel}")
+    need(errs[worst] <= tol, f"small {arch} gradient {worst} differs by "
+         f"{errs[worst]} > {tol}")
+    return {"arch": arch, "config": dict(model_shape(cfg), dtype="float32"),
+            "tokens": [2, 45], "loss": out["cpu"][0], "loss_rel_err": loss_rel,
+            "grad_leaves": len(errs), "grad_rel_err_max": errs[worst],
+            "grad_rel_err_worst_leaf": worst, "tol": tol, "tol_reason": why}
+
+
+def train_guard_check(torch):
+    """(f): a CUDA wrapper with no backward refuses an input that
+    requires grad under grad mode: ``rwkv6_scan`` (naming its ROADMAP
+    item) and ``conv3x3`` (VAE)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    r, k, v, w = (torch.randn((1, 2, 8, 16), generator=gen, device="cuda")
+                  for _ in range(4))
+    u = torch.randn((2, 16), generator=gen, device="cuda")
+    x = torch.randn((1, 8, 8, 16), generator=gen, device="cuda")
+    cw = torch.randn((3, 3, 16, 16), generator=gen, device="cuda")
+    seen = {}
+    before = ops.launch_counts()
+    for name, call in (
+            ("rwkv6_scan", lambda: ops.rwkv6_scan(
+                r.requires_grad_(True), k, v, w, u)),
+            ("conv3x3", lambda: ops.conv3x3(x.requires_grad_(True), cw))):
+        try:
+            call()
+            raise SmokeFailure(f"{name} launched on an input that requires "
+                               "grad")
+        except NotImplementedError as err:
+            seen[name] = str(err)
+    need("ROADMAP A 16, rwkv6_scan backward" in seen["rwkv6_scan"],
+         seen["rwkv6_scan"])
+    need(ops.launch_counts() == before, "a refused call launched")
+    with torch.no_grad():
+        ops.rwkv6_scan(r, k, v, w, u)             # serving still launches
+    need(ops.launch_counts()["rwkv6_scan"] == before["rwkv6_scan"] + 1,
+         "rwkv6_scan under no_grad did not launch")
+    return seen
+
+
+def train_profile(torch, step):
+    """One train step under ``torch.profiler``: device ms of the
+    ``flash_attention`` kernels, of the ``flash_attention_bwd`` and
+    ``adamw`` ranges, of the other GEMMs, and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    gemm = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "matmul")
+
+    def is_gemm(name):
+        return any(g in name.lower() for g in gemm)
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash = sum(e.self_device_time_total for e in kernels
+                if "fa_bf16_kernel" in e.name or "fa_f32_kernel" in e.name
+                ) / 1e3
+    gemm_all = sum(e.self_device_time_total for e in kernels
+                   if is_gemm(e.name)) / 1e3
+
+    def launched(ev):
+        """Kernels launched from ``ev`` and its children (name, us)."""
+        out = [(kk.name, kk.duration) for kk in getattr(ev, "kernels", [])]
+        for ch in ev.cpu_children:
+            out += launched(ch)
+        return out
+
+    ranges = {"flash_attention_bwd": [], "adamw": []}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in ranges:
+            ranges[e.name] += launched(e)
+    bwd = sum(us for _, us in ranges["flash_attention_bwd"]) / 1e3
+    bwd_gemm = sum(us for n, us in ranges["flash_attention_bwd"]
+                   if is_gemm(n)) / 1e3
+    opt = sum(us for _, us in ranges["adamw"]) / 1e3
+    split = {"flash_attention_forward_ms": flash,
+             "attention_backward_ms": bwd,
+             "other_gemm_ms": gemm_all - bwd_gemm, "optimizer_ms": opt}
+    split["rest_ms"] = total - sum(split.values())
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name[:90]] += e.self_device_time_total / 1e3
+    return {"device_ms": total, **split, "device_kernels": len(kernels),
+            "top": [{"kernel": k, "ms": ms, "gemm": is_gemm(k)}
+                    for k, ms in by_name.most_common(12)]}
+
+
+def phase_train(torch, log, state):
+    """Training on one card: the grad guard (f), ``FlashAttention`` at a
+    training call's shapes (a), small fp32 models of each attention
+    family on the card against the CPU (b), then Qwen2-7B at full width
+    (``DEPTH_CUT``) in bf16: ``Trainer.run`` for ``TRAIN_STEPS`` steps of
+    4 x 2048 Zipf tokens in 2 microbatches, remat on, async checkpoints
+    every ``TRAIN_CKPT_EVERY``; a second trainer resumed from the step-4
+    checkpoint (c); finite losses that fall (d); ``flash_attention``
+    launches per step = layers x microbatches x 2 (e); step times, peak
+    memory, TFLOP/s and a profile of one step."""
+    import shutil
+    import tempfile
+    np = state["np"]
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.train.optim import AdamW, AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    state.pop("vae", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guard = train_guard_check(torch)
+    attention = train_attention_check(torch, state)
+    cross = [train_cross_check(torch, state, a) for a in TRAIN_CROSS]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    cfg = train_config(get_config)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=0)
+    n_params = model.n_params
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    per_step = {k: 0 for k in KERNELS}
+    per_step["flash_attention"] = cfg.n_layers * TRAIN_MICROBATCHES * 2
+    # two 20 GB checkpoints: under the checkout's ignored build/, on the
+    # disk that holds the kernels' build, not in OUT_DIR (copied back)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build")
+    try:
+        def trainer():
+            opt = AdamW(AdamWConfig(**TRAIN_OPT))
+            step = make_train_step(model, opt, TRAIN_MICROBATCHES)
+            dev_ms, launches = [], []
+
+            def timed(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                before = ops.launch_counts()
+                start.record()
+                out = step(*args)
+                stop.record()
+                stop.synchronize()
+                dev_ms.append(start.elapsed_time(stop))
+                after = ops.launch_counts()
+                launches.append({k: after[k] - before[k] for k in KERNELS})
+                out[3]["grad_norm"] = float(out[3]["grad_norm"])
+                grad_norms.append(out[3]["grad_norm"])
+                return out
+
+            grad_norms = []
+            tr = Trainer(model, opt, data, TrainerConfig(
+                steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                ckpt_dir=ckpt_root, keep_last=2,
+                microbatches=TRAIN_MICROBATCHES, log_every=1), step_fn=timed)
+            return tr, dev_ms, launches, grad_norms
+
+        first, dev_ms, step_launches, grad_norms = trainer()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        first.run(model.params)
+        run_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        state["launches"]["train"] = launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in first.history]
+        need(len(losses) == TRAIN_STEPS and all(map(np.isfinite, losses)),
+             f"train losses {losses}")
+        need(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        need(all(s == per_step for s in step_launches),
+             f"launches per step {step_launches}, expected {per_step}")
+        need(launches == {k: TRAIN_STEPS * n for k, n in per_step.items()},
+             f"train run launched {launches}")
+        need(first.ckpt.all_steps() == [4, 8],
+             f"checkpoints {first.ckpt.all_steps()}")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         Path(ckpt_root, "step_000000004").iterdir())
+        # preempted after step 4's checkpoint: a second trainer resumes
+        shutil.rmtree(Path(ckpt_root, "step_000000008"))
+        second, _, resume_launches, _ = trainer()
+        t0 = time.perf_counter()
+        second.run(model.params)
+        resume_s = time.perf_counter() - t0
+        resumed = [h["loss"] for h in second.history]
+        tol, why = TRAIN_RESUME_TOL
+        rel = [abs(a - b) / abs(b) for a, b in zip(resumed, losses[4:])]
+        need([h["step"] for h in second.history] == list(range(4, 8)),
+             f"resumed steps {[h['step'] for h in second.history]}")
+        need(max(rel) <= tol, f"resumed losses {resumed} against "
+             f"{losses[4:]}: {max(rel)} > {tol}")
+        need(all(s == per_step for s in resume_launches),
+             f"resumed launches per step {resume_launches}")
+        # one more step under the profiler, outside both runs
+        opt = AdamW(AdamWConfig(**TRAIN_OPT))
+        step = make_train_step(model, opt, TRAIN_MICROBATCHES)
+        opt_state = opt.init(model.params)
+        batch = data.batch(TRAIN_STEPS)
+        prof = train_profile(torch, lambda: step(model.params, opt_state,
+                                                 None, batch))
+        del opt_state
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall_ms = statistics.median(first.step_times) * 1e3
+    dev_med = statistics.median(dev_ms)
+    # matmul weights: the layers' (2 N a token forward, 4 N backward, 2 N
+    # for remat's forward) and the head's (no remat); the embedding is a
+    # gather
+    head = cfg.vocab_size * cfg.d_model
+    layer_params = n_params - 2 * head
+    attn_fwd = 2.0 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 \
+        * cfg.head_dim * cfg.n_layers            # causal Q K^T + P V
+    flops = (8.0 * layer_params + 6.0 * head) * tokens + 4.0 * attn_fwd
+    bf16_peak = state["peaks"][3]
+    emit(log, "train", arch=TRAIN_ARCH, dtype="bfloat16", **model_shape(cfg),
+         reduced=dict(layers=[cfg.n_layers,
+                              get_config(TRAIN_ARCH).n_layers],
+                      why=DEPTH_CUT["train"][1]),
+         params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         microbatches=TRAIN_MICROBATCHES, remat=cfg.remat,
+         steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, optimizer=TRAIN_OPT,
+         moment_dtype="float32", grad_dtype="float32",
+         losses=losses, grad_norms=grad_norms,
+         step_wall_ms=[x * 1e3 for x in first.step_times],
+         step_device_ms=dev_ms, step_wall_ms_median=wall_ms,
+         step_device_ms_median=dev_med,
+         tokens_per_s=tokens / wall_ms * 1e3,
+         tokens_per_s_device=tokens / dev_med * 1e3,
+         model_flops_per_step=flops,
+         flops_formula="(8 N_layers + 6 N_head) tokens (forward, "
+                       "backward and, for the layers, remat's forward) + "
+                       "4 x the causal attention's forward (twice forward, "
+                       "its backward twice that)",
+         tflops_per_s=flops / dev_med / 1e9,
+         bf16_peak_share=flops / dev_med * 1e3 / bf16_peak,
+         max_memory_allocated=peak, checkpoint_bytes=ckpt_bytes,
+         run_s=run_s, resume_s=resume_s, resumed_losses=resumed,
+         resume_rel_err=rel, resume_tol=tol, resume_tol_reason=why,
+         stragglers=first.stragglers, launches=launches,
+         launches_per_step=per_step, profile_step=prof,
+         attention=attention, crossdevice=cross, guard=guard)
+    del model, first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def flat_leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in flat_leaves(v)]
@@ -3132,6 +3555,7 @@ def main() -> int:
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:
             run_phase(log, phase, phase_serve, torch, log, state, phase)
+        run_phase(log, "train", phase_train, torch, log, state)
         totals = state["kernel_totals"]
         launches = {k: sum(run[k] for run in state["launches"].values())
                     for k in KERNELS}

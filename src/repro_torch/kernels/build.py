@@ -149,10 +149,42 @@ def check(err: int, what: str) -> None:
 # launch helpers shared by the wrappers
 # ---------------------------------------------------------------------------
 
+#: why a kernel's launch may not see a tensor that requires grad, where
+#: the reason is not that the JAX package never differentiates it
+NO_BACKWARD = {
+    "flash_attention": "its gradient goes through "
+                       "kernels.flash_attention.FlashAttention",
+    "rwkv6_scan": "its backward on the card is not written yet "
+                  "(ROADMAP A 16, rwkv6_scan backward)",
+}
+
+
+def forward_only(what: str, **tensors) -> None:
+    """Raise before a launch whose output autograd would not see: with
+    grad mode on, an input that requires grad would get no gradient
+    through the ``ctypes`` launch (its output is a fresh tensor with no
+    ``grad_fn``).  Serving under ``torch.inference_mode()`` or
+    ``torch.no_grad()`` passes."""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        if t is not None and t.requires_grad:
+            why = NO_BACKWARD.get(what, "the JAX package never "
+                                        "differentiates it")
+            raise NotImplementedError(
+                f"{what}: {name} requires grad, and the CUDA kernel has no "
+                f"backward: {why}; call it under torch.no_grad() or "
+                "torch.inference_mode()")
+
+
 def require(what: str, dtypes=None, **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of one of
-    ``dtypes`` (default: float32 only)."""
+    ``dtypes`` (default: float32 only), and (:func:`forward_only`) unless
+    autograd can do without a gradient through the launch.  Every
+    wrapper calls it on each tensor input before it launches."""
     import torch
+    forward_only(what, **tensors)
     dtypes = (torch.float32,) if dtypes is None else dtypes
     for name, t in tensors.items():
         if not t.is_cuda:

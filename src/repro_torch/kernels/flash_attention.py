@@ -7,6 +7,13 @@ head dim 128 on ``wgmma`` with P rounded to bf16 before P V; fp32, and
 bf16 above 128, in 3xTF32 on ``mma.sync``), fp32 softmax and
 accumulation, output in ``q.dtype``.  On the CPU: the plain version,
 ``ref.flash_attention_ref``.
+
+:func:`flash_attention` goes through :class:`FlashAttention`, so the
+output stays in the autograd graph on both devices: the forward is the
+kernel (or the plain version on the CPU), the backward
+``ref.flash_attention_bwd_ref``, PyTorch arithmetic as the JAX package's
+backward is XLA's (no TPU kernel had a backward).  Under
+``torch.inference_mode()`` the launch and its bits are the same.
 """
 
 from __future__ import annotations
@@ -24,6 +31,29 @@ launches = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernel's forward and a plain backward: saves q,
+    k, v and the output, and hands the output's gradient to
+    ``ref.flash_attention_bwd_ref``.  Under remat the forward (and so the
+    kernel) runs again in the backward pass, and counts again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        o = _forward(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = ref.flash_attention_bwd_ref(
+                q, k, v, o, do.contiguous(), causal=ctx.causal,
+                scale=ctx.scale, window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -31,7 +61,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head h reads kv head ``h // (hq // hkv)``) -> [n, hq, sq, d].
     ``causal`` and ``window`` mask with q aligned at the sequence end
     (query i sits at position ``i + skv - sq``); ``scale`` defaults to
-    ``d ** -0.5``."""
+    ``d ** -0.5``.  Differentiable (:class:`FlashAttention`)."""
+    d = q.shape[-1]
+    scale = float(d ** -0.5) if scale is None else float(scale)
+    return FlashAttention.apply(q, k, v, bool(causal), scale, window)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, scale: float, window: Optional[int]
+             ) -> torch.Tensor:
+    """The forward alone: the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
     global launches
     n, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -42,7 +82,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(k/v [n, hkv, skv, d] with hq a multiple of hkv)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")
-    scale = float(d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                        window=window)

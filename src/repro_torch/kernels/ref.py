@@ -198,6 +198,85 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+#: query rows per block of :func:`flash_attention_bwd_ref`: at the
+#: Qwen2-7B training shape (28 heads, 2048 keys, batch 2) a block's fp32
+#: scores are 2 x 28 x 512 x 2048 x 4 bytes = 235 MB, a quarter of the
+#: whole call's
+BWD_BLOCK_ROWS = 512
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, causal: bool = False,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradient of :func:`flash_attention_ref` at (q, k, v), given its
+    output ``o`` and the output's gradient ``do``: (dq, dk, dv), each in
+    its input's dtype.
+
+    It works in fp32 (fp64 inputs in fp64) on blocks of
+    :data:`BWD_BLOCK_ROWS` query rows, recomputing each block's
+    probabilities P from q and k under the forward's masks (causal and
+    window aligned at the sequence end, a row with no key gives 0), so
+    no ``[n, hq, sq, skv]`` tensor of the whole call is held; a block
+    reads only the keys its masks leave.  With dP = dO V^T and D the
+    row sums of dO * O (FlashAttention-2's identity for the row sums of
+    P * dP), dS = P (dP - D) * scale, dq = dS k, dk = dS^T q and dv =
+    P^T dO; dk and dv sum each group of ``hq // hkv`` query heads (GQA).
+    """
+    n, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kx, vx = k.to(ct), v.to(ct)
+    if rep > 1:
+        kx = kx.repeat_interleave(rep, dim=1)
+        vx = vx.repeat_interleave(rep, dim=1)
+    dq = torch.zeros((n, hq, sq, d), dtype=ct, device=q.device)
+    dk = torch.zeros((n, hq, skv, d), dtype=ct, device=q.device)
+    dv = torch.zeros_like(dk)
+    shift = skv - sq                      # query i sits at position i + shift
+    for r0 in range(0, sq, BWD_BLOCK_ROWS):
+        r1 = min(sq, r0 + BWD_BLOCK_ROWS)
+        k0, k1 = 0, skv
+        if causal:
+            k1 = min(skv, r1 + shift)
+        if window is not None:
+            k0 = max(0, r0 + shift - window + 1)
+        if k1 <= k0:                      # no key left: P = 0
+            continue
+        qb = q[:, :, r0:r1].to(ct)
+        dob = do[:, :, r0:r1].to(ct)
+        kb, vb = kx[:, :, k0:k1], vx[:, :, k0:k1]
+        s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+        if causal or window is not None:
+            qpos = torch.arange(r0, r1, device=q.device)[:, None] + shift
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            mask = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+            p = p.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
+        else:
+            p = torch.softmax(s, dim=-1)
+        dv[:, :, k0:k1] += torch.matmul(p.transpose(-1, -2), dob)
+        dp = torch.matmul(dob, vb.transpose(-1, -2))
+        rows = (dob * o[:, :, r0:r1].to(ct)).sum(dim=-1, keepdim=True)
+        ds = p * (dp - rows) * scale
+        dq[:, :, r0:r1] = torch.matmul(ds, kb)
+        dk[:, :, k0:k1] += torch.matmul(ds.transpose(-1, -2), qb)
+    if rep > 1:
+        dk = dk.reshape(n, hkv, rep, skv, d).sum(dim=2)
+        dv = dv.reshape(n, hkv, rep, skv, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:

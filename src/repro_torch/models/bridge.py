@@ -14,11 +14,18 @@ its ``enc_layers`` and ``dec_layers`` the same way::
 
     lm_from_numpy(cfg, tree, device=...)
     encdec_from_numpy(cfg, tree, device=...)
+
+:func:`to_numpy` goes the other way, for a tree of parameters or of
+their gradients: each list of per-layer trees is stacked back into the
+JAX package's ``[L, ...]`` leaves, as numpy (floating leaves in fp32,
+which holds every bf16 value).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import numpy as np
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
@@ -57,3 +64,22 @@ def _split(params: Dict[str, Any], key: str, n: int) -> Dict[str, Any]:
     stacked = params[key]
     params[key] = [map_params(stacked, lambda t, i=i: t[i]) for i in range(n)]
     return params
+
+
+def to_numpy(tree) -> Any:
+    """A port tree (dicts, per-layer lists, tensors) -> the JAX package's
+    layout as numpy: every list of layer trees becomes one tree of
+    ``[L, ...]`` leaves; floating tensors come over in fp32."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        layers = [to_numpy(v) for v in tree]
+        return _stack(layers)
+    t = tree.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    return np.stack(layers)

@@ -205,3 +205,17 @@ def stacked(init_fn, gen: torch.Generator, n: int):
     """``n`` layers of ``init_fn(gen)``: the JAX package's stacked
     ``[L, ...]`` leaves become a list of per-layer trees."""
     return [init_fn(gen) for _ in range(n)]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL over the labels that are not ``ignore_id``, the
+    logits' logsumexp in fp32 (the JAX package's ``cross_entropy_loss``);
+    0 where every label is ignored."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -13,7 +13,12 @@ dh]``); a decode step reads them through ``decode_attention`` at length
 Se and writes only its own token's self-attention K/V (``k``/``v`` ``[L,
 B, H, max_len, dh]``, no window), in place.  The parameter tree is the
 JAX package's with the stacked ``enc_layers`` and ``dec_layers`` as lists
-of per-layer dicts.  ``loss`` and training wait for ROADMAP A 16.
+of per-layer dicts.
+
+Training: :func:`loss` is the decoder's mean token NLL over ``frames``,
+``tokens`` and ``labels``; with ``cfg.remat`` on and grad enabled every
+encoder and decoder layer is a checkpointed region (the JAX package's
+``jax.checkpoint`` of each scanned layer).
 """
 
 from __future__ import annotations
@@ -21,13 +26,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 from repro_torch.models import common as C
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.lm import TRAINING, leaf_dtypes
+from repro_torch.models.lm import batch_on_device, leaf_dtypes, remat_on
 from repro_torch.vae.model import param_count
 
 
@@ -85,6 +91,25 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _layers(body, layers, x: torch.Tensor, cfg: ModelConfig, *args
+            ) -> torch.Tensor:
+    """``x = body(p, x, *args)`` for each layer's ``p``, each a
+    checkpointed region under :func:`~repro_torch.models.lm.remat_on`."""
+    remat = remat_on(cfg)
+    for p in layers:
+        x = (checkpoint(body, p, x, *args, use_reentrant=False) if remat
+             else body(p, x, *args))
+    return x
+
+
+def _enc_layer(p, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    h, _, _ = B.attention(p["attn"], _ln(x, p["ln1"], cfg), cfg,
+                          positions, causal=False)
+    x = x + h
+    return x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames [B, Se, d] (the stub frontend's output) -> encoder states:
     non-causal attention over the frames in every layer."""
@@ -92,12 +117,37 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     pos = C.sinusoidal_positions(se, cfg.d_model, frames.device)
     x = frames.to(cfg.dtype) + pos.to(cfg.dtype)[None]
     positions = _positions(b, se, frames.device)
-    for p in params["enc_layers"]:
-        h, _, _ = B.attention(p["attn"], _ln(x, p["ln1"], cfg), cfg,
-                              positions, causal=False)
-        x = x + h
-        x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+    x = _layers(_enc_layer, params["enc_layers"], x, cfg, cfg, positions)
     return _ln(x, params["enc_norm"], cfg)
+
+
+def _dec_layer(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+               enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder layer over a full sequence: causal self-attention,
+    cross-attention to the encoder states, the MLP."""
+    h, _, _ = B.attention(p["self_attn"], _ln(x, p["ln1"], cfg), cfg,
+                          positions, causal=True)
+    x = x + h
+    h, _, _ = B.attention(p["cross_attn"], _ln(x, p["lnx"], cfg), cfg,
+                          positions, causal=False,
+                          kv=cross_kv(p["cross_attn"], enc_out, cfg))
+    x = x + h
+    return x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+
+
+def loss(params, batch: Dict[str, torch.Tensor],
+         cfg: ModelConfig) -> torch.Tensor:
+    """The training objective: ``batch`` holds ``frames`` [B, Se, d],
+    ``tokens`` and ``labels`` [B, S] -> the decoder's mean token NLL
+    (labels -1 ignored), fp32."""
+    enc_out = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = params["embed"][tokens] + params["pos_embed"][:s][None]
+    x = _layers(_dec_layer, params["dec_layers"], x, cfg, cfg,
+                _positions(b, s, tokens.device), enc_out)
+    h = _ln(x, params["final_norm"], cfg)
+    return C.cross_entropy_loss(h @ params["embed"].T, batch["labels"])
 
 
 def cross_kv(p_attn, enc_out: torch.Tensor, cfg: ModelConfig
@@ -200,8 +250,10 @@ class EncDecLM:
     As :class:`repro_torch.models.lm.CausalLM`: ``params`` (e.g. from
     :func:`repro_torch.models.bridge.encdec_from_numpy`) replaces the
     seeded initialisation; ``device`` defaults to ``"cuda"`` and raises
-    where CUDA is absent; every entry point runs under
-    ``torch.inference_mode()``.  ``max_target_positions`` is the rows of
+    where CUDA is absent; every serving entry point runs under
+    ``torch.inference_mode()``, and the parameters are made under
+    ``torch.no_grad()`` for training (:meth:`loss`).
+    ``max_target_positions`` is the rows of
     ``pos_embed`` (the JAX package's default, 32768).
     """
 
@@ -213,7 +265,7 @@ class EncDecLM:
                              f"family, not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        with torch.inference_mode():
+        with torch.no_grad():
             if params is None:
                 gen = torch.Generator(device=self.device).manual_seed(
                     int(seed))
@@ -251,5 +303,11 @@ class EncDecLM:
             return decode_step(self.params, cache, self._tokens(tokens),
                                self.cfg)
 
-    def loss(self, batch):
-        raise NotImplementedError(f"{self.cfg.name}: {TRAINING}")
+    def batch_on_device(self, batch) -> Dict[str, torch.Tensor]:
+        return batch_on_device(batch, self.device)
+
+    def loss(self, batch, params=None) -> torch.Tensor:
+        """:func:`loss` of ``params`` (default: the model's own) on
+        ``batch`` (numpy or tensors), under the caller's grad mode."""
+        return loss(self.params if params is None else params,
+                    self.batch_on_device(batch), self.cfg)

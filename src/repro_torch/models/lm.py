@@ -14,8 +14,14 @@ cache has the JAX package's tree: ``pos [B]`` int32; ``k``/``v`` ``[L, B,
 Hkv, S, dh]`` (dense); ``ssm`` with each state leaf stacked on L (SSM and
 hybrid); ``shared_k``/``shared_v`` ``[napp, B, Hkv, S, dh]`` (hybrid).
 ``decode_step`` updates it in place.  The enc-dec family is
-:class:`repro_torch.models.encdec.EncDecLM`, as in the JAX package;
-``loss`` and training wait for ROADMAP A 16.
+:class:`repro_torch.models.encdec.EncDecLM`, as in the JAX package.
+
+Training: :func:`loss` is the JAX package's objective (mean token NLL,
+a VLM's embeds prefix unlabelled).  With ``cfg.remat`` on and grad
+enabled each layer (with the hybrid's shared block after it) runs under
+``torch.utils.checkpoint``: its activations are recomputed in the
+backward pass, as the JAX package's ``jax.checkpoint`` with
+``nothing_saveable`` recomputes them.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -33,9 +40,6 @@ from repro_torch.vae.model import param_count
 
 #: the families this model serves (the enc-dec family is ``EncDecLM``)
 CAUSAL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-
-#: what training needs and the port does not have yet
-TRAINING = "training (loss, optimiser, data) waits for ROADMAP A 16"
 
 #: parameter leaves the JAX init makes fp32 whatever ``cfg.dtype`` is:
 #: RWKV-6's decay base and bonus, Mamba-2's decay, skip and step bias, and
@@ -178,26 +182,47 @@ def _layer_state(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in cache["ssm"].items()}
 
 
+def remat_on(cfg: ModelConfig) -> bool:
+    """Whether a full pass recomputes its layers in the backward pass:
+    ``cfg.remat`` with grad enabled (a serving pass keeps nothing)."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def _layer(params, i: int, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor,
+           cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Layer ``i``, then the shared block where it follows layer ``i``."""
+    p = params["layers"][i]
+    if cfg.ssm_type:
+        x = _ssm_layer(p, x, cfg,
+                       None if cache is None else _layer_state(cache, i))
+    else:
+        x = _attn_block(p, x, cfg, positions,
+                        None if cache is None
+                        else (cache["k"][i], cache["v"][i]))
+    app = _shared_slot(cfg, i)
+    if app is not None:
+        x = _attn_block(params["shared"], x, cfg, positions,
+                        None if cache is None
+                        else (cache["shared_k"][app],
+                              cache["shared_v"][app]))
+    return x
+
+
 def _forward(params, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor,
              cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Every layer (and the shared block after every ``attn_every``-th)
     over a full sequence; with a cache, each layer's k/v or final SSM
-    state goes into it."""
-    for i, p in enumerate(params["layers"]):
-        if cfg.ssm_type:
-            x = _ssm_layer(p, x, cfg,
-                           None if cache is None else _layer_state(cache, i))
+    state goes into it.  Without one, under :func:`remat_on`, each layer
+    is a checkpointed region."""
+    remat = cache is None and remat_on(cfg)
+    for i in range(len(params["layers"])):
+        if remat:
+            x = checkpoint(_layer, params, i, x, cfg, positions,
+                           use_reentrant=False)
         else:
-            x = _attn_block(p, x, cfg, positions,
-                            None if cache is None
-                            else (cache["k"][i], cache["v"][i]))
-        app = _shared_slot(cfg, i)
-        if app is not None:
-            x = _attn_block(params["shared"], x, cfg, positions,
-                            None if cache is None
-                            else (cache["shared_k"][app],
-                                  cache["shared_v"][app]))
+            x = _layer(params, i, x, cfg, positions, cache)
     return x
 
 
@@ -228,6 +253,32 @@ def logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["lm_head"]
+
+
+def loss(params, batch: Dict[str, torch.Tensor],
+         cfg: ModelConfig) -> torch.Tensor:
+    """The training objective: ``batch`` holds ``tokens`` [B, S] and
+    ``labels`` [B, S] (and a VLM's ``vision_embeds`` [B, P, d], whose
+    positions get label -1 and no loss) -> mean token NLL, fp32."""
+    h = hidden(params, batch.get("tokens"), cfg, batch.get("vision_embeds"))
+    lg = logits(params, h, cfg)
+    labels = batch["labels"]
+    if lg.shape[1] != labels.shape[1]:            # frontend prefix: no loss
+        pad = lg.shape[1] - labels.shape[1]
+        labels = torch.cat([torch.full(labels.shape[:1] + (pad,), -1,
+                                       dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+    return C.cross_entropy_loss(lg, labels)
+
+
+def batch_on_device(batch, device) -> Dict[str, torch.Tensor]:
+    """A training batch (numpy arrays or tensors) on ``device``: token ids
+    and labels as int64, side inputs (``vision_embeds``, ``frames``) in
+    their own dtype."""
+    return {k: torch.as_tensor(v, device=device,
+                               dtype=(torch.long if k in ("tokens", "labels")
+                                      else None))
+            for k, v in batch.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -310,9 +361,12 @@ class CausalLM:
     target device.  Each leaf is cast to the dtype the JAX init gives it
     (:func:`leaf_dtypes`).  ``device`` defaults to ``"cuda"`` and raises
     where CUDA is absent; pass ``device="cpu"`` for the plain path.  Every
-    entry point runs under ``torch.inference_mode()`` and takes token ids
-    (and a VLM's ``embeds`` [B, P, d]) as anything ``torch.as_tensor``
-    reads.
+    serving entry point runs under ``torch.inference_mode()`` and takes
+    token ids (and a VLM's ``embeds`` [B, P, d]) as anything
+    ``torch.as_tensor`` reads.  The parameters are made under
+    ``torch.no_grad()``, not as inference tensors, so that training can
+    differentiate them in place (:meth:`loss`,
+    :mod:`repro_torch.train.train_step`).
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
@@ -323,7 +377,7 @@ class CausalLM:
                              "enc-dec family is models.encdec.EncDecLM)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        with torch.inference_mode():
+        with torch.no_grad():
             if params is None:
                 gen = torch.Generator(device=self.device).manual_seed(
                     int(seed))
@@ -367,5 +421,11 @@ class CausalLM:
             return decode_step(self.params, cache, self._tokens(tokens),
                                self.cfg)
 
-    def loss(self, batch):
-        raise NotImplementedError(f"{self.cfg.name}: {TRAINING}")
+    def batch_on_device(self, batch) -> Dict[str, torch.Tensor]:
+        return batch_on_device(batch, self.device)
+
+    def loss(self, batch, params=None) -> torch.Tensor:
+        """:func:`loss` of ``params`` (default: the model's own) on
+        ``batch`` (numpy or tensors), under the caller's grad mode."""
+        return loss(self.params if params is None else params,
+                    self.batch_on_device(batch), self.cfg)

@@ -1451,3 +1451,116 @@ def test_serve_launcher_on_card(dev, capsys):
         assert g.payload.dtype == np.uint8
         assert np.abs(g.payload.astype(np.int16)
                       - w.payload.astype(np.int16)).max() <= 1, g.oid
+
+
+# ---------------------------------------------------------------------------
+# training: FlashAttention under autograd, the grad guard, a Trainer
+# ---------------------------------------------------------------------------
+
+#: ragged training shapes: GQA, windows, sq != skv, d 64 / 80 / 128
+ATTENTION_GRAD = [(2, 4, 2, 70, 70, 128, True, None),
+                  (1, 6, 3, 130, 130, 80, True, 33),
+                  (1, 4, 4, 45, 97, 64, True, None),
+                  (2, 2, 1, 100, 60, 64, False, None),
+                  (1, 8, 2, 600, 600, 128, True, 257)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", ATTENTION_GRAD)
+def test_flash_attention_gradients_on_card(dev, n, hq, hkv, sq, skv, d,
+                                           causal, window, dtype):
+    """``ops.flash_attention`` (the kernel's forward, the plain backward)
+    against autograd through the plain version in fp32 on the same
+    tensors: 1e-4 of each gradient's max in fp32 (3xTF32 against TF32
+    off), 2e-2 in bf16 (bf16 inputs and gradients; the kernel's P in
+    bf16 before P V, which the backward's row sums read)."""
+    q, k, v, do = (a.to(dtype) for a in randn(
+        dev, 61, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d),
+        (n, hq, sq, d)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    assert out.grad_fn is not None
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    got = torch.autograd.grad(out, leaves, do)
+    plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(
+        *plain, causal=causal, window=window), plain, do.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert max_err(g.float(), w) <= tol * float(w.abs().max())
+
+
+def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
+    """Every wrapper with no backward raises before its launch when an
+    input requires grad under grad mode; serving modes launch."""
+    x, w4, s4, wt = randn(dev, 67, (1, 8, 8, 16), (3, 3, 16, 16), (16,),
+                          (3, 3, 16, 3))
+    q, kc = randn(dev, 68, (2, 4, 32), (2, 2, 40, 32))
+    lens = torch.tensor([40, 7], device=dev, dtype=torch.int32)
+    r = randn(dev, 69, (1, 2, 8, 16))[0]
+    u = randn(dev, 70, (2, 16))[0]
+    calls = {
+        "conv3x3": lambda g: ops.conv3x3(g(x), w4),
+        "gn_silu_conv3x3": lambda g: ops.gn_silu_conv3x3(
+            x, g(s4), s4, w4, groups=4),
+        "upsample_conv3x3": lambda g: ops.upsample_conv3x3(x, g(w4)),
+        "output_epilogue": lambda g: ops.output_epilogue(g(x), s4, s4, wt,
+                                                         groups=4),
+        "group_norm_silu": lambda g: ops.group_norm_silu(g(x), s4, s4,
+                                                         groups=4),
+        "decode_attention": lambda g: ops.decode_attention(g(q), kc, kc,
+                                                           lens),
+        "rwkv6_scan": lambda g: ops.rwkv6_scan(r, r, g(r), r, u),
+    }
+    for name, call in calls.items():
+        before = ops.launch_counts()[name]
+        with pytest.raises(NotImplementedError, match=name):
+            call(lambda t: t.clone().requires_grad_(True))
+        assert ops.launch_counts()[name] == before, name
+        with torch.no_grad():
+            call(lambda t: t.clone().requires_grad_(True))
+        assert ops.launch_counts()[name] == before + 1, name
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A 16, rwkv6_scan backward"):
+        ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, r, u)
+
+
+def test_trainer_on_card_matches_cpu(dev, tmp_path):
+    """Two microbatched steps with compression of a small fp32 model on
+    the card (through ``flash_attention``, remat on) and on the CPU from
+    the same weights: losses within 1e-4, launches layers x microbatches
+    x 2 a step, a checkpoint that resumes."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config, reduced_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.train.optim import AdamW, AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.vae.model import map_params
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-7b")),
+                              n_heads=8, n_kv_heads=2, d_model=256,
+                              remat=True)
+    gpu = build_model(cfg, device=dev, seed=4)
+    cpu = type(gpu)(cfg, device="cpu",
+                    params=map_params(gpu.params, lambda t: t.cpu()))
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      global_batch=4))
+    runs = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        tr = Trainer(model, AdamW(AdamWConfig(lr=1e-3, warmup_steps=1,
+                                              eps=1e-3)), data,
+                     TrainerConfig(steps=2, ckpt_every=1,
+                                   ckpt_dir=str(tmp_path / name),
+                                   microbatches=2, compress_grads=True))
+        ops.reset_launch_counts()
+        tr.run()
+        runs[name] = (tr, ops.launch_counts())
+    (gt, glaunch), (ct, _) = runs["cuda"], runs["cpu"]
+    assert glaunch["flash_attention"] == 2 * cfg.n_layers * 2 * 2
+    for a, b in zip(gt.history, ct.history):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    assert gt.ckpt.all_steps() == [1, 2]
+    restored, step = gt.ckpt.restore({"params": gpu.params})
+    assert step == 2 and restored["params"]["embed"].is_cuda
+    assert torch.equal(restored["params"]["embed"], gpu.params["embed"])

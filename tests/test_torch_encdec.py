@@ -195,8 +195,8 @@ def test_init_matches_the_references_tree():
 def test_loss_waits_for_training_and_families_are_checked():
     cfg = TC.reduced_config(TC.get_config(ARCH))
     model = EncDecLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A 16"):
-        model.loss({})
+    with pytest.raises(KeyError, match="frames"):
+        model.loss({})                    # the loss needs the frames
     with pytest.raises(ValueError, match="encdec"):
         EncDecLM(TC.reduced_config(TC.get_config("qwen2-7b")), device="cpu")
     from repro_torch.models.lm import CausalLM

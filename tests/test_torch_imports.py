@@ -37,7 +37,8 @@ COPIED = ["compression/latentcodec.py", "compression/ladder.py",
           "configs/phi4_mini.py", "configs/qwen2_7b.py",
           "configs/qwen2_vl_72b.py", "configs/qwen3_14b.py",
           "configs/rwkv6_7b.py", "configs/whisper_large_v3.py",
-          "configs/zamba2_2p7b.py"]
+          "configs/zamba2_2p7b.py", "data/__init__.py",
+          "data/synthetic.py"]
 FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
                        r"import repro\s*$|from repro import)", re.M)
 
@@ -55,7 +56,12 @@ def test_every_module_imports_without_jax_or_repro():
     mods = list(port_modules())
     assert len(mods) > 20
     assert {"repro_torch.models.encdec", "repro_torch.models.blocks",
-            "repro_torch.models.lm", "repro_torch.models.bridge"} <= set(mods)
+            "repro_torch.models.lm", "repro_torch.models.bridge",
+            "repro_torch.data.synthetic", "repro_torch.train.optim",
+            "repro_torch.train.train_step", "repro_torch.train.trainer",
+            "repro_torch.train.grad_compress", "repro_torch.train.tree",
+            "repro_torch.ckpt.checkpoint",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -76,7 +82,8 @@ def test_every_module_imports_without_jax_or_repro():
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_compare.py", "examples/quickstart_torch.py",
-       "examples/serve_trace_replay_torch.py"]))
+       "examples/serve_trace_replay_torch.py",
+       "examples/train_tiny_lm_torch.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), path

@@ -159,8 +159,9 @@ def test_other_families_wait_for_their_slice(arch):
     """Every family builds, as the JAX package's ``build_model`` builds
     it: an ``EncDecLM`` for enc-dec, a ``CausalLM`` for the rest
     (``tests/test_torch_{moe,ssm,encdec,vlm}.py`` hold them to the JAX
-    package), with the reference's parameter count.  Only training
-    waits: ``loss`` raises, naming its ROADMAP item."""
+    package), with the reference's parameter count, and ``loss`` gives a
+    finite scalar (``tests/test_torch_train.py`` holds it and its
+    gradients to the JAX package)."""
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.lm import CausalLM
     cfg = TC.reduced_config(TC.get_config(arch))
@@ -172,8 +173,13 @@ def test_other_families_wait_for_their_slice(arch):
     want = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
         jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))))
     assert model.n_params == want
-    with pytest.raises(NotImplementedError, match="ROADMAP A 16"):
-        model.loss({})
+    toks = tokens(cfg, 2, 6)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = np.zeros((2, cfg.encoder_seq, cfg.d_model),
+                                   np.float32)
+    loss = model.loss(batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
