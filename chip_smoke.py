@@ -167,16 +167,38 @@ wall seconds (any failure exits non-zero):
                 the timed prefill and step), and a ``torch.profiler``
                 window of a prefill and four steps (device-busy share, top
                 kernels);
-18. train       training on one card: a CUDA wrapper with no backward
-                (``rwkv6_scan``, ``conv3x3``) refuses an input that
-                requires grad (f); ``FlashAttention`` forward (the kernel)
+18. dist        sharded layouts and RWKV-6 training on the card: (c)
+                ``make_decode_step(SD35_VAE, make_local_mesh())`` at
+                bucket 8, 512x512, its pixels bit-identical to the
+                unsharded step's; (a) rwkv6-7b at full width, 2 of 32
+                layers, bf16, 3 AdamW steps of 2 x 512 tokens (finite
+                losses, ``rwkv6_scan`` launches per step = layers x 2
+                with remat), and ``RWKV6Scan`` at the training shape, r,
+                k, v [2, 64, 512, 64] bf16: its gradients against fp32
+                autograd through the sequential plain scan, the forward
+                kernel's and the backward's ms; (b) Qwen2-7B at full
+                width, 2 of 28 layers, 2 steps of 2 microbatches,
+                unsharded and then on the (1, 1) NCCL mesh with ZeRO-1
+                moments and the "local" gradient plan: losses and
+                parameters bit for bit, the same ``flash_attention``
+                launches, both steps' device ms; (d) ``prefill`` of 2 x
+                1024 tokens on the trained weights, plain and on their
+                DTensor copy over that mesh (the cache laid out by
+                ``cache_pspecs``): logits and cache bit for bit, the
+                same launches, both prefills' ms;
+19. train       training on one card: a CUDA wrapper with no backward
+                (``conv3x3``) refuses an input that requires grad, and
+                ``rwkv6_scan`` under grad launches once through
+                ``RWKV6Scan`` (f); ``FlashAttention`` forward (the kernel)
                 and backward (``flash_attention_bwd_ref``) at a training
                 call's shapes, q [2, 28, 2048, 128] and k, v [2, 4, 2048,
                 128] bf16 causal, against fp32 autograd through the plain
                 version (a), with the forward's, the backward's and SDPA's
-                forward plus backward ms; small fp32 dense, MoE (capacity
-                factor E / k), VLM, hybrid and enc-dec models' loss and
-                every gradient leaf on the card against the CPU (b);
+                forward plus backward ms; small fp32 dense, RWKV-6, MoE
+                (capacity factor E / k), VLM, hybrid and enc-dec models'
+                loss and every gradient leaf on the card against the CPU
+                (b; RWKV-6's ill-conditioned gradients at their own
+                tolerance, beside the CPU's spread over thread counts);
                 Qwen2-7B at full width, cut to 4 of 28 layers
                 (``DEPTH_CUT``), bf16, ``Trainer.run`` for 8 AdamW steps
                 of 4 x 2048 Zipf tokens in 2 microbatches with remat and
@@ -192,8 +214,8 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, stream, quant, autotune, launch, the six serving phases
-and the train phase's first run; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
+write, store, stream, quant, autotune, launch, the six serving phases,
+the dist phase's three runs and the train phase's first run; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
 ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
@@ -3130,13 +3152,22 @@ TRAIN_ATTENTION_TOL = (
           "autograd through flash_attention_ref; the kernel's P is rounded "
           "to bf16 before P V, and the backward's row sums D read the bf16 "
           "output; relative to each gradient's max |value|")
-#: (b)'s families: small fp32 models whose loss reaches attention
-TRAIN_CROSS = (LM_ARCH, MOE_ARCH, VLM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)
+#: (b)'s families: small fp32 models whose loss reaches attention or
+#: RWKV-6's scan
+TRAIN_CROSS = (LM_ARCH, SSM_ARCH, MOE_ARCH, VLM_ARCH, HYBRID_ARCH,
+               ENCDEC_ARCH)
 TRAIN_CROSS_TOL = (
     1e-4, "fp32 (TF32 off) with other summation orders on the two devices; "
           "relative to each gradient leaf's max |value|, or to a thousandth "
           "of the largest leaf's where a gradient is zero but for rounding "
           "(the enc-dec's key biases under the softmax's shift invariance)")
+TRAIN_CROSS_SSM_TOL = (
+    1e-3, "RWKV-6's fp32 gradients are ill-conditioned: the CPU alone "
+          "moves them by cpu_order_spread (printed beside) when only its "
+          "thread count, so its GEMMs' summation order, changes, and the "
+          "card's 3xTF32 scan kernel and GEMMs sum in other orders again; "
+          "an order above that spread, relative to each gradient leaf's "
+          "max |value| or a thousandth of the largest leaf's")
 TRAIN_RESUME_TOL = (
     2e-3, "the resumed run replays steps 4-7 from the step-4 checkpoint "
           "(bf16 parameters, fp32 moments, bit for bit); on CUDA the "
@@ -3245,7 +3276,12 @@ def train_cross_check(torch, state, arch):
     if side is not None:
         batch["frames" if cfg.family == "encdec" else "vision_embeds"] = side
     out = {}
-    for name, model in (("cuda", gpu), ("cpu", cpu)):
+    runs = [("cuda", gpu, None), ("cpu", cpu, None)]
+    if cfg.ssm_type == "rwkv6":
+        runs.append(("cpu_1_thread", cpu, 1))
+    threads = torch.get_num_threads()
+    for name, model, n_threads in runs:
+        torch.set_num_threads(n_threads or threads)
         flat = leaves(model.params)
         for p in flat:
             p.requires_grad_(True)
@@ -3256,7 +3292,14 @@ def train_cross_check(torch, state, arch):
                                    for (k, p), g in zip(
                                        flatten_with_paths(model.params),
                                        grads)})
-    tol, why = TRAIN_CROSS_TOL
+    torch.set_num_threads(threads)
+    spread = {}
+    if "cpu_1_thread" in out:
+        tol, why = TRAIN_CROSS_SSM_TOL
+        spread = {"cpu_order_spread": max(grad_rel_errs(
+            out["cpu_1_thread"][1], out["cpu"][1]).values())}
+    else:
+        tol, why = TRAIN_CROSS_TOL
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     errs = grad_rel_errs(out["cuda"][1], out["cpu"][1])
     worst = max(errs, key=errs.get)
@@ -3266,13 +3309,14 @@ def train_cross_check(torch, state, arch):
     return {"arch": arch, "config": dict(model_shape(cfg), dtype="float32"),
             "tokens": [2, 45], "loss": out["cpu"][0], "loss_rel_err": loss_rel,
             "grad_leaves": len(errs), "grad_rel_err_max": errs[worst],
-            "grad_rel_err_worst_leaf": worst, "tol": tol, "tol_reason": why}
+            "grad_rel_err_worst_leaf": worst, "tol": tol, "tol_reason": why,
+            **spread}
 
 
 def train_guard_check(torch):
-    """(f): a CUDA wrapper with no backward refuses an input that
-    requires grad under grad mode: ``rwkv6_scan`` (naming its ROADMAP
-    item) and ``conv3x3`` (VAE)."""
+    """(f): a CUDA wrapper with no backward (``conv3x3``, VAE) refuses an
+    input that requires grad under grad mode; ``rwkv6_scan``, which has
+    one (``RWKV6Scan``), launches once there and is in the graph."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(53)
     r, k, v, w = (torch.randn((1, 2, 8, 16), generator=gen, device="cuda")
@@ -3282,23 +3326,19 @@ def train_guard_check(torch):
     cw = torch.randn((3, 3, 16, 16), generator=gen, device="cuda")
     seen = {}
     before = ops.launch_counts()
-    for name, call in (
-            ("rwkv6_scan", lambda: ops.rwkv6_scan(
-                r.requires_grad_(True), k, v, w, u)),
-            ("conv3x3", lambda: ops.conv3x3(x.requires_grad_(True), cw))):
-        try:
-            call()
-            raise SmokeFailure(f"{name} launched on an input that requires "
-                               "grad")
-        except NotImplementedError as err:
-            seen[name] = str(err)
-    need("ROADMAP A 16, rwkv6_scan backward" in seen["rwkv6_scan"],
-         seen["rwkv6_scan"])
+    try:
+        ops.conv3x3(x.requires_grad_(True), cw)
+        raise SmokeFailure("conv3x3 launched on an input that requires "
+                           "grad")
+    except NotImplementedError as err:
+        seen["conv3x3"] = str(err)
     need(ops.launch_counts() == before, "a refused call launched")
-    with torch.no_grad():
-        ops.rwkv6_scan(r, k, v, w, u)             # serving still launches
+    out, _ = ops.rwkv6_scan(r.requires_grad_(True), k, v, w, u)
+    seen["rwkv6_scan"] = type(out.grad_fn).__name__
+    need(seen["rwkv6_scan"] == "RWKV6ScanBackward",
+         f"rwkv6_scan under grad: {seen['rwkv6_scan']}")
     need(ops.launch_counts()["rwkv6_scan"] == before["rwkv6_scan"] + 1,
-         "rwkv6_scan under no_grad did not launch")
+         "rwkv6_scan under grad did not launch once")
     return seen
 
 
@@ -3513,6 +3553,332 @@ def phase_train(torch, log, state):
     gc.collect()
     torch.cuda.empty_cache()
 
+DIST_RWKV = dict(batch=2, seq=512, steps=3)      # (a): 2 x 512 tokens a step
+DIST_LM = dict(batch=2, seq=1024, microbatches=2, steps=2)      # (b)
+DIST_DECODE_BUCKET = 8                            # (c): 8 latents of 64x64
+DEPTH_CUT["dist_rwkv6"] = (
+    2, "enough to show the RWKV-6 gradient through RWKV6Scan in every "
+       "layer of a stack (the first layer's input gradient comes from the "
+       "second's backward); the kernel's shapes do not depend on depth")
+DEPTH_CUT["dist_mesh"] = (
+    2, "two copies of the model (the unsharded step's and the mesh "
+       "step's) and their fp32 moments on one card: 2 of 28 layers with "
+       "the embedding and the untied head are 1.56 B parameters, 25 GB of "
+       "moments for both runs")
+DIST_RWKV_TOL = (
+    2e-2, "bf16 r, k, v and their gradients (2^-9 relative each) against "
+          "fp32 autograd through the sequential rwkv6_scan_ref on the same "
+          "inputs; w, u and the state's gradients are fp32 from the same "
+          "bf16 inputs, the chunked form's sums in another order; relative "
+          "to each gradient's max |value|")
+
+
+def dist_rwkv6_scan_check(torch, state):
+    """(a)'s kernel check at the training shape, r, k, v [2, 64, 512, 64]
+    bf16: ``RWKV6Scan``'s gradients (the chunked plain backward) against
+    autograd through the sequential plain scan in fp32, and the forward
+    kernel's, the backward's and the plain forward plus backward's ms."""
+    from repro_torch.kernels import ops, ref
+    cfg = state["dist_rwkv_cfg"]
+    h, d = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+    shape = (DIST_RWKV["batch"], h, DIST_RWKV["seq"], d)
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    r, k, v, do = (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                   for _ in range(4))
+    r, k, v, do = (t.to(torch.bfloat16) for t in (r, k, v, do))
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.6 - 1.0
+    u = torch.randn((h, d), generator=gen, device="cuda") * 0.1
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    out, _ = ops.rwkv6_scan(*leaves)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    ref_in = [t.float().requires_grad_(True) for t in (r, k, v, w, u)]
+    want = torch.autograd.grad(ref.rwkv6_scan_ref(*ref_in)[0], ref_in,
+                               do.float())
+    tol, why = DIST_RWKV_TOL
+    errs = {}
+    for name, g, wt in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        errs[name] = float((g.float() - wt).abs().max() / wt.abs().max())
+        need(bool(torch.isfinite(g.float()).all()) and errs[name] <= tol,
+             f"RWKV6Scan {name} differs by {errs[name]} > {tol}")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w, u), REPS)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), REPS)
+    plain = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+
+    def plain_fwd_bwd():
+        y, _ = ref.rwkv6_chunked_ref(*plain)
+        torch.autograd.grad(y, plain, do)
+
+    plain_ms = cuda_ms(torch, plain_fwd_bwd, 3)
+    return {"r": list(shape), "dtype": "bfloat16", "rel_err": errs,
+            "tol": tol, "tol_reason": why, "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms, "plain_chunked_fwd_bwd_ms": plain_ms,
+            "backward": "ref.rwkv6_chunked_ref under autograd, 32-token "
+                        "chunks"}
+
+
+def dist_rwkv6_train(torch, state):
+    """(a): rwkv6-7b at full width, 2 of 32 layers, bf16, 3 AdamW steps
+    of 2 x 512 Zipf tokens: finite losses, ``rwkv6_scan`` launches per
+    step = layers x (2 with remat, its forward again in the backward);
+    step device ms."""
+    import dataclasses
+    np = state["np"]
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.train.optim import AdamW, AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              n_layers=DEPTH_CUT["dist_rwkv6"][0])
+    state["dist_rwkv_cfg"] = cfg
+    model = build_model(cfg, device="cuda", seed=0)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=DIST_RWKV["seq"],
+                                      global_batch=DIST_RWKV["batch"]))
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    step = make_train_step(model, opt)
+    opt_state = opt.init(model.params)
+    per_step = {k: 0 for k in KERNELS}
+    per_step["rwkv6_scan"] = cfg.n_layers * (2 if cfg.remat else 1)
+    losses, dev_ms, step_launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(DIST_RWKV["steps"]):
+        before = ops.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, opt_state, _, met = step(model.params, opt_state, None,
+                                    data.batch(i))
+        stop.record()
+        stop.synchronize()
+        dev_ms.append(start.elapsed_time(stop))
+        after = ops.launch_counts()
+        step_launches.append({k: after[k] - before[k] for k in KERNELS})
+        losses.append(float(met["loss"]))
+    launches = ops.launch_counts()
+    state["launches"]["dist_rwkv6"] = launches
+    need(all(map(np.isfinite, losses)), f"rwkv6 train losses {losses}")
+    need(all(s == per_step for s in step_launches),
+         f"rwkv6 launches per step {step_launches}, expected {per_step}")
+    out = {"arch": SSM_ARCH, **model_shape(cfg), "dtype": "bfloat16",
+           "reduced": dict(layers=[cfg.n_layers,
+                                   get_config(SSM_ARCH).n_layers],
+                           why=DEPTH_CUT["dist_rwkv6"][1]),
+           "params": model.n_params, "tokens": [DIST_RWKV["batch"],
+                                                DIST_RWKV["seq"]],
+           "remat": cfg.remat, "losses": losses, "step_device_ms": dev_ms,
+           "launches": launches, "launches_per_step": per_step,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_mesh_step(torch, state):
+    """(b): Qwen2-7B at full width (2 of 28 layers), bf16, 2 steps of 2
+    microbatches of 1 x 1024 tokens, unsharded, then from the same
+    weights on ``make_local_mesh()`` (NCCL, world size 1) with ZeRO-1
+    moments and the "local" gradient plan: losses and parameters equal
+    bit for bit, the same ``flash_attention`` launches.  Both under
+    ``torch.use_deterministic_algorithms`` (the embedding's backward, an
+    indexed add over repeated ids, otherwise adds in another order from
+    run to run)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.dist import sharding as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.optim import AdamW, AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import flatten_with_paths, leaves
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=DEPTH_CUT["dist_mesh"][0])
+    model = build_model(cfg, device="cuda", seed=0)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=DIST_LM["seq"],
+                                      global_batch=DIST_LM["batch"]))
+    batches = [data.batch(i) for i in range(DIST_LM["steps"])]
+    mesh = make_local_mesh()
+    specs = model.param_pspecs(D.axis_size(mesh, "model"))
+    ospecs = D.opt_state_pspecs(specs, zero1=True)
+    local = D.map_specs(lambda sp: D.P(*[None if e == "data" else e
+                                         for e in sp]), specs)
+    sharded = D.distribute_tree(model.params, specs, mesh)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name in ("unsharded", "mesh"):
+            opt = AdamW(AdamWConfig(**TRAIN_OPT))
+            if name == "mesh":
+                params = sharded
+                opt_state = opt.init(params, ospecs)
+                step = make_train_step(model, opt, DIST_LM["microbatches"],
+                                       grad_shardings=local)
+                D.set_constraint_mesh(mesh)
+            else:
+                params = model.params
+                opt_state = opt.init(params)
+                step = make_train_step(model, opt, DIST_LM["microbatches"])
+            losses, dev_ms = [], []
+            ops.reset_launch_counts()
+            for batch in batches:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                params, opt_state, _, met = step(params, opt_state, None,
+                                                 batch)
+                stop.record()
+                stop.synchronize()
+                dev_ms.append(start.elapsed_time(stop))
+                losses.append(float(met["loss"]))
+            runs[name] = {"losses": losses, "step_device_ms": dev_ms,
+                          "launches": ops.launch_counts()}
+            if name == "mesh":
+                state["launches"]["dist_mesh"] = runs[name]["launches"]
+                runs[name]["moments"] = sorted(
+                    {str(m.placements) for m in leaves(opt_state.m)})
+                D.set_constraint_mesh(None)
+            del opt_state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        D.set_constraint_mesh(None)
+    a, b = runs["unsharded"], runs["mesh"]
+    need(a["losses"] == b["losses"],
+         f"mesh losses {b['losses']} against {a['losses']}")
+    differ = [path for (path, p), q in zip(flatten_with_paths(model.params),
+                                           leaves(sharded))
+              if not torch.equal(p, q.full_tensor())]
+    need(not differ, f"mesh parameters differ from the unsharded step's "
+         f"at {differ[:4]} ({len(differ)} leaves)")
+    need(a["launches"]["flash_attention"] ==
+         b["launches"]["flash_attention"] > 0,
+         f"flash_attention launches {b['launches']} against "
+         f"{a['launches']}")
+    out = {"arch": LM_ARCH, **model_shape(cfg), "dtype": "bfloat16",
+           "reduced": dict(layers=[cfg.n_layers,
+                                   get_config(LM_ARCH).n_layers],
+                           why=DEPTH_CUT["dist_mesh"][1]),
+           "mesh": {"shape": list(mesh.shape),
+                    "axes": list(mesh.mesh_dim_names),
+                    "backend": dist.get_backend()},
+           "zero1": True, "grad_plan": "local", **DIST_LM,
+           "unsharded": a, "sharded": b, "params_equal": True,
+           "prefill": dist_mesh_prefill(torch, state, model, sharded, mesh,
+                                        batches[0]["tokens"])}
+    del model, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, mesh
+
+
+def dist_mesh_prefill(torch, state, model, sharded, mesh, tokens):
+    """(d): ``prefill`` of the same 2 x 1024 tokens on the trained
+    weights, plain and then on their DTensor copy over the (1, 1) mesh
+    (the cache laid out by ``cache_pspecs``): logits and every cache
+    leaf bit-identical, the same ``flash_attention`` launches, both
+    prefills' device ms."""
+    from repro_torch.dist import sharding as D
+    from repro_torch.kernels import ops
+    plain_params = model.params
+    runs = {}
+    try:
+        for name in ("plain", "mesh"):
+            if name == "mesh":
+                model.params = sharded
+                D.set_constraint_mesh(mesh)
+            ops.reset_launch_counts()
+            logits, cache = model.prefill(tokens)
+            torch.cuda.synchronize()
+            runs[name] = (logits, cache, ops.launch_counts(), cuda_ms(
+                torch, lambda: model.prefill(tokens), 3))
+            if name == "mesh":
+                state["launches"]["dist_prefill"] = runs[name][2]
+    finally:
+        model.params = plain_params
+        D.set_constraint_mesh(None)
+    (pl, pc, pn, pms), (ml, mc, mn, mms) = runs["plain"], runs["mesh"]
+    need(torch.equal(ml.full_tensor(), pl),
+         "the mesh prefill's logits differ from the plain prefill's")
+    differ = [k for k in pc if not torch.equal(mc[k].full_tensor(), pc[k])]
+    need(not differ, f"the mesh prefill's cache differs at {differ}")
+    need(mn == pn and pn["flash_attention"] == model.cfg.n_layers,
+         f"mesh prefill launched {mn}, the plain prefill {pn}")
+    return {"tokens": list(tokens.shape),
+            "cache": {k: [list(v.shape), str(mc[k].placements)]
+                      for k, v in pc.items()},
+            "logits_placements": str(ml.placements), "launches": mn,
+            "mesh_ms": mms, "plain_ms": pms, "bit_identical": True}
+
+
+def dist_decode_step(torch, state, mesh):
+    """(c): ``make_decode_step(SD35_VAE, mesh)`` on the (1, 1) mesh at
+    bucket 8, 512x512, against ``mesh=None``: pixels bit-identical, the
+    decode kernels launched, both steps' device ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.vae.model import SD35_VAE
+    from repro_torch.vae.serve import make_decode_step
+    vae, _ = shared_vae(torch, state)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    z = torch.randn((DIST_DECODE_BUCKET, LATENT_HW, LATENT_HW,
+                     SD35_VAE.latent_channels), generator=gen,
+                    device="cuda")
+    plain = make_decode_step(SD35_VAE)
+    on_mesh = make_decode_step(SD35_VAE, mesh)
+    ops.reset_launch_counts()
+    got = on_mesh(vae.decoder, z)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    state["launches"]["dist_decode"] = launches
+    want = plain(vae.decoder, z)
+    need(torch.equal(got.full_tensor(), want),
+         "the mesh decode's pixels differ from the unsharded decode's")
+    need(all(p.is_shard(0) for p in got.placements),
+         f"decode placements {got.placements}")
+    need(all(launches[k] > 0 for k in ("conv3x3", "gn_silu_conv3x3",
+                                       "upsample_conv3x3",
+                                       "flash_attention")),
+         f"mesh decode launched {launches}")
+    return {"bucket": DIST_DECODE_BUCKET,
+            "latent": list(z.shape), "pixels": list(got.shape),
+            "placements": [str(p) for p in got.placements],
+            "launches": launches,
+            "mesh_ms": cuda_ms(torch, lambda: on_mesh(vae.decoder, z), 3),
+            "plain_ms": cuda_ms(torch, lambda: plain(vae.decoder, z), 3)}
+
+
+def phase_dist(torch, log, state):
+    """Sharded layouts and RWKV-6 training on the card: (c) the decode
+    step on the (1, 1) mesh (first, while the shared VAE is loaded), (a)
+    ``rwkv6_scan`` under autograd at the training shape and rwkv6-7b
+    training, (b) the 1x1-mesh ZeRO-1 train step of Qwen2-7B against
+    the unsharded step and (d) its prefill on the mesh against the
+    plain prefill; the world-size-1 process group is destroyed at the
+    end."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    try:
+        decode = dist_decode_step(torch, state, make_local_mesh())
+        state.pop("vae", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rwkv_train = dist_rwkv6_train(torch, state)
+        rwkv_scan = dist_rwkv6_scan_check(torch, state)
+        mesh_step, _ = dist_mesh_step(torch, state)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(log, "dist", rwkv6_train=rwkv_train, rwkv6_scan=rwkv_scan,
+         mesh_step=mesh_step, decode=decode)
+
+
 
 def flat_leaves(tree):
     if isinstance(tree, dict):
@@ -3555,6 +3921,7 @@ def main() -> int:
         run_phase(log, "crossdevice", phase_crossdevice, torch, log, state)
         for phase in SERVE:
             run_phase(log, phase, phase_serve, torch, log, state, phase)
+        run_phase(log, "dist", phase_dist, torch, log, state)
         run_phase(log, "train", phase_train, torch, log, state)
         totals = state["kernel_totals"]
         launches = {k: sum(run[k] for run in state["launches"].values())

@@ -154,8 +154,8 @@ def check(err: int, what: str) -> None:
 NO_BACKWARD = {
     "flash_attention": "its gradient goes through "
                        "kernels.flash_attention.FlashAttention",
-    "rwkv6_scan": "its backward on the card is not written yet "
-                  "(ROADMAP A 16, rwkv6_scan backward)",
+    "rwkv6_scan": "its gradient goes through "
+                  "kernels.rwkv6_scan.RWKV6Scan",
 }
 
 

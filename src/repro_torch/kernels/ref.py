@@ -322,3 +322,60 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(torch.einsum("nhd,nhde->nhe", rf[:, :, i], s + uf * kv))
         s = decay[:, :, i, :, None] * s + kv
     return torch.stack(outs, dim=2).to(r.dtype), s
+
+
+def rwkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor,
+                      state: Optional[torch.Tensor] = None,
+                      chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence of :func:`rwkv6_scan_ref` in the JAX package's
+    chunked form (``models/ssm.py``'s ``rwkv6_chunked``, the form its
+    RWKV-6 block differentiates): per chunk of ``chunk`` tokens (halved
+    until it divides t) the inter-chunk term from the carried state, the
+    intra-chunk pairs and the diagonal bonus, then the state update.  The
+    pairwise decays are ``exp(min(L_t - L_s, 0))`` on the masked lower
+    triangle, never ``exp(+L) * exp(-L)``, so no ``exp`` overflows, in
+    the forward or in its gradient.  Same arguments and results as
+    :func:`rwkv6_scan_ref`.  Only the d x d state crosses chunks: every
+    other term is computed for all chunks in one batched op each, and a
+    Python loop of two ops a chunk carries the state where JAX scans."""
+    b, h, t, d = r.shape
+    chunk = min(chunk, t)
+    while t % chunk:
+        chunk //= 2
+    nc = t // chunk
+    f32 = torch.float32
+    logw = -torch.exp(w.to(f32))                             # <= 0
+    rs = r.to(f32).reshape(b, h, nc, chunk, d)
+    ks = k.to(f32).reshape(b, h, nc, chunk, d)
+    vs = v.to(f32).reshape(b, h, nc, chunk, d)
+    lw = logw.reshape(b, h, nc, chunk, d)
+    L = torch.cumsum(lw, dim=3)                              # inclusive
+    Lp = L - lw                                              # L_{t-1}
+    uf = u.to(f32)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    # every chunk at once: the intra-chunk pairs (t > s), exp(Lp_t - L_s)
+    # <= 1 on the mask, the diagonal bonus (r_t * u) . k_t v_t, and each
+    # chunk's own part of the state after it
+    expo = Lp[:, :, :, :, None, :] - L[:, :, :, None, :, :]
+    dec = torch.exp(torch.clamp(expo, max=0.0)) * mask[:, :, None]
+    A = torch.einsum("bhntd,bhnsd,bhntsd->bhnts", rs, ks, dec)
+    y_intra = torch.einsum("bhnts,bhnse->bhnte", A, vs)
+    sdiag = torch.einsum("bhntd,hd,bhntd->bhnt", rs, uf, ks)
+    Llast = L[:, :, :, -1:, :]
+    kd = ks * torch.exp(torch.clamp(Llast - L, max=0.0))
+    kv = torch.einsum("bhnsd,bhnse->bhnde", kd, vs)
+    carry = torch.exp(Llast[:, :, :, 0])[..., None]
+    # only the state crosses chunks: each chunk's carry-in
+    S = (torch.zeros((b, h, d, d), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = carry[:, :, c] * S + kv[:, :, c]
+    y_inter = torch.einsum("bhncd,bhnde->bhnce", rs * torch.exp(Lp),
+                           torch.stack(starts, dim=2))
+    ys = y_inter + y_intra + sdiag[..., None] * vs
+    out = ys.reshape(b, h, t, d)
+    return out.to(r.dtype), S

@@ -17,6 +17,13 @@ pieces.  The final state may be written over the initial one
 (``out_state=state``), which is how ``decode_step`` updates its cache in
 place.  On the CPU: the plain version, ``ref.rwkv6_scan_ref``, one token
 at a time.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through :class:`RWKV6Scan`: the forward is the kernel (or the plain
+version on the CPU), the backward differentiates the JAX package's
+chunked form, ``ref.rwkv6_chunked_ref``, recomputed from the saved
+inputs, as the JAX package's RWKV-6 block differentiates
+``rwkv6_chunked`` (no TPU kernel had a backward).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import DTYPES
@@ -41,6 +49,46 @@ MAX_HEAD_DIM = 128
 DECODE_MAX_T = 4
 
 
+class RWKV6Scan(torch.autograd.Function):
+    """The recurrence with the kernel's forward and a plain backward:
+    saves the inputs and, in the backward pass, differentiates
+    ``ref.rwkv6_chunked_ref`` at them (32-token chunks, where the
+    kernel walks sub-chunks of 16: only the function has to agree).
+    Returns (out, final state); either may go unused."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        out, final = _forward(r, k, v, w, u, state, None)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.set_materialize_grads(False)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, needs)]
+        outs, grads_out = [], []
+        with torch.enable_grad(), record_function("rwkv6_scan_bwd"):
+            out, final = ref.rwkv6_chunked_ref(*ins)
+            for y, g in ((out, dout), (final, dstate)):
+                if g is not None:
+                    outs.append(y)
+                    grads_out.append(g)
+            want = [t for t in ins if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(outs, want, grads_out,
+                                           allow_unused=True)
+                       if outs and want else ())
+        grads = []
+        for t in ins:
+            g = next(got) if t is not None and t.requires_grad else None
+            if g is None and t is not None and t.requires_grad:
+                g = torch.zeros_like(t)
+            grads.append(g)
+        return tuple(grads)
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor,
                state: Optional[torch.Tensor] = None,
@@ -49,8 +97,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, w [n, h, t, d]; u [h, d]; state [n, h, d, d] fp32 (zeros
     if None) -> (out [n, h, t, d] in r's dtype, final state [n, h, d, d]
     fp32).  The final state goes into ``out_state`` when given (it may be
-    ``state`` itself), else into a new tensor."""
-    global launches
+    ``state`` itself), else into a new tensor.  With grad mode on and an
+    input that requires grad the call is differentiable
+    (:class:`RWKV6Scan`), and takes no ``out_state``."""
     n, h, t, d = r.shape
     sshape = (n, h, d, d)
     if any(tuple(a.shape) != (n, h, t, d) for a in (k, v, w)) or \
@@ -62,6 +111,22 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)}, "
             f"state {None if state is None else tuple(state.shape)} "
             "disagree (r/k/v/w [n, h, t, d], u [h, d], state [n, h, d, d])")
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in (r, k, v, w, u, state)):
+        if out_state is not None:
+            raise ValueError("rwkv6_scan: out_state is written in place, "
+                             "which autograd cannot follow; leave it None "
+                             "under grad")
+        return RWKV6Scan.apply(r, k, v, w, u, state)
+    return _forward(r, k, v, w, u, state, out_state)
+
+
+def _forward(r, k, v, w, u, state, out_state):
+    """The forward alone: the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
+    global launches
+    n, h, t, d = r.shape
+    sshape = (n, h, d, d)
     if r.device.type == "cpu":
         out, final = ref.rwkv6_scan_ref(r, k, v, w, u, state)
         if out_state is None:

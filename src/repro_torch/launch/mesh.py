@@ -1,5 +1,6 @@
 """Hardware constants of one NVIDIA H100 for the roofline and the cost
-model, and the mesh constructors (not ported yet).
+model, and the device-mesh constructors (counterpart of the JAX package's
+``launch/mesh.py``).
 
 The three names the roofline reads keep the JAX package's, with the
 H100 SXM's dense figures from NVIDIA's data sheet: ``PEAK_FLOPS_BF16``
@@ -13,10 +14,19 @@ of them, so fp32 work on the tensor cores peaks at a third of it.
 
 :func:`card_peaks` reads the same figures, and those of the PCIe and NVL
 parts, off a device name (``torch.cuda.get_device_name``).
+
+The meshes are functions, not module constants: importing this module
+touches no process group.  :func:`make_production_mesh` is the
+reference's ``(16, 16)`` ("data", "model") mesh, or ``(2, 16, 16)``
+("pod", "data", "model"), over an already-launched world of that many
+ranks; :func:`make_local_mesh` the ``(1, 1)`` mesh with the production
+axis names on one device, making a world-size-1 group over a
+``HashStore`` where none exists (no port, no network).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s
@@ -41,11 +51,50 @@ def card_peaks(name: str) -> Tuple[float, float, str, float, float]:
             PEAK_FLOPS_BF16, PEAK_FLOPS_TF32)
 
 
+def _world_size() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "device meshes are not ported yet (ROADMAP A 16, dist)")
+    """The production mesh through ``init_device_mesh``: one rank per
+    card, the world already launched (``torchrun`` or an initialised
+    process group).  Raises, naming both numbers, where the world size
+    is not the mesh's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    size = 1
+    for n in shape:
+        size *= n
+    world = _world_size()
+    if world != size:
+        raise ValueError(f"the production mesh {shape} {axes} needs "
+                         f"{size} ranks, and the world has {world}")
+    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
 
 
-def make_local_mesh():
-    raise NotImplementedError(
-        "device meshes are not ported yet (ROADMAP A 16, dist)")
+def make_local_mesh(device=None):
+    """A ``(1, 1)`` ("data", "model") mesh on one device (``"cuda"``
+    unless the caller asks for the CPU; raises where CUDA is absent).
+    Without a process group it makes one of world size 1 over a
+    ``HashStore``: NCCL on the card, gloo on the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            import torch
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    world = dist.get_world_size()
+    if world != 1:
+        raise ValueError(f"the local mesh (1, 1) needs 1 rank, and the "
+                         f"world has {world}")
+    return init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))

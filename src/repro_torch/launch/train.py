@@ -7,8 +7,11 @@
         --steps 50 --reduced                   # the same on the card
 
 The reference's flags, plus ``--device`` (default ``cuda``, which raises
-where CUDA is absent).  Its mesh path waits for ROADMAP A 16, dist; a
-published config trains only where it fits one card.
+where CUDA is absent).  Like the reference's, it trains on one device: a
+published config trains only where it fits one card.  The sharded step
+over a device mesh is ``train.train_step.make_train_step`` on DTensor
+trees (``dist.sharding``; ``tests/test_torch_dist.py`` runs it on gloo
+ranks).
 """
 
 from __future__ import annotations

@@ -10,7 +10,15 @@ the KV cache), whose device dispatch picks the Hopper kernel for a CUDA
 tensor and the plain version for a CPU one.  The projections, the MLP
 and the experts are plain products, as the JAX package leaves them to
 XLA.  Dense weights keep the JAX package's ``[in, out]`` layout (``x @
-w``); sharding specs have no counterpart on one card.
+w``).
+
+Every ``*_init`` has a matching ``*_pspecs``, the reference's layout for
+tensor parallelism on the ``model`` mesh axis (Megatron: column-parallel
+in-projections, row-parallel out-projections; experts expert-parallel
+when E divides the axis, otherwise ffn-sharded).  Under a constraint
+mesh (:mod:`repro_torch.dist.sharding`) :func:`constrain_attention_layout`
+pins q, k and v to a layout in which each rank's attention is its own
+slice, and the kernel runs on the local shards.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as D
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.models import common as C
 from repro_torch.models.common import ModelConfig
@@ -49,6 +59,16 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
+def attn_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    p = {"wq": P(None, "model"), "wk": P(None, "model"),
+         "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qkv_bias:
+        p.update(bq=P("model"), bk=P("model"), bv=P("model"))
+    if cfg.qk_norm:
+        p.update(q_norm=P(None), k_norm=P(None))
+    return p
+
+
 def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> q [B, S, Hq, dh], k/v [B, S, Hkv, dh], roped."""
@@ -61,6 +81,7 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
+    q, k, v = q_projection_layout(q, cfg), kv_projection_layout(k, cfg), kv_projection_layout(v, cfg)
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
@@ -78,6 +99,77 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
     return q, k, v
 
 
+def _seq_parallel(x, cfg: ModelConfig) -> bool:
+    """Whether ``x`` is a DTensor under a constraint mesh whose model
+    axis does not divide the heads: the sequence-parallel layout."""
+    mesh = D.get_constraint_mesh()
+    if mesh is None or not D.is_dtensor(x):
+        return False
+    tp = D.axis_size(mesh, "model")
+    return bool(cfg.n_heads % tp or cfg.n_kv_heads % tp)
+
+
+def q_projection_layout(q, cfg: ModelConfig):
+    """A q projection ``[B, S, H*dh]`` before it splits into heads: in
+    the sequence-parallel layout its sequence carries the model axis
+    (heads that the axis does not divide cannot)."""
+    return D.constrain(q, "data", "model", None) \
+        if _seq_parallel(q, cfg) else q
+
+
+def kv_projection_layout(t, cfg: ModelConfig):
+    """A k or v projection before it splits into heads: replicated over
+    the model axis in the sequence-parallel layout."""
+    return D.constrain(t, "data", None, None) \
+        if _seq_parallel(t, cfg) else t
+
+
+def constrain_attention_layout(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, cfg: ModelConfig):
+    """Pin the [n, h, s, d] attention layout (the reference's, both
+    branches).
+
+    heads % TP == 0  -> Megatron head sharding P(dp, model, None, None);
+    otherwise        -> sequence-parallel scores: q's seq dim carries the
+                        model axis (k/v replicated over model), so the
+                        scores shard on Sq."""
+    mesh = D.get_constraint_mesh()
+    if mesh is None:
+        return q, k, v
+    tp = D.axis_size(mesh, "model")
+    if q.shape[1] % tp == 0 and k.shape[1] % tp == 0:
+        q = D.constrain(q, "data", "model", None, None)
+        k = D.constrain(k, "data", "model", None, None)
+        v = D.constrain(v, "data", "model", None, None)
+    else:
+        q = D.constrain(q, "data", None, "model", None)
+        k = D.constrain(k, "data", None, None, None)
+        v = D.constrain(v, "data", None, None, None)
+    return q, k, v
+
+
+def _flash_attention(q, k, v, causal: bool, window: Optional[int]):
+    """``ops.flash_attention`` on plain tensors, or on each rank's shards
+    of DTensors laid out by :func:`constrain_attention_layout`: heads
+    and batch rows are independent, and a shard of q's sequence reads
+    the keys up to its own last row (the kernel aligns q at the end of
+    the keys it is given), so each rank computes its slice exactly."""
+    if not D.is_dtensor(q):
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    ql = D.local_shard(q, q)
+    kl, vl = D.local_shard(k, q), D.local_shard(v, q)
+    sq_l, skv = ql.shape[2], k.shape[2]
+    if sq_l != q.shape[2]:                # q's sequence is split
+        if not causal and window is not None:
+            raise ValueError("a windowed non-causal attention cannot split "
+                             "q's sequence")
+        if causal:
+            end = D.mesh_coordinate(q, 2) * sq_l + sq_l + skv - q.shape[2]
+            kl, vl = kl[:, :, :end], vl[:, :, :end]
+    o = ops.flash_attention(ql, kl, vl, causal=causal, window=window)
+    return D.from_local_like(o, q)
+
+
 def attention(params, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, causal: bool = True,
               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -91,18 +183,19 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
     if kv is None:
         q, k, v = _qkv(params, x, cfg, positions)
     else:
-        q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        q = q_projection_layout(x @ params["wq"], cfg).reshape(b, s, cfg.n_heads,
+                                                  cfg.head_dim)
         if cfg.qkv_bias:
             q = q + params["bq"].to(q.dtype).reshape(cfg.n_heads,
                                                      cfg.head_dim)
         k, v = kv
     # the kernels take contiguous [n, h, s, d]
-    kt = k.transpose(1, 2).contiguous()
-    vt = v.transpose(1, 2).contiguous()
-    o = ops.flash_attention(q.transpose(1, 2).contiguous(), kt, vt,
-                            causal=causal,
-                            window=cfg.sliding_window if kv is None else None)
-    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    qt, kt, vt = constrain_attention_layout(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), cfg)
+    o = _flash_attention(qt, kt, vt, causal,
+                         cfg.sliding_window if kv is None else None)
+    o = q_projection_layout(o.transpose(1, 2).reshape(b, s, cfg.q_dim), cfg)
     return o @ params["wo"], kt, vt
 
 
@@ -146,6 +239,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
             "b_down": torch.zeros((d,), dtype=dt, device=dev)}
 
 
+def mlp_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.act == "swiglu":
+        return {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+                "w_down": P("model", None)}
+    return {"w_up": P(None, "model"), "b_up": P("model"),
+            "w_down": P("model", None), "b_down": P(None)}
+
+
 def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.act == "swiglu":
         return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
@@ -172,6 +273,16 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
             "w_down": C.normal(gen, (e, f, d), dt, 1.0 / math.sqrt(f))}
 
 
+def moe_pspecs(cfg: ModelConfig, model_axis_size: int) -> Dict[str, Any]:
+    if cfg.n_experts % model_axis_size == 0:
+        ex = P("model", None, None)        # expert parallel
+    else:
+        ex = P(None, None, "model")        # ffn-sharded within each expert
+        return {"router": P(None, None), "w_gate": ex, "w_up": ex,
+                "w_down": P(None, "model", None)}
+    return {"router": P(None, None), "w_gate": ex, "w_up": ex, "w_down": ex}
+
+
 def moe_capacity(t: int, cfg: ModelConfig,
                  capacity_factor: Optional[float] = None) -> int:
     """Slots per expert for a step of ``t`` tokens: Switch-style
@@ -190,33 +301,44 @@ def moe(params, x: torch.Tensor, cfg: ModelConfig,
     sort); an entry ranked at or past the capacity is dropped: it adds 0
     to slot ``(0, cap - 1)`` and its gate is 0.  Every shape follows from
     the step's token count, so a step is one stream of launches with no
-    host sync."""
+    host sync.  A DTensor ``x`` goes through :func:`_moe_sharded`."""
+    if D.is_dtensor(x):
+        return _moe_sharded(params, x, cfg, capacity_factor)
     b, s, d = x.shape
+    return _moe_tokens(params, x.reshape(b * s, d), cfg,
+                       moe_capacity(b * s, cfg, capacity_factor), 0
+                       ).reshape(b, s, d)
+
+
+def _moe_tokens(params, xt: torch.Tensor, cfg: ModelConfig, cap: int,
+                e0: int) -> torch.Tensor:
+    """The MoE over tokens ``xt [T, d]`` with ``params`` holding experts
+    ``e0 ..`` (as many as ``w_gate`` has): entries routed to other
+    experts add 0, so the result is these experts' share of the sum."""
+    t, d = xt.shape
     e, k = cfg.n_experts, cfg.experts_per_token
-    t = b * s
-    xt = x.reshape(t, d)
+    el = params["w_gate"].shape[0]
 
     logits = xt.float() @ params["router"]                      # [T, E]
     gates, idx = torch.topk(torch.softmax(logits, dim=-1), k)   # [T, k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    cap = moe_capacity(t, cfg, capacity_factor)
     # the one-hot [E, T k], so that the running count is a scan along the
     # contiguous axis (the device's scan across the outer axis is slow)
-    experts = torch.arange(e, device=x.device)
+    experts = torch.arange(e, device=xt.device)
     onehot = (experts[:, None] == idx.reshape(1, t * k)).to(torch.int32)
     rank = (torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot).sum(0)
     rank = (rank - 1).reshape(t, k)
-    keep = rank < cap
+    keep = (rank < cap) & (idx >= e0) & (idx < e0 + el)
 
-    # dispatch into [E, cap, d]: kept entries fill distinct slots, dropped
-    # ones add 0, so each slot's sum is exact in any order
-    slot = (torch.where(keep, idx, 0) * cap
+    # dispatch into [E local, cap, d]: kept entries fill distinct slots,
+    # dropped ones add 0, so each slot's sum is exact in any order
+    slot = (torch.where(keep, idx - e0, 0) * cap
             + torch.where(keep, rank, cap - 1)).reshape(-1)
-    src = (xt[:, None] * keep.to(x.dtype)[..., None]).reshape(t * k, d)
-    slots = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
+    src = (xt[:, None] * keep.to(xt.dtype)[..., None]).reshape(t * k, d)
+    slots = torch.zeros((el * cap, d), dtype=xt.dtype, device=xt.device)
     slots.index_add_(0, slot, src)
-    slots = slots.reshape(e, cap, d)
+    slots = slots.reshape(el, cap, d)
 
     # the experts, batched over E
     hg = torch.bmm(slots, params["w_gate"])
@@ -224,6 +346,33 @@ def moe(params, x: torch.Tensor, cfg: ModelConfig,
     ho = torch.bmm(F.silu(hg) * hu, params["w_down"])
 
     # combine: gather back and weight by the gate
-    out_k = ho.reshape(e * cap, d)[slot].reshape(t, k, d)
-    out = (out_k * (gates * keep).to(out_k.dtype)[..., None]).sum(dim=1)
-    return out.reshape(b, s, d)
+    out_k = ho.reshape(el * cap, d)[slot].reshape(t, k, d)
+    return (out_k * (gates * keep).to(out_k.dtype)[..., None]).sum(dim=1)
+
+
+def _moe_sharded(params, x, cfg: ModelConfig,
+                 capacity_factor: Optional[float]):
+    """The MoE of a DTensor ``x`` with its experts laid out by
+    :func:`moe_pspecs`.  Routing and capacity are the whole batch's, as
+    in the reference: every rank gathers the tokens (activations, not
+    weights), routes them all, and runs its own experts (expert
+    parallel) or its slice of every expert's ffn (ffn-sharded).  Its
+    output is a partial sum over the mesh dims that split the experts,
+    reduced into ``x``'s layout."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    lead = params["w_gate"]
+    part = [Partial() if p.is_shard() else Replicate()
+            for p in lead.placements]
+    xt = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=part).reshape(b * s, d)
+    local = {name: D.local_shard(w, lead) for name, w in params.items()}
+    e0 = 0
+    for i, p in enumerate(lead.placements):
+        if p.is_shard(0):                       # expert parallel
+            e0 = mesh.get_coordinate()[i] * local["w_gate"].shape[0]
+    out = _moe_tokens(local, xt, cfg,
+                      moe_capacity(b * s, cfg, capacity_factor), e0)
+    return D.from_local(out.reshape(b, s, d), mesh, part,
+                        (b, s, d)).redistribute(mesh, x.placements)

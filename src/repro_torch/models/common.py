@@ -15,6 +15,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import sharding as D
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -115,6 +117,45 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[tokens]``.  A DTensor table whose vocab is sharded
+    over a mesh dim (the reference's ``P("model", None)``) is looked up
+    on each rank's rows, the ids outside them giving 0, and the result is
+    ``Partial`` over that dim (Megatron's vocab-parallel embedding);
+    over any other mesh dim the rows take the tokens' layout."""
+    if not D.is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    if not D.is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
+    ids = tokens.to_local()
+    out_pl, vocab_dims = [], []
+    for i, (tp, kp) in enumerate(zip(table.placements, tokens.placements)):
+        if tp.is_shard(0):
+            vocab_dims.append(i)
+            out_pl.append(Partial())
+        elif tp.is_replicate():
+            out_pl.append(kp)
+        else:
+            raise ValueError(f"embed_lookup: table placement {tp} on mesh "
+                             f"dim {i} (vocab-sharded or replicated only)")
+    if len(vocab_dims) > 1:
+        raise ValueError("embed_lookup: the vocab is split over one mesh "
+                         "dim at most")
+    tl = D.local_shard(table, tokens)
+    if vocab_dims:
+        rows = tl.shape[0]
+        ids = ids - mesh.get_coordinate()[vocab_dims[0]] * rows
+        miss = (ids < 0) | (ids >= rows)
+        rows_out = tl[torch.where(miss, 0, ids)]
+        rows_out = rows_out * (~miss)[..., None].to(rows_out.dtype)
+    else:
+        rows_out = tl[ids]
+    return D.from_local(rows_out, mesh, out_pl,
+                        tuple(tokens.shape) + (table.shape[1],))
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:

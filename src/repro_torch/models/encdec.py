@@ -18,7 +18,10 @@ of per-layer dicts.
 Training: :func:`loss` is the decoder's mean token NLL over ``frames``,
 ``tokens`` and ``labels``; with ``cfg.remat`` on and grad enabled every
 encoder and decoder layer is a checkpointed region (the JAX package's
-``jax.checkpoint`` of each scanned layer).
+``jax.checkpoint`` of each scanned layer).  :func:`param_pspecs` and
+:func:`cache_pspecs` are the reference's layouts (per-layer leaves drop
+the stack's leading ``None``); under a constraint mesh each layer pins
+the residual stream batch-sharded, as the reference does.
 """
 
 from __future__ import annotations
@@ -26,9 +29,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as D
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 from repro_torch.models import common as C
@@ -79,6 +85,43 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+_LN_SPEC = {"scale": P(None), "bias": P(None)}
+
+
+def param_pspecs(cfg: ModelConfig, model_axis: int = 16) -> Dict[str, Any]:
+    """The parameter tree's specs, a list entry per layer (the
+    reference's stacked leaf ``P(None, *spec)`` is ``spec`` here).
+    ``model_axis`` is unused, as in the reference (no experts)."""
+    def enc_layer():
+        return {"ln1": _LN_SPEC, "attn": B.attn_pspecs(cfg),
+                "ln2": _LN_SPEC, "mlp": B.mlp_pspecs(cfg)}
+
+    def dec_layer():
+        return {"ln1": _LN_SPEC, "self_attn": B.attn_pspecs(cfg),
+                "lnx": _LN_SPEC, "cross_attn": B.attn_pspecs(cfg),
+                "ln2": _LN_SPEC, "mlp": B.mlp_pspecs(cfg)}
+
+    return {"embed": P("model", None), "pos_embed": P(None, None),
+            "enc_layers": [enc_layer() for _ in range(cfg.encoder_layers)],
+            "enc_norm": _LN_SPEC,
+            "dec_layers": [dec_layer() for _ in range(cfg.n_layers)],
+            "final_norm": _LN_SPEC}
+
+
+def cache_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    kv = P(None, "data", None, "model", None)   # sequence-sharded
+    # cross K/V: 1500 encoder frames don't divide the model axis and the
+    # tensor is small: replicated over 'model', batch-sharded only
+    xkv = P(None, "data", None, None, None)
+    return {"pos": P("data"), "k": kv, "v": kv, "xk": xkv, "xv": xkv}
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream batch-sharded, replicated over model (the
+    reference's constraint in every encoder and decoder layer)."""
+    return D.constrain(x, "data", None, None)
+
+
 # ---------------------------------------------------------------------------
 # forward passes (plain functions on a parameter tree)
 # ---------------------------------------------------------------------------
@@ -104,9 +147,10 @@ def _layers(body, layers, x: torch.Tensor, cfg: ModelConfig, *args
 
 def _enc_layer(p, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor) -> torch.Tensor:
+    x = _rows(x)
     h, _, _ = B.attention(p["attn"], _ln(x, p["ln1"], cfg), cfg,
                           positions, causal=False)
-    x = x + h
+    x = _rows(x + h)
     return x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
 
 
@@ -125,9 +169,10 @@ def _dec_layer(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                enc_out: torch.Tensor) -> torch.Tensor:
     """A decoder layer over a full sequence: causal self-attention,
     cross-attention to the encoder states, the MLP."""
+    x = _rows(x)
     h, _, _ = B.attention(p["self_attn"], _ln(x, p["ln1"], cfg), cfg,
                           positions, causal=True)
-    x = x + h
+    x = _rows(x + h)
     h, _, _ = B.attention(p["cross_attn"], _ln(x, p["lnx"], cfg), cfg,
                           positions, causal=False,
                           kv=cross_kv(p["cross_attn"], enc_out, cfg))
@@ -143,11 +188,14 @@ def loss(params, batch: Dict[str, torch.Tensor],
     enc_out = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens] + params["pos_embed"][:s][None]
+    x = C.embed_lookup(params["embed"], tokens) + \
+        params["pos_embed"][:s][None]
     x = _layers(_dec_layer, params["dec_layers"], x, cfg, cfg,
                 _positions(b, s, tokens.device), enc_out)
     h = _ln(x, params["final_norm"], cfg)
-    return C.cross_entropy_loss(h @ params["embed"].T, batch["labels"])
+    # vocab-sharded logits gather their vocab for the loss's logsumexp
+    lg = D.constrain(h @ params["embed"].T, "data", None, None)
+    return C.cross_entropy_loss(lg, batch["labels"])
 
 
 def cross_kv(p_attn, enc_out: torch.Tensor, cfg: ModelConfig
@@ -156,8 +204,8 @@ def cross_kv(p_attn, enc_out: torch.Tensor, cfg: ModelConfig
     encoder states."""
     b, se, _ = enc_out.shape
     shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
-    kx = (enc_out @ p_attn["wk"]).reshape(shape)
-    vx = (enc_out @ p_attn["wv"]).reshape(shape)
+    kx = B.kv_projection_layout(enc_out @ p_attn["wk"], cfg).reshape(shape)
+    vx = B.kv_projection_layout(enc_out @ p_attn["wv"], cfg).reshape(shape)
     if cfg.qkv_bias:
         kx = kx + p_attn["bk"].to(kx.dtype).reshape(shape[2:])
         vx = vx + p_attn["bv"].to(vx.dtype).reshape(shape[2:])
@@ -165,10 +213,15 @@ def cross_kv(p_attn, enc_out: torch.Tensor, cfg: ModelConfig
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-               encoder_seq: Optional[int] = None) -> Dict[str, Any]:
+               encoder_seq: Optional[int] = None, mesh=None
+               ) -> Dict[str, Any]:
     """``pos`` [B] int32, ``k``/``v`` [L, B, H, max_len, dh] and
     ``xk``/``xv`` [L, B, H, Se, dh] (Se = ``encoder_seq``, by default the
-    config's), zeros."""
+    config's), zeros; with a ``mesh``, DTensors laid out by
+    :func:`cache_pspecs` (the axes that do not divide a dim dropped)."""
+    if mesh is not None:
+        return D.zeros_tree(init_cache(cfg, batch, max_len, "meta",
+                                       encoder_seq), cache_pspecs(cfg), mesh)
     L, se = cfg.n_layers, encoder_seq or cfg.encoder_seq
     k = torch.zeros((L, batch, cfg.n_kv_heads, max_len, cfg.head_dim),
                     dtype=cfg.dtype, device=device)
@@ -185,35 +238,51 @@ def prefill(params, tokens: torch.Tensor, frames: torch.Tensor,
     """Encode ``frames``, run the decoder over ``tokens`` [B, S] (causal
     self-attention, non-causal cross-attention to the encoder states) and
     return (logits of the last position [B, V], the filled cache).
-    ``max_len`` (>= S) sizes the self-attention cache."""
-    enc_out = encode(params, frames, cfg)
-    b, s = tokens.shape
-    max_len = max(max_len or s, s)
-    cache = init_cache(cfg, b, max_len, tokens.device, enc_out.shape[1])
-    x = params["embed"][tokens] + params["pos_embed"][:s][None]
-    positions = _positions(b, s, tokens.device)
-    for i, p in enumerate(params["dec_layers"]):
-        h, kt, vt = B.attention(p["self_attn"], _ln(x, p["ln1"], cfg), cfg,
-                                positions, causal=True)
-        cache["k"][i, :, :, :s] = kt
-        cache["v"][i, :, :, :s] = vt
-        x = x + h
-        h, xkt, xvt = B.attention(p["cross_attn"], _ln(x, p["lnx"], cfg),
-                                  cfg, positions, causal=False,
-                                  kv=cross_kv(p["cross_attn"], enc_out, cfg))
-        cache["xk"][i] = xkt
-        cache["xv"][i] = xvt
-        x = x + h
-        x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
-    cache["pos"].fill_(s)
-    h = _ln(x[:, -1], params["final_norm"], cfg)
-    return h @ params["embed"].T, cache
+    ``max_len`` (>= S) sizes the self-attention cache.  On DTensor
+    parameters, as :func:`repro_torch.models.lm.prefill`: the cache laid
+    out by :func:`cache_pspecs`, the logits over (data axes, "model")."""
+    mesh = D.mesh_of(params["embed"])
+    with D.on_mesh(mesh):
+        if mesh is not None:
+            inputs = D.distribute_batch({"tokens": tokens,
+                                         "frames": frames}, mesh)
+            tokens, frames = inputs["tokens"], inputs["frames"]
+        enc_out = encode(params, frames, cfg)
+        b, s = tokens.shape
+        max_len = max(max_len or s, s)
+        cache = init_cache(cfg, b, max_len, tokens.device, enc_out.shape[1],
+                           mesh)
+        x = C.embed_lookup(params["embed"], tokens) + \
+            params["pos_embed"][:s][None]
+        positions = _positions(b, s, tokens.device)
+        pad = (0, 0, 0, max_len - s)             # free slots for decode
+        for i, p in enumerate(params["dec_layers"]):
+            h, kt, vt = B.attention(p["self_attn"], _ln(x, p["ln1"], cfg),
+                                    cfg, positions, causal=True)
+            cache["k"][i].copy_(F.pad(kt, pad))
+            cache["v"][i].copy_(F.pad(vt, pad))
+            x = x + h
+            h, xkt, xvt = B.attention(p["cross_attn"],
+                                      _ln(x, p["lnx"], cfg), cfg, positions,
+                                      causal=False, kv=cross_kv(
+                                          p["cross_attn"], enc_out, cfg))
+            cache["xk"][i].copy_(xkt)
+            cache["xv"][i].copy_(xvt)
+            x = x + h
+            x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+        cache["pos"].fill_(s)
+        h = _ln(x[:, -1], params["final_norm"], cfg)
+        lg = h @ params["embed"].T
+        if mesh is not None:
+            lg = D.lay_out(lg, P(D.dp_axes(mesh), "model"))
+    return lg, cache
 
 
 def decode_step(params, cache: Dict[str, Any], tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens [B] -> (logits [B, V], the cache, updated in place).  The
     learned position is ``pos_embed[min(pos, max_pos - 1)]``."""
+    D.refuse_mesh(params["embed"], "decode_step")
     b = tokens.shape[0]
     pos = cache["pos"]
     max_pos = params["pos_embed"].shape[0]
@@ -293,7 +362,7 @@ class EncDecLM:
 
     def prefill(self, tokens, frames, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        with torch.inference_mode():
+        with D.serving_mode(self.params["embed"]):
             return prefill(self.params, self._tokens(tokens),
                            self._frames(frames), self.cfg, max_len)
 
@@ -302,6 +371,12 @@ class EncDecLM:
         with torch.inference_mode():
             return decode_step(self.params, cache, self._tokens(tokens),
                                self.cfg)
+
+    def param_pspecs(self, model_axis: int = 16) -> Dict[str, Any]:
+        return param_pspecs(self.cfg, model_axis)
+
+    def cache_pspecs(self) -> Dict[str, Any]:
+        return cache_pspecs(self.cfg)
 
     def batch_on_device(self, batch) -> Dict[str, torch.Tensor]:
         return batch_on_device(batch, self.device)

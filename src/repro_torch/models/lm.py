@@ -22,6 +22,15 @@ enabled each layer (with the hybrid's shared block after it) runs under
 ``torch.utils.checkpoint``: its activations are recomputed in the
 backward pass, as the JAX package's ``jax.checkpoint`` with
 ``nothing_saveable`` recomputes them.
+
+Layouts: :func:`param_pspecs` and :func:`cache_pspecs` are the
+reference's specs (a per-layer leaf's spec drops the reference's leading
+``None`` of its ``[L, ...]`` stack; the cache keeps the stack).  With a
+constraint mesh installed (:mod:`repro_torch.dist.sharding`) and a
+DTensor parameter tree, every layer starts from the reference's
+residual-stream layout (:func:`_boundary`), and the loss and
+:func:`prefill` run sharded; :func:`decode_step` runs on plain tensors
+only (ROADMAP A 16).
 """
 
 from __future__ import annotations
@@ -29,9 +38,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as D
+from repro_torch.dist.sharding import P
 from repro_torch.models import blocks as B
 from repro_torch.models import common as C
 from repro_torch.models import ssm as S
@@ -114,6 +126,74 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+
+def layer_pspecs(cfg: ModelConfig, model_axis: int) -> Dict[str, Any]:
+    """One layer's specs (the reference's ``_layer_pspecs``)."""
+    if cfg.ssm_type == "rwkv6":
+        return {"ln1": P(None), "ln2": P(None),
+                "mix": S.rwkv6_pspecs(cfg)}
+    if cfg.ssm_type == "mamba2":
+        return {"ln1": P(None), "mix": S.mamba2_pspecs(cfg)}
+    layer = {"ln1": P(None), "attn": B.attn_pspecs(cfg), "ln2": P(None)}
+    if cfg.family == "moe":
+        layer["moe"] = B.moe_pspecs(cfg, model_axis)
+    else:
+        layer["mlp"] = B.mlp_pspecs(cfg)
+    return layer
+
+
+def param_pspecs(cfg: ModelConfig, model_axis: int = 16) -> Dict[str, Any]:
+    """The parameter tree's specs: ``layers`` a list of per-layer specs
+    (the reference's stacked leaf ``P(None, *spec)`` is ``spec`` here)."""
+    specs: Dict[str, Any] = {
+        "embed": P("model", None),
+        "layers": [layer_pspecs(cfg, model_axis)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "model")
+    if _hybrid(cfg):
+        specs["shared"] = {"ln1": P(None), "attn": B.attn_pspecs(cfg),
+                           "ln2": P(None), "mlp": B.mlp_pspecs(cfg)}
+    return specs
+
+
+def cache_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The cache's specs (stacked on L, as the cache is)."""
+    c: Dict[str, Any] = {"pos": P("data")}
+    if cfg.ssm_type:
+        state = (S.rwkv6_state_pspecs(cfg) if cfg.ssm_type == "rwkv6"
+                 else S.mamba2_state_pspecs(cfg))
+        c["ssm"] = D.map_specs(lambda p: P(None, *p), state)
+    else:
+        # KV caches shard the SEQUENCE dim over 'model' (kv-head counts
+        # are below the model-axis degree on most archs)
+        c["k"] = P(None, "data", None, "model", None)
+        c["v"] = P(None, "data", None, "model", None)
+    if _hybrid(cfg):
+        c["shared_k"] = P(None, "data", None, "model", None)
+        c["shared_v"] = P(None, "data", None, "model", None)
+    return c
+
+
+def _boundary(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Residual-stream layout at block boundaries (the reference's).
+
+    heads % TP == 0: batch-sharded, replicated over model (Megatron);
+    otherwise sequence-sharded over model (Megatron-SP), so the
+    sequence-parallel attention scores compose with it."""
+    mesh = D.get_constraint_mesh()
+    if mesh is None or x.ndim != 3:
+        return x
+    if cfg.n_heads % D.axis_size(mesh, "model") == 0:
+        return D.constrain(x, "data", None, None)
+    return D.constrain(x, "data", "model", None)
+
+
+# ---------------------------------------------------------------------------
 # forward passes (plain functions on a parameter tree)
 # ---------------------------------------------------------------------------
 
@@ -133,7 +213,8 @@ def _store_kv(kt: torch.Tensor, vt: torch.Tensor, k_dst: torch.Tensor,
     """Write a prefill's roped k/v ``[B, Hkv, S, dh]`` into cache slices.
     With a sliding window the cache keeps the last ``window`` positions,
     rolled into the ring-buffer slots that ``decode_step`` continues;
-    later slots stay 0."""
+    later slots stay 0.  DTensor slices take the k/v in their own layout
+    (the sequence over "model")."""
     s_total = kt.shape[2]
     w = cfg.sliding_window
     keep = min(s_total, w or s_total)
@@ -142,20 +223,24 @@ def _store_kv(kt: torch.Tensor, vt: torch.Tensor, k_dst: torch.Tensor,
         shift = s_total % w                      # ring-buffer alignment
         kk = torch.roll(kk, shift, dims=2)
         vv = torch.roll(vv, shift, dims=2)
-    k_dst[:, :, :keep] = kk
-    v_dst[:, :, :keep] = vv
+    pad = (0, 0, 0, k_dst.shape[2] - keep)       # free slots for decode
+    k_dst.copy_(F.pad(kk, pad))
+    v_dst.copy_(F.pad(vv, pad))
 
 
 def _attn_block(p, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, kv=None) -> torch.Tensor:
+                positions: torch.Tensor, kv=None,
+                layer: bool = True) -> torch.Tensor:
     """Pre-norm attention and MLP (or experts) over a full sequence: a
-    dense, MoE or VLM layer, or the hybrid's shared block.  ``kv`` = (k,
-    v) cache slices take the roped k and v."""
+    dense, MoE or VLM ``layer``, or (``layer=False``) the hybrid's shared
+    block, whose residual the reference leaves unconstrained.  ``kv`` =
+    (k, v) cache slices take the roped k and v."""
     h, kt, vt = B.attention(p["attn"], _norm(x, p["ln1"], cfg), cfg,
                             positions)
     if kv is not None:
         _store_kv(kt, vt, kv[0], kv[1], cfg)
-    return _mlp_residual(p, x + h, cfg)
+    x = x + h
+    return _mlp_residual(p, _boundary(x, cfg) if layer else x, cfg)
 
 
 def _attn_block_decode(p, x: torch.Tensor, cfg: ModelConfig,
@@ -193,6 +278,7 @@ def _layer(params, i: int, x: torch.Tensor, cfg: ModelConfig,
            cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Layer ``i``, then the shared block where it follows layer ``i``."""
     p = params["layers"][i]
+    x = _boundary(x, cfg)
     if cfg.ssm_type:
         x = _ssm_layer(p, x, cfg,
                        None if cache is None else _layer_state(cache, i))
@@ -205,7 +291,7 @@ def _layer(params, i: int, x: torch.Tensor, cfg: ModelConfig,
         x = _attn_block(params["shared"], x, cfg, positions,
                         None if cache is None
                         else (cache["shared_k"][app],
-                              cache["shared_v"][app]))
+                              cache["shared_v"][app]), layer=False)
     return x
 
 
@@ -234,7 +320,7 @@ def embed_inputs(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
     if embeds is not None:
         parts.append(embeds.to(cfg.dtype))
     if tokens is not None:
-        parts.append(params["embed"][tokens])
+        parts.append(C.embed_lookup(params["embed"], tokens))
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
@@ -261,7 +347,8 @@ def loss(params, batch: Dict[str, torch.Tensor],
     ``labels`` [B, S] (and a VLM's ``vision_embeds`` [B, P, d], whose
     positions get label -1 and no loss) -> mean token NLL, fp32."""
     h = hidden(params, batch.get("tokens"), cfg, batch.get("vision_embeds"))
-    lg = logits(params, h, cfg)
+    # vocab-sharded logits gather their vocab for the loss's logsumexp
+    lg = D.constrain(logits(params, h, cfg), "data", None, None)
     labels = batch["labels"]
     if lg.shape[1] != labels.shape[1]:            # frontend prefix: no loss
         pad = lg.shape[1] - labels.shape[1]
@@ -274,15 +361,23 @@ def loss(params, batch: Dict[str, torch.Tensor],
 def batch_on_device(batch, device) -> Dict[str, torch.Tensor]:
     """A training batch (numpy arrays or tensors) on ``device``: token ids
     and labels as int64, side inputs (``vision_embeds``, ``frames``) in
-    their own dtype."""
-    return {k: torch.as_tensor(v, device=device,
-                               dtype=(torch.long if k in ("tokens", "labels")
-                                      else None))
+    their own dtype; DTensors (a batch already laid out on a mesh) as
+    they are."""
+    return {k: v if D.is_dtensor(v) else
+            torch.as_tensor(v, device=device,
+                            dtype=(torch.long if k in ("tokens", "labels")
+                                   else None))
             for k, v in batch.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device) -> Dict[str, Any]:
+               device, mesh=None) -> Dict[str, Any]:
+    """The zero cache on ``device``; with a ``mesh``, DTensors laid out
+    by :func:`cache_pspecs` (the axes that do not divide a dim dropped),
+    each rank holding its own shard."""
+    if mesh is not None:
+        return D.zeros_tree(init_cache(cfg, batch, max_len, "meta"),
+                            cache_pspecs(cfg), mesh)
     L = cfg.n_layers
     s = min(max_len, cfg.sliding_window or max_len)
     cache: Dict[str, Any] = {
@@ -314,22 +409,40 @@ def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
     ``embeds`` (the VLM's vision prefix) go before the tokens; positions
     run over both, and ``pos`` ends at the total length.  ``max_len``
     sizes the KV caches (>= that length) so decode steps have free slots;
-    defaults to that length.  The SSM state does not depend on it."""
-    x = embed_inputs(params, tokens, cfg, embeds)
-    b, s_total, _ = x.shape
-    max_len = max(max_len or s_total, s_total)
-    positions = torch.arange(s_total, device=x.device)[None].expand(
-        b, s_total)
-    cache = init_cache(cfg, b, max_len, x.device)
-    x = _forward(params, x, cfg, positions, cache)
-    cache["pos"].fill_(s_total)
-    h = _norm(x[:, -1], params["final_norm"], cfg)
-    return logits(params, h, cfg), cache
+    defaults to that length.  The SSM state does not depend on it.
+
+    On DTensor parameters (their mesh installed as the constraint mesh)
+    the inputs' rows go over the data axes, every layer runs in the
+    reference's layouts, and logits and cache come back as DTensors: the
+    logits over (data axes, "model"), the cache laid out by
+    :func:`cache_pspecs`, in both the axes that do not divide a dim
+    dropped, as the reference launcher's ``validate_divisibility`` does."""
+    mesh = D.mesh_of(params["embed"])
+    with D.on_mesh(mesh):
+        if mesh is not None:
+            inputs = D.distribute_batch({k: v for k, v in (
+                ("tokens", tokens), ("embeds", embeds)) if v is not None},
+                mesh)
+            tokens, embeds = inputs.get("tokens"), inputs.get("embeds")
+        x = embed_inputs(params, tokens, cfg, embeds)
+        b, s_total, _ = x.shape
+        max_len = max(max_len or s_total, s_total)
+        positions = torch.arange(s_total, device=x.device)[None].expand(
+            b, s_total)
+        cache = init_cache(cfg, b, max_len, x.device, mesh)
+        x = _forward(params, x, cfg, positions, cache)
+        cache["pos"].fill_(s_total)
+        h = _norm(x[:, -1], params["final_norm"], cfg)
+        lg = logits(params, h, cfg)
+        if mesh is not None:
+            lg = D.lay_out(lg, P(D.dp_axes(mesh), "model"))
+    return lg, cache
 
 
 def decode_step(params, cache: Dict[str, Any], tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens [B] -> (logits [B, V], the cache, updated in place)."""
+    D.refuse_mesh(params["embed"], "decode_step")
     pos = cache["pos"]
     x = params["embed"][tokens][:, None, :]              # [B, 1, d]
     for i, p in enumerate(params["layers"]):
@@ -409,9 +522,18 @@ class CausalLM:
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         return init_cache(self.cfg, batch, max_len, self.device)
 
+    def _layer_pspecs(self, model_axis: int) -> Dict[str, Any]:
+        return layer_pspecs(self.cfg, model_axis)
+
+    def param_pspecs(self, model_axis: int = 16) -> Dict[str, Any]:
+        return param_pspecs(self.cfg, model_axis)
+
+    def cache_pspecs(self) -> Dict[str, Any]:
+        return cache_pspecs(self.cfg)
+
     def prefill(self, tokens=None, max_len: Optional[int] = None,
                 embeds=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        with torch.inference_mode():
+        with D.serving_mode(self.params["embed"]):
             toks, emb = self._inputs(tokens, embeds)
             return prefill(self.params, toks, self.cfg, max_len, emb)
 

@@ -26,6 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as D
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.models import common as C
 from repro_torch.models.common import ModelConfig
@@ -69,6 +71,19 @@ def rwkv6_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def rwkv6_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    rep = P(None)
+    return {
+        "mu_r": rep, "mu_k": rep, "mu_v": rep, "mu_w": rep, "mu_g": rep,
+        "wr": P(None, "model"), "wk": P(None, "model"), "wv": P(None, "model"),
+        "wg": P(None, "model"), "wo": P("model", None),
+        "w0": rep, "w_lora_a": P(None, None), "w_lora_b": P(None, "model"),
+        "u": P("model", None), "ln_x": rep,
+        "mu_ck": rep, "mu_cr": rep,
+        "ck": P(None, "model"), "cv": P("model", None), "cr": P(None, "model"),
+    }
+
+
 def _shift(x: torch.Tensor, carry: Optional[torch.Tensor] = None
            ) -> torch.Tensor:
     """Token shift: x_{t-1} (zeros / the carried last token at t=0)."""
@@ -80,6 +95,29 @@ def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
     """[B, T, h*dh] -> contiguous [B, h, T, dh], the kernel's layout."""
     b, t, _ = x.shape
     return x.reshape(b, t, h, -1).transpose(1, 2).contiguous()
+
+
+def _scan(r, k, v, w, u, s):
+    """``ops.rwkv6_scan`` (the final state written over ``s``) on plain
+    tensors, or on each rank's shards of DTensors: r, k, v and w are
+    pinned to batch rows over the data axes and heads over ``model``
+    (where the heads divide it), ``u`` to the same heads, and a carried
+    state ``s`` is read in that layout and written back in its own, so
+    each rank's recurrence is its own slice."""
+    if not D.is_dtensor(r):
+        return ops.rwkv6_scan(r, k, v, w, u, s, out_state=s)[0]
+    mesh = D.get_constraint_mesh()
+    heads = "model" if mesh is not None and \
+        r.shape[1] % D.axis_size(mesh, "model") == 0 else None
+    r, k, v, w = (D.constrain(t, "data", heads, None, None)
+                  for t in (r, k, v, w))
+    u = D.constrain(u, heads, None)
+    s_in = None if s is None else s.redistribute(mesh, r.placements)
+    out, final = ops.rwkv6_scan(*(D.local_shard(t, r) for t in (
+        r, k, v, w, u)), None if s_in is None else s_in.to_local())
+    if s is not None:
+        s.copy_(D.from_local(final, mesh, r.placements, s.shape))
+    return D.from_local_like(out, r)
 
 
 def rwkv6_block(p, x: torch.Tensor, cfg: ModelConfig,
@@ -106,8 +144,7 @@ def rwkv6_block(p, x: torch.Tensor, cfg: ModelConfig,
                                @ p["w_lora_b"]).float()
 
     s = None if state is None else state["s"]
-    out, _ = ops.rwkv6_scan(r, k, v, _heads(w_raw, h), p["u"], s,
-                            out_state=s)
+    out = _scan(r, k, v, _heads(w_raw, h), p["u"], s)
     # per-head normalization (official GroupNorm(h) over the flattened dim)
     out = C.rms_norm(out.transpose(1, 2),
                      torch.ones((dh,), dtype=x.dtype, device=x.device),
@@ -142,6 +179,11 @@ def rwkv6_state_init(cfg: ModelConfig, batch: int,
                                    device=device)}
 
 
+def rwkv6_state_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"s": P("data", "model", None, None),
+            "shift_t": P("data", None), "shift_c": P("data", None)}
+
+
 # ===========================================================================
 # Mamba-2 (SSD)
 # ===========================================================================
@@ -164,6 +206,13 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
         "norm": torch.ones((d_in,), dtype=dt, device=dev),
         "out_proj": C.dense(gen, d_in, d, dt),
     }
+
+
+def mamba2_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"in_proj": P(None, "model"), "conv_w": P(None, None),
+            "conv_b": P(None), "A_log": P(None), "D": P(None),
+            "dt_bias": P(None), "norm": P("model"),
+            "out_proj": P("model", None)}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -276,3 +325,8 @@ def mamba2_state_init(cfg: ModelConfig, batch: int,
                              device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, d_in + 2 * n),
                                 dtype=cfg.dtype, device=device)}
+
+
+def mamba2_state_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"h": P("data", "model", None, None),
+            "conv": P("data", None, "model")}

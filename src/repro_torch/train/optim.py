@@ -14,6 +14,16 @@ Where the reference returns new trees, :meth:`AdamW.update` writes the
 new parameters and moments into the tensors it was given (and clips the
 gradients in place) and returns those same trees: a model the size of
 the card's memory has no room for a second copy.
+
+Sharded: parameters, gradients and moments may be DTensors.  The
+moments' layout may differ from the parameters' (ZeRO-1: a moment
+replicated over the data axis in the parameter is sharded over it
+here, ``dist.sharding.opt_state_pspecs(zero1=True)``); each rank then
+updates its moments' shard and the matching slice of the parameter, and
+the new parameter is all-gathered back to its own layout, as the
+reference's ``out_shardings = in_shardings`` lays it out.  The global
+norm sums each leaf's local squares and reduces the sums (``Partial``
+to ``Replicate``), never a whole leaf.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import sharding as D
 from repro_torch.train.tree import leaves, tree_map
 
 
@@ -83,6 +94,24 @@ def clip_by_global_norm(tree, max_norm: float) -> Tuple[Any, torch.Tensor]:
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
 
+def _dzeros(params, specs, dtype):
+    """DTensor zeros shaped as the DTensor tree ``params``, laid out by
+    the spec tree ``specs`` (default: each parameter's layout)."""
+    from torch.distributed.tensor import zeros
+    if isinstance(params, dict):
+        return {k: _dzeros(v, None if specs is None else specs[k], dtype)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_dzeros(v, None if specs is None else s, dtype)
+                            for v, s in zip(params, specs or [None] *
+                                            len(params)))
+    mesh = params.device_mesh
+    pl = params.placements if specs is None else \
+        D.placements(specs, mesh, params.shape)
+    return zeros(tuple(params.shape), dtype=dtype, device_mesh=mesh,
+                 placements=pl)
+
+
 class AdamW:
     """init(params) -> state; update(grads, state, params) -> (params,
     state, metrics), written in place."""
@@ -90,9 +119,21 @@ class AdamW:
     def __init__(self, cfg: AdamWConfig = AdamWConfig()):
         self.cfg = cfg
 
-    def init(self, params) -> AdamWState:
+    def init(self, params, moment_specs=None) -> AdamWState:
+        """Zero moments in ``moment_dtype``.  For a DTensor tree each
+        moment is a DTensor on the parameters' mesh, laid out by
+        ``moment_specs`` (an ``OptStatePSpecs``; default: each
+        parameter's own layout)."""
         mdt = getattr(torch, self.cfg.moment_dtype)
         first = leaves(params)[0]
+        if D.is_dtensor(first):
+            return AdamWState(
+                step=torch.zeros((), dtype=torch.int32,
+                                 device=first.to_local().device),
+                m=_dzeros(params, None if moment_specs is None
+                          else moment_specs.m, mdt),
+                v=_dzeros(params, None if moment_specs is None
+                          else moment_specs.v, mdt))
         zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
         return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                            device=first.device),
@@ -102,6 +143,16 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params
                ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+        if D.is_dtensor(leaves(params)[0]):
+            # the step, lr and corrections stay plain 0-dim tensors
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                return self._update(grads, state, params)
+        return self._update(grads, state, params)
+
+    def _update(self, grads, state: AdamWState, params
+                ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         metrics: Dict[str, torch.Tensor] = {}
         flat_g = leaves(grads)
@@ -120,14 +171,20 @@ class AdamW:
         mdt = getattr(torch, cfg.moment_dtype)
         for p, g, m, v in zip(leaves(params), flat_g, leaves(state.m),
                               leaves(state.v)):
+            # ZeRO-1: this rank's slice of the parameter, as its moments
+            ps = p.redistribute(m.device_mesh, m.placements) \
+                if D.is_dtensor(m) and m.placements != p.placements else p
             gf = g.float()
             m2 = b1 * m.float() + (1 - b1) * gf
             v2 = b2 * v.float() + (1 - b2) * gf * gf
             mhat = m2 / bc1
             vhat = v2 / bc2
             delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
-                + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * delta).to(p.dtype))
+                + cfg.weight_decay * ps.float()
+            new = (ps.float() - lr * delta).to(p.dtype)
+            if ps is not p:                     # all-gather the slices
+                new = new.redistribute(p.device_mesh, p.placements)
+            p.copy_(new)
             m.copy_(m2.to(mdt))
             v.copy_(v2.to(mdt))
         return params, AdamWState(step, state.m, state.v), metrics

@@ -2,7 +2,8 @@
 of the JAX package's ``vae/serve.py``).
 
 ``make_decode_step`` returns the batched float decode (latents -> images)
-on one device; the serving engine (:mod:`repro_torch.serve.engine`)
+on one device, or with the batch split over every axis of a device mesh
+(the reference's data parallelism); the serving engine (:mod:`repro_torch.serve.engine`)
 microbatches requests into ``VAE.decode_u8`` instead.  ``vae_cell_cost``
 gives the analytic FLOPs and bytes the roofline reads
 (:mod:`repro_torch.launch.roofline`), and ``decode_ms_estimate`` a
@@ -44,17 +45,31 @@ def make_decode_step(cfg: VAEConfig, mesh=None, device=None):
     decoder tree on that device (``VAE.decoder``); ``z`` (numpy or a
     tensor, ``[N, h, w, C_lat]``) is moved there as float32.  Returns
     float pixels ``[N, 8h, 8w, 3]`` on the device (asynchronous on
-    CUDA)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a decode step sharded over a mesh is not ported yet "
-            "(ROADMAP A 16, dist)")
+    CUDA).
+
+    With a ``mesh`` (a ``DeviceMesh`` on ``device``'s type) the latent
+    batch shards over every mesh axis (``Shard(0)`` on each mesh dim, N
+    divisible by the mesh's size), the decoder weights stay replicated
+    (each rank's plain tree), each rank decodes its own rows through the
+    kernels, and the pixels come back as a DTensor with the batch's
+    placements.  ``z`` is the global batch, on every rank alike."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"mesh on {mesh.device_type!r}, decode on "
+                         f"{dev.type!r}")
 
     def step(params, z):
         with torch.inference_mode():
-            return decode(params, torch.as_tensor(z, dtype=torch.float32,
-                                                  device=dev), cfg)
+            z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+            if mesh is None:
+                return decode(params, z, cfg)
+            from torch.distributed.tensor import distribute_tensor
+            from repro_torch.dist import sharding as D
+            pl = D.placements(D.P(D.axis_names(mesh)), mesh, z.shape)
+            zl = distribute_tensor(z, mesh, pl, src_data_rank=None)
+            out = decode(params, zl.to_local(), cfg)
+            return D.from_local(out, mesh, pl,
+                                (z.shape[0],) + tuple(out.shape[1:]))
     return step
 
 

@@ -1494,7 +1494,10 @@ def test_flash_attention_gradients_on_card(dev, n, hq, hkv, sq, skv, d,
 
 def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
     """Every wrapper with no backward raises before its launch when an
-    input requires grad under grad mode; serving modes launch."""
+    input requires grad under grad mode; serving modes launch.
+    ``rwkv6_scan`` has one (:class:`RWKV6Scan`): under grad it launches
+    its kernel once and its output is in the graph, and it refuses to
+    write a state in place there."""
     x, w4, s4, wt = randn(dev, 67, (1, 8, 8, 16), (3, 3, 16, 16), (16,),
                           (3, 3, 16, 3))
     q, kc = randn(dev, 68, (2, 4, 32), (2, 2, 40, 32))
@@ -1512,7 +1515,6 @@ def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
                                                          groups=4),
         "decode_attention": lambda g: ops.decode_attention(g(q), kc, kc,
                                                            lens),
-        "rwkv6_scan": lambda g: ops.rwkv6_scan(r, r, g(r), r, u),
     }
     for name, call in calls.items():
         before = ops.launch_counts()[name]
@@ -1522,9 +1524,42 @@ def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
         with torch.no_grad():
             call(lambda t: t.clone().requires_grad_(True))
         assert ops.launch_counts()[name] == before + 1, name
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A 16, rwkv6_scan backward"):
-        ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, r, u)
+    before = ops.launch_counts()["rwkv6_scan"]
+    out, _ = ops.rwkv6_scan(r, r, r.clone().requires_grad_(True), r, u)
+    assert type(out.grad_fn).__name__ == "RWKV6ScanBackward"
+    assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    out.sum().backward()                        # no launch in the backward
+    assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    s0 = torch.zeros((1, 2, 16, 16), device=dev)
+    with pytest.raises(ValueError, match="out_state"):
+        ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, r, u, s0,
+                       out_state=s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,t,d", [(2, 3, 37, 16), (1, 2, 45, 64),
+                                     (2, 2, 20, 80), (1, 3, 1, 32)])
+def test_rwkv6_scan_backward_at_ragged_shapes(dev, n, h, t, d, dtype):
+    """``RWKV6Scan`` (the kernel's forward, the chunked plain backward) at
+    t not a multiple of 16 from a non-zero initial state, both outputs
+    weighted by random cotangents: the gradients of r, k, v, w, u and
+    the state against autograd through the sequential plain scan on the
+    same CUDA tensors, fp32 1e-4 of each gradient's max |value| (sums in
+    another order), bf16 r/k/v 2e-2 (their gradients round to bf16)."""
+    args = rwkv_inputs(dev, 90 + t, n, h, t, d, dtype, with_state=True)
+    go, gs = randn(dev, 91, (n, h, t, d), (n, h, d, d))
+    grads = []
+    for fn in (ops.rwkv6_scan, ref.rwkv6_scan_ref):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        out, state = fn(*leaves)
+        loss = (out.float() * go).sum() + (state * gs).sum()
+        grads.append(torch.autograd.grad(loss, leaves))
+    for i, (g, w) in enumerate(zip(*grads)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all()), i
+        tol = 2e-2 if i < 3 and dtype == torch.bfloat16 else 1e-4
+        assert max_err(g.float(), w.float()) <= \
+            tol * float(w.float().abs().max()), i
 
 
 def test_trainer_on_card_matches_cpu(dev, tmp_path):

@@ -61,7 +61,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.train.train_step", "repro_torch.train.trainer",
             "repro_torch.train.grad_compress", "repro_torch.train.tree",
             "repro_torch.ckpt.checkpoint",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.dist",
+            "repro_torch.dist.sharding"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

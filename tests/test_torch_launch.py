@@ -4,9 +4,10 @@ LM shape) cell; the analytic decoder FLOP and byte model and
 ``vae_cell_cost`` at 512 and 1024; ``decode_ms_estimate`` with the
 reference's constants passed in, and at the H100 defaults; the roofline
 rows on synthetic dry-run artifacts (each term the reference's scaled by
-the ratio of the constants); ``make_decode_step`` on a bridged VAE; the
-serving launcher against the JAX launcher on the same weights; the mesh
-functions' raise; and both examples with ``--device cpu``."""
+the ratio of the constants); ``make_decode_step`` on a bridged VAE, and
+on a (1, 1) mesh; the serving launcher against the JAX launcher on the
+same weights; the mesh constructors; and both examples with ``--device
+cpu``."""
 
 import contextlib
 import dataclasses
@@ -132,18 +133,55 @@ def test_h100_constants():
     assert mesh.card_peaks("NVIDIA H100 NVL")[1] == 3.9e12
 
 
-@pytest.mark.parametrize("fn,kw", [(mesh.make_production_mesh, {}),
-                                   (mesh.make_production_mesh,
-                                    {"multi_pod": True}),
-                                   (mesh.make_local_mesh, {})])
-def test_mesh_functions_raise_naming_a16(fn, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A 16, dist"):
-        fn(**kw)
+@pytest.fixture
+def no_world():
+    """Whatever process group the test makes is destroyed after it."""
+    import torch.distributed as dist
+    had = dist.is_initialized()
+    yield
+    if not had and dist.is_initialized():
+        dist.destroy_process_group()
 
 
-def test_sharded_decode_step_raises_naming_a16():
-    with pytest.raises(NotImplementedError, match="ROADMAP A 16, dist"):
-        vserve.make_decode_step(M.DEMO_VAE, mesh=object(), device="cpu")
+@pytest.mark.parametrize("kw,want", [({}, "256 ranks"),
+                                     ({"multi_pod": True}, "512 ranks"),
+                                     (None, None)])
+def test_mesh_functions(no_world, monkeypatch, kw, want):
+    """The production meshes refuse a world of another size, naming both
+    numbers (this process is a world of 1); the local mesh is (1, 1)
+    ("data", "model") over a world-size-1 gloo group it makes itself."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    if kw is not None:
+        with pytest.raises(ValueError, match=f"needs {want}, and the world "
+                                             "has 1"):
+            mesh.make_production_mesh(**kw)
+        return
+    m = mesh.make_local_mesh(device="cpu")
+    assert m.mesh_dim_names == ("data", "model") and m.shape == (1, 1)
+    assert m.device_type == "cpu"
+    assert mesh.make_local_mesh(device="cpu").shape == (1, 1)   # reuses it
+
+
+@dataclasses.dataclass
+class _MeshType:
+    device_type: str
+
+
+def test_sharded_decode_step_on_a_local_mesh(no_world, demo_pair):
+    """``make_decode_step(cfg, mesh)`` on the (1, 1) mesh: the pixels of
+    the unsharded step bit for bit, as a DTensor with the batch's
+    placements; a mesh of another device type raises."""
+    from torch.distributed.tensor import Shard
+    _, tv = demo_pair
+    m = mesh.make_local_mesh(device="cpu")
+    z = np.random.default_rng(5).standard_normal((2, 8, 8, 4)).astype(
+        np.float32)
+    got = vserve.make_decode_step(M.DEMO_VAE, m, device="cpu")(tv.decoder, z)
+    want = vserve.make_decode_step(M.DEMO_VAE, device="cpu")(tv.decoder, z)
+    assert list(got.placements) == [Shard(0), Shard(0)]
+    assert torch.equal(got.full_tensor(), want)
+    with pytest.raises(ValueError, match="mesh on 'cuda', decode on 'cpu'"):
+        vserve.make_decode_step(M.DEMO_VAE, _MeshType("cuda"), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -108,6 +108,40 @@ def test_rwkv6_scan_ref_matches_jax(n, h, t, d, chunk, with_state):
         close(ts, want_s)
 
 
+# t a multiple of the 32-token chunk, t that halves it to 8 (40) and to 1
+# (an odd 33), a given state, one token
+CHUNKED_CASES = [(2, 3, 64, 16, True), (1, 2, 40, 8, False),
+                 (1, 2, 33, 8, True), (2, 2, 1, 16, True)]
+
+
+@pytest.mark.parametrize("n,h,t,d,with_state", CHUNKED_CASES)
+def test_rwkv6_chunked_ref_and_its_gradients_match_jax(n, h, t, d,
+                                                       with_state):
+    """``ref.rwkv6_chunked_ref`` (what ``RWKV6Scan``'s backward
+    differentiates) against the JAX package's ``rwkv6_chunked``: out and
+    final state, and their vector-Jacobian product with seeded
+    cotangents for r, k, v, w, u and the state.  1e-4 of each
+    reference's max |value|."""
+    r, k, v, w, u, s0 = scan_inputs(n, h, t, d, 11 + t, with_state)
+    if s0 is None:
+        s0 = np.zeros((n, h, d, d), np.float32)
+    rng = np.random.default_rng(t)
+    dout = rng.standard_normal((n, h, t, d)).astype(np.float32)
+    dst = rng.standard_normal((n, h, d, d)).astype(np.float32)
+    ins = (r, k, v, w, u, s0)
+    (jo, js), vjp = jax.vjp(JS.rwkv6_chunked,
+                            *(jnp.asarray(a) for a in ins))
+    jgrads = vjp((jnp.asarray(dout), jnp.asarray(dst)))
+    tins = [torch.from_numpy(a).requires_grad_(True) for a in ins]
+    to, ts = ref.rwkv6_chunked_ref(*tins)
+    tgrads = torch.autograd.grad((to, ts), tins, (torch.from_numpy(dout),
+                                                  torch.from_numpy(dst)))
+    close(to.detach(), jo)
+    close(ts.detach(), js)
+    for got, want in zip(tgrads, jgrads):
+        close(got, want)
+
+
 def test_rwkv6_scan_on_cpu_updates_a_given_state_in_place():
     """``out_state=state`` (the decode step's in-place cache update) gives
     the same final state as a fresh one, written into the given tensor;
