@@ -185,7 +185,20 @@ wall seconds (any failure exits non-zero):
                 1024 tokens on the trained weights, plain and on their
                 DTensor copy over that mesh (the cache laid out by
                 ``cache_pspecs``): logits and cache bit for bit, the
-                same launches, both prefills' ms;
+                same launches, both prefills' ms; (e)
+                ``decode_attention_partial`` at Qwen2-7B's decode shape
+                (fp32 and bf16) against its plain version, and its slots
+                split into 16 ranges, each through the partial kernel,
+                merged by ``ops.merge_partials`` against one
+                ``decode_attention`` call (fp32 1e-5 of the output's max,
+                bf16 one ulp of each output), the partial and default
+                forms' device ms at the whole shape with the partial
+                form's bound; (f) Qwen2-7B and rwkv6-7b at full width (4
+                layers each), a prefill of 4 x 512 tokens and 8 greedy
+                ``decode_step`` calls plain and then over the (1, 1)
+                mesh on a DTensor copy of the weights: logits and cache
+                bit for bit, one kernel launch a layer a step, each
+                step's ms both ways;
 19. train       training on one card: a CUDA wrapper with no backward
                 (``conv3x3``) refuses an input that requires grad, and
                 ``rwkv6_scan`` under grad launches once through
@@ -215,7 +228,12 @@ Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
 write, store, stream, quant, autotune, launch, the six serving phases,
-the dist phase's three runs and the train phase's first run; the card's peaks from ``repro_torch.launch.mesh.card_peaks``), the
+every run of the dist phase and the train phase's first run; the card's
+peaks from ``repro_torch.launch.mesh.card_peaks``).  The partial form's
+wrapper counts its launches as ``decode_attention``'s, but none reaches
+the line: (e) launches it only to check and time it against its plain
+version, and on one card (f)'s model axis has extent 1, so its decode
+steps never split the slots and run the default form.  Then the
 ``nvidia-smi`` name and
 power-limit line, and as the last line ``{"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}``.  Full lines also go to
@@ -349,7 +367,8 @@ DESIGN = {
     "decode_attention": "one launch: a CTA cluster per (sequence, kv head), "
                         "per-warp cp.async rings, bf16 on mma.sync (q k^T; "
                         "at d 128 p v with p split exactly into 3 bf16), "
-                        "DSMEM merge",
+                        "DSMEM merge; a partial form (fp32 rows and their "
+                        "log-sum-exp) for slots split over ranks",
     "rwkv6_scan": "prefill (t > DECODE_MAX_T): chunked and state-resident, "
                   "a block per (sequence, head, 64 value columns), 16-token "
                   "sub-chunks, the inter, intra and state products in 3xTF32 "
@@ -3854,13 +3873,221 @@ def dist_decode_step(torch, state, mesh):
             "plain_ms": cuda_ms(torch, lambda: plain(vae.decoder, z), 3)}
 
 
+#: (e): the partial form at Qwen2-7B's decode shape, its slots split
+DIST_PARTIAL = dict(n=LM_BATCH, hq=28, hkv=4, s=LM_MAX_LEN, d=128,
+                    lengths=DECODE_LENGTHS, parts=16)
+#: (f): decode steps over the (1, 1) mesh after a prefill of this many
+#: tokens a sequence
+DIST_DECODE = dict(batch=LM_BATCH, prompt=512, steps=8)
+DEPTH_CUT["dist_decode"] = (
+    4, "the plain and the mesh run share one set of weights (the mesh's a "
+       "DTensor copy): 4 of Qwen2-7B's 28 layers with the embedding and "
+       "the untied head are 2.0 B parameters, 4 GB of bf16 a copy; the "
+       "step's layers are alike, so depth adds nothing to what the bit "
+       "check sees; rwkv6-7b is cut the same way")
+
+
+def dist_partial_check(torch, state):
+    """(e): ``decode_attention_partial`` at Qwen2-7B's decode shape, fp32
+    and bf16: o and lse against the plain version (o within 1e-5 (fp32)
+    or 1e-4 (bf16 inputs) of its max, lse within 1e-5 of max(1, |lse|));
+    the slots split into 16 ranges, each through the partial kernel,
+    merged by ``ops.merge_partials``, against one ``decode_attention``
+    call (fp32 within 1e-5 of the output's max, bf16 within one ulp of
+    each output); device ms of the partial and the default form at the
+    whole shape, the plain partial's, the 16 ranges' and the merge's
+    (``torch.profiler``; CUDA events where three profiler windows see no
+    device work, as ``timers`` says);
+    the bound of the partial form's work (its o and lse written in
+    fp32)."""
+    from repro_torch.kernels import ops, ref
+    sh = DIST_PARTIAL
+    n, hq, hkv, s, d, parts = (sh[k] for k in ("n", "hq", "hkv", "s", "d",
+                                               "parts"))
+    byte_peak = state["peaks"][1]
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    lens = torch.tensor(sh["lengths"], device="cuda", dtype=torch.int32)
+    s_l = s // parts
+    out = {}
+
+    def dev_ms(timers, name, fn):
+        # a profiler window can come back empty (0 device ms: fp32's first
+        # window in two whole runs, its retry in one): three windows, then
+        # CUDA events around single calls (launch gaps included)
+        for _ in range(3):
+            ms = device_ms(torch, fn, REPS)
+            if ms:
+                timers[name] = "torch.profiler"
+                return ms
+        timers[name] = "CUDA events (the profiler saw no device work)"
+        return cuda_ms(torch, fn, REPS)
+
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shp, generator=gen, device="cuda").to(dtype)
+                   for shp in ((n, hq, d), (n, hkv, s, d), (n, hkv, s, d)))
+        o, lse = ops.decode_attention_partial(q, k, v, lens)
+        po, plse = ref.decode_attention_partial_ref(q, k, v, lens)
+        torch.cuda.synchronize()
+        o_err = float((o - po).abs().max())
+        o_tol = (1e-5 if dtype == torch.float32 else 1e-4) * float(
+            po.abs().max())
+        lse_err = float((lse - plse).abs().max())
+        lse_tol = 1e-5 * max(1.0, float(plse.abs().max()))
+        need(o.dtype == lse.dtype == torch.float32 and o_err <= o_tol and
+             lse_err <= lse_tol, f"decode_attention_partial[{dt}]: o error "
+             f"{o_err} (tol {o_tol}), lse error {lse_err} (tol {lse_tol})")
+        ks = [k[:, :, r * s_l:(r + 1) * s_l].contiguous()
+              for r in range(parts)]
+        vs = [v[:, :, r * s_l:(r + 1) * s_l].contiguous()
+              for r in range(parts)]
+        ls = [torch.clamp(lens - r * s_l, 0, s_l) for r in range(parts)]
+
+        def ranges():
+            return [ops.decode_attention_partial(q, ks[r], vs[r], ls[r])
+                    for r in range(parts)]
+
+        pieces = ranges()
+        po_all = torch.stack([p[0] for p in pieces])
+        pl_all = torch.stack([p[1] for p in pieces])
+        merged = ops.merge_partials(po_all, pl_all, dtype)
+        whole = ops.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        w = whole.float()
+        if dtype == torch.float32:
+            m_tol = 1e-5 * float(w.abs().max())
+            m_ok = float((merged - whole).abs().max()) <= m_tol
+            m_why = "1e-5 of the output's max"
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                w.abs().clamp(min=2.0 ** -126))) - 7)
+            m_ok = bool(torch.all((merged.float() - w).abs() <= ulp))
+            m_why = "one bf16 ulp of each output"
+        m_err = float((merged.float() - w).abs().max())
+        need(m_ok, f"{parts} merged ranges [{dt}] differ from one "
+             f"decode_attention call by {m_err} ({m_why})")
+        rows = sum(sh["lengths"])
+        flops = 4.0 * d * hq * rows
+        nbytes = (q.element_size() * (n * hq * d + 2 * hkv * rows * d)
+                  + 4 * n + 4 * n * hq * (d + 1))
+        row = {"flops": flops, "bytes": nbytes,
+               "ops_ms": ops_ms(state, "decode_attention", flops, dt)}
+        with_bound(row, byte_peak)
+        timers = {}
+        out[dt] = dict(
+            o_max_abs_err=o_err, o_tol=o_tol, lse_max_abs_err=lse_err,
+            lse_tol=lse_tol, merged_max_abs_err=m_err, merged_tol=m_why,
+            rounded_equals_default=bool(torch.equal(o.to(dtype), whole)),
+            ms=dev_ms(timers, "ms", lambda: ops.decode_attention_partial(
+                q, k, v, lens)),
+            default_ms=dev_ms(timers, "default_ms",
+                              lambda: ops.decode_attention(q, k, v, lens)),
+            plain_ms=dev_ms(timers, "plain_ms",
+                            lambda: ref.decode_attention_partial_ref(
+                                q, k, v, lens)),
+            ranges_ms=dev_ms(timers, "ranges_ms", ranges),
+            merge_ms=dev_ms(timers, "merge_ms", lambda: ops.merge_partials(
+                po_all, pl_all, dtype)),
+            timers=timers, **row)
+        del q, k, v, ks, vs, pieces
+        torch.cuda.empty_cache()
+    return {"shape": {k: v for k, v in sh.items()}, "parts": parts,
+            "timing": "device ms per call, by the timer each dtype's "
+                      "\"timers\" names", **out}
+
+
+def dist_mesh_lm_decode(torch, state, mesh):
+    """(f): Qwen2-7B and rwkv6-7b at full width (``DEPTH_CUT``), bf16: a
+    prefill of 4 x 512 seeded tokens and 8 greedy ``decode_step`` calls,
+    plain, then on a DTensor copy of the same weights over the (1, 1)
+    mesh fed the plain run's tokens: every step's logits and the final
+    cache bit-identical; the mesh steps' launches (counted from 0 just
+    before the first step: one ``decode_attention`` or ``rwkv6_scan`` a
+    layer a step); each step's device ms (CUDA events) both ways."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist import sharding as D
+    from repro_torch.kernels import ops
+    out = {}
+    for arch in (LM_ARCH, SSM_ARCH):
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=DEPTH_CUT["dist_decode"][0])
+        model = build_model(cfg, device="cuda", seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        tokens = torch.randint(0, cfg.vocab_size, (DIST_DECODE["batch"],
+                                                   DIST_DECODE["prompt"]),
+                               generator=gen, device="cuda")
+        max_len = DIST_DECODE["prompt"] + DIST_DECODE["steps"]
+        plain_params = model.params
+        sharded = D.distribute_tree(plain_params, model.param_pspecs(1),
+                                    mesh)
+        runs, fed = {}, None
+        try:
+            for name in ("plain", "mesh"):
+                if name == "mesh":
+                    model.params = sharded
+                    D.set_constraint_mesh(mesh)
+                lg, cache = model.prefill(tokens, max_len)
+                steps, step_ms, toks = [], [], []
+                ops.reset_launch_counts()
+                for i in range(DIST_DECODE["steps"]):
+                    full = lg.full_tensor() if name == "mesh" else lg
+                    tok = fed[i] if fed else full.argmax(-1)
+                    toks.append(tok)
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    lg, cache = model.decode_step(cache, tok)
+                    stop.record()
+                    stop.synchronize()
+                    step_ms.append(start.elapsed_time(stop))
+                    steps.append(lg.full_tensor() if name == "mesh" else lg)
+                launches = ops.launch_counts()
+                leaves = {k: (v.full_tensor() if name == "mesh" else v)
+                          for k, v in cache_leaves(cache).items()}
+                runs[name] = (steps, leaves, launches, step_ms)
+                fed = toks
+                if name == "mesh":
+                    state["launches"][f"dist_decode_{arch}"] = launches
+        finally:
+            model.params = plain_params
+            D.set_constraint_mesh(None)
+        (ps, pc, pn, pms), (ms_, mc, mn, mms) = runs["plain"], runs["mesh"]
+        differ = [i for i, (a, b) in enumerate(zip(ps, ms_))
+                  if not torch.equal(a, b)]
+        need(not differ, f"{arch}: mesh decode logits differ from the plain "
+             f"step's at steps {differ}")
+        differ = [k for k in pc if not torch.equal(pc[k], mc[k])]
+        need(not differ, f"{arch}: the mesh decode's cache differs at "
+             f"{differ}")
+        kernel = "rwkv6_scan" if cfg.ssm_type == "rwkv6" else \
+            "decode_attention"
+        want = cfg.n_layers * DIST_DECODE["steps"]
+        need(mn == pn and mn[kernel] == want and
+             sum(mn.values()) == want, f"{arch}: mesh decode launched {mn}, "
+             f"the plain steps {pn}, expected {want} {kernel}")
+        out[arch] = {**model_shape(cfg), "dtype": "bfloat16",
+                     "reduced": dict(layers=[cfg.n_layers,
+                                             get_config(arch).n_layers],
+                                     why=DEPTH_CUT["dist_decode"][1]),
+                     **DIST_DECODE, "launches": mn, "bit_identical": True,
+                     "plain_step_ms": pms, "mesh_step_ms": mms,
+                     "timing": "CUDA events around each step"}
+        del model, sharded, plain_params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_dist(torch, log, state):
     """Sharded layouts and RWKV-6 training on the card: (c) the decode
     step on the (1, 1) mesh (first, while the shared VAE is loaded), (a)
     ``rwkv6_scan`` under autograd at the training shape and rwkv6-7b
     training, (b) the 1x1-mesh ZeRO-1 train step of Qwen2-7B against
     the unsharded step and (d) its prefill on the mesh against the
-    plain prefill; the world-size-1 process group is destroyed at the
+    plain prefill, (e) the partial decode attention and the merge of 16
+    slot ranges, (f) LM decode steps over the (1, 1) mesh against the
+    plain steps; the world-size-1 process group is destroyed at the
     end."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
@@ -3871,12 +4098,15 @@ def phase_dist(torch, log, state):
         torch.cuda.empty_cache()
         rwkv_train = dist_rwkv6_train(torch, state)
         rwkv_scan = dist_rwkv6_scan_check(torch, state)
-        mesh_step, _ = dist_mesh_step(torch, state)
+        mesh_step, mesh = dist_mesh_step(torch, state)
+        partial = dist_partial_check(torch, state)
+        lm_decode = dist_mesh_lm_decode(torch, state, mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     emit(log, "dist", rwkv6_train=rwkv_train, rwkv6_scan=rwkv_scan,
-         mesh_step=mesh_step, decode=decode)
+         mesh_step=mesh_step, decode=decode, partial=partial,
+         lm_decode=lm_decode)
 
 
 

@@ -22,8 +22,15 @@ each rank's shard of a layout whose slices are independent (head-local
 or sequence-local attention, head-local RWKV-6) and wrap the result back,
 with the gradients of replicated inputs marked ``Partial``.
 
-Unlike DTensor, a dim that its mesh axes do not divide raises, as JAX
-does: uneven shards would give layouts the reference cannot have.
+Unlike DTensor, a dim that its mesh axes do not divide raises
+(:func:`placements` given a shape, :func:`constrain`): uneven shards
+would give layouts the reference cannot have.  Where a shape is not the
+caller's choice (a batch of one, a prompt's length, a cache shorter
+than the model axis), :func:`fit_spec` drops the axes that do not
+divide, as the reference launcher's ``validate_divisibility`` does:
+:func:`zeros_tree`, :func:`lay_out` and :func:`distribute_batch` always,
+:func:`constrain` for a dim smaller than its axes' extent or one the
+caller lists.
 """
 
 from __future__ import annotations
@@ -165,12 +172,16 @@ def fit_spec(spec: Sequence, shape, mesh) -> P:
 
 
 def zeros_tree(tree, specs, mesh):
-    """DTensors of zeros in the shapes and dtypes of ``tree`` (tensors on
-    the meta device will do), laid out by ``specs`` retargeted to the mesh
-    (:func:`retarget_pspec`) and fitted to each shape (:func:`fit_spec`):
-    each rank allocates only its own shard, on the mesh's device."""
+    """DTensors of zeros in the shapes and dtypes of ``tree`` (dicts and
+    lists; tensors on the meta device will do), laid out by ``specs``
+    retargeted to the mesh (:func:`retarget_pspec`) and fitted to each
+    shape (:func:`fit_spec`): each rank allocates only its own shard, on
+    the mesh's device."""
     if isinstance(tree, dict):
         return {k: zeros_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [zeros_tree(v, s, mesh) for v, s in zip(tree, specs,
+                                                      strict=True)]
     spec = fit_spec(retarget_pspec(specs, mesh), tree.shape, mesh)
     pl = placements(spec, mesh, tree.shape)
     local = list(tree.shape)
@@ -194,14 +205,6 @@ def mesh_of(t):
         raise ValueError("DTensor parameters need their mesh installed as "
                          "the constraint mesh (set_constraint_mesh)")
     return mesh
-
-
-def refuse_mesh(t, entry: str) -> None:
-    """Raise ``NotImplementedError`` for ``entry`` on a DTensor ``t``."""
-    if is_dtensor(t):
-        raise NotImplementedError(
-            f"{entry} over a mesh is not ported yet (ROADMAP A 16: the KV "
-            "cache's slots over \"model\" need a cross-rank softmax merge)")
 
 
 def lay_out(x, spec: Sequence):
@@ -238,13 +241,17 @@ def distribute_batch(batch, mesh):
                                    for k, v in batch.items()}, mesh)
 
 
-def constrain(x, *axes):
+def constrain(x, *axes, loose: Sequence[int] = ()):
     """Constrain ``x`` to ``P(*axes)`` on the constraint mesh.
 
     The identity when no mesh is installed, or when ``x`` is a plain
-    tensor (it carries no layout).  The gradient takes the same layout.  ``axes`` has one entry per dim of
-    ``x``; entries naming axes the mesh lacks (or has at extent 1)
-    collapse to replication instead of raising."""
+    tensor (it carries no layout).  The gradient takes the same layout.
+    ``axes`` has one entry per dim of ``x``; entries naming axes the mesh
+    lacks (or has at extent 1) collapse to replication.  An axis whose
+    extent does not divide its dim raises, unless the dim is smaller than
+    that extent (a batch of one, a microbatch of one row) or is listed in
+    ``loose`` (a prompt's sequence, whose length the caller does not
+    choose): those collapse to replication too (:func:`fit_spec`)."""
     mesh = _CONSTRAINT_MESH
     if mesh is None:
         return x
@@ -253,7 +260,14 @@ def constrain(x, *axes):
             f"constrain: got {len(axes)} axes for rank-{x.ndim} array")
     if not is_dtensor(x):
         return x
-    spec = P(*[_resolve_axis(mesh, a) for a in axes])
+    want = [_resolve_axis(mesh, a) for a in axes]
+    spec = fit_spec(want, x.shape, mesh)
+    for d, (w, got) in enumerate(zip(want, spec)):
+        ways = 1
+        for a in _axes_of(w):
+            ways *= axis_size(mesh, a)
+        if w != got and d not in loose and x.shape[d] >= ways:
+            placements(want, mesh, x.shape)      # raises, naming the dim
     # redistributed even where the placements already agree: the node
     # pins the gradient to the same layout, as a JAX constraint pins the
     # cotangent's

@@ -61,6 +61,11 @@ SIGNATURES = {
                                                    I, I, I, I, I, I, I, I,
                                                    P]),
 }
+#: a source's further entry points, bound as its first one is
+MORE_SIGNATURES = {
+    "decode_attention": [("decode_attention_partial_launch",
+                          [P, P, P, P, P, P, I, I, I, I, I, F, I, P])],
+}
 
 
 def nvcc() -> str:
@@ -132,9 +137,10 @@ def lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _finish(name, _start(name), time.perf_counter())
         so = ctypes.CDLL(str(_lib_path(name)))
-        fn, argtypes = SIGNATURES[name]
-        getattr(so, fn).argtypes = argtypes
-        getattr(so, fn).restype = ctypes.c_int
+        for fn, argtypes in [SIGNATURES[name],
+                             *MORE_SIGNATURES.get(name, [])]:
+            getattr(so, fn).argtypes = argtypes
+            getattr(so, fn).restype = ctypes.c_int
         _libs[name] = so
     return _libs[name]
 

@@ -46,6 +46,14 @@
 //
 // rep above HEADS is split into passes of HEADS q heads, one cluster each
 // (each pass reads the kv head's rows again).
+//
+// The partial form (decode_attention_partial_launch) is the same launch
+// with the merged row written in fp32, never rounded to the input type,
+// and its log-sum-exp lse = m + log l (natural log, in the units of the
+// scaled scores) to one more output; a row of length 0 gives o = 0 and
+// lse = -inf.  Parts of one sequence over disjoint slot ranges merge
+// exactly into the whole: the caller weighs each by exp(lse - max lse).
+// It is a separate instantiation: the default form's code is unchanged.
 
 #include <cooperative_groups.h>
 #include <type_traits>
@@ -243,12 +251,13 @@ __device__ __forceinline__ void scores(const float* kt, const unsigned char* qsm
 // W warps; H q heads per lane in p v on the CUDA cores (1 when rep is 1,
 // else HEADS); WR rows per warp block (L.wrows); TC > 0: p v on the tensor
 // cores for bf16, rep > 1, 16-row blocks and head dim TC (128, known at
-// compile time), else 0
-template <typename T, int W, int H, int WR, int TC>
+// compile time), else 0; PART: the partial form (o in fp32, and lse)
+template <typename T, int W, int H, int WR, int TC, bool PART>
 __global__ void __launch_bounds__(32 * W, (H == 1 ? 24 : 8) / W)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ o, int Hq, int Hkv, int S, int D, float scale) {
+              typename std::conditional<PART, float, T>::type* __restrict__ o,
+              float* __restrict__ lse, int Hq, int Hkv, int S, int D, float scale) {
   constexpr int THREADS = 32 * W;
   constexpr int CH = 16 / sizeof(T);      // elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
@@ -563,6 +572,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int sh = 16; sh > 0; sh >>= 1) l += __shfl_xor_sync(0xffffffffu, l, sh);
     if (lane == 0) wts[HM * PARTS + h] = l > 0.f ? 1.f / l : 0.f;   // 1 / l
+    if constexpr (PART)
+      if (lane == 0 && rank == 0)
+        lse[(size_t)b * Hq + h0 + h] = l > 0.f ? mx + logf(l) : -INFINITY;
   }
   __syncthreads();
   const int e0 = rank * per, e1 = imin(total, e0 + per);
@@ -576,12 +588,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int W, int H, int WR, int TC = 0>
+template <typename T, bool PART, int W, int H, int WR, int TC = 0>
 int launch_with(const void* q, const void* k, const void* v, const int* lengths, void* o,
-                int N, int Hq, int Hkv, int S, int D, float scale, const Layout& L,
-                cudaStream_t stream) {
+                float* lse, int N, int Hq, int Hkv, int S, int D, float scale,
+                const Layout& L, cudaStream_t stream) {
+  using O = typename std::conditional<PART, float, T>::type;
   const size_t smem = L.bytes;
-  auto kernel = decode_kernel<T, W, H, WR, TC>;
+  auto kernel = decode_kernel<T, W, H, WR, TC, PART>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -598,31 +611,51 @@ int launch_with(const void* q, const void* k, const void* v, const int* lengths,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), lengths, static_cast<T*>(o), Hq, Hkv, S,
-                           D, scale);
+                           static_cast<const T*>(v), lengths, static_cast<O*>(o), lse, Hq, Hkv,
+                           S, D, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* lengths, void* o, int N,
-           int Hq, int Hkv, int S, int D, float scale, cudaStream_t stream) {
+template <typename T, bool PART>
+int launch(const void* q, const void* k, const void* v, const int* lengths, void* o, float* lse,
+           int N, int Hq, int Hkv, int S, int D, float scale, cudaStream_t stream) {
   const int rep = Hq / Hkv;
   const Layout L(D, (int)sizeof(T), rep);
   if (L.bytes > 227 * 1024 || (long long)Hkv * cdiv(rep, HEADS) > 65535)
     return (int)cudaErrorInvalidValue;
   if (rep == 1)
-    return launch_with<T, 4, 1, 8>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, L, stream);
+    return launch_with<T, PART, 4, 1, 8>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale, L,
+                                         stream);
   if (L.warps == 4)
-    return launch_with<T, 4, HEADS, 8>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, L, stream);
+    return launch_with<T, PART, 4, HEADS, 8>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale,
+                                             L, stream);
   if (L.wrows == 8)
-    return launch_with<T, 8, HEADS, 8>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, L, stream);
+    return launch_with<T, PART, 8, HEADS, 8>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale,
+                                             L, stream);
   if constexpr (sizeof(T) == 2) {         // p v on the tensor cores
     if (tc_dim(D, 2, rep) == 128)
-      return launch_with<T, 8, HEADS, 16, 128>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, L,
-                                               stream);
+      return launch_with<T, PART, 8, HEADS, 16, 128>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D,
+                                                     scale, L, stream);
   }
-  return launch_with<T, 8, HEADS, 16>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, L, stream);
+  return launch_with<T, PART, 8, HEADS, 16>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale, L,
+                                            stream);
+}
+
+template <bool PART>
+int launch_dtype(const void* q, const void* k, const void* v, const int* lengths, void* o,
+                 float* lse, int N, int Hq, int Hkv, int S, int D, float scale, int dtype,
+                 cudaStream_t stream) {
+  const int elt = dtype == 0 ? 4 : 2;
+  if (N <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || D <= 0 ||
+      D * elt % 16 != 0 || D > 256 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float, PART>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, PART>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale,
+                                       stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -634,13 +667,15 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        const int* lengths, void* o, int N, int Hq, int Hkv,
                                        int S, int D, float scale, int dtype,
                                        cudaStream_t stream) {
-  const int elt = dtype == 0 ? 4 : 2;
-  if (N <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || D <= 0 ||
-      D * elt % 16 != 0 || D > 256 || N > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch<float>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, o, N, Hq, Hkv, S, D, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<false>(q, k, v, lengths, o, nullptr, N, Hq, Hkv, S, D, scale, dtype,
+                             stream);
+}
+
+// The partial form: as above, but o [N, Hq, D] is fp32 whatever the inputs'
+// type, and lse [N, Hq] fp32 gets each row's log-sum-exp (-inf at length 0).
+extern "C" int decode_attention_partial_launch(const void* q, const void* k, const void* v,
+                                               const int* lengths, float* o, float* lse, int N,
+                                               int Hq, int Hkv, int S, int D, float scale,
+                                               int dtype, cudaStream_t stream) {
+  return launch_dtype<true>(q, k, v, lengths, o, lse, N, Hq, Hkv, S, D, scale, dtype, stream);
 }

@@ -15,11 +15,17 @@ a fixed order through distributed shared memory.  No scratch in global
 memory, no atomics: a sequence's bits depend only on its own length and
 data.  fp32 or bf16 inputs, output in ``q.dtype``.  On the CPU: the plain
 version, ``ref.decode_attention_ref``.
+
+:func:`decode_attention_partial` is the same launch with the merged row
+written in fp32 and its log-sum-exp beside it (plain version
+``ref.decode_attention_partial_ref``): the part of a sequence whose
+slots are split over ranks, which :func:`merge_partials` (plain tensor
+code, not a kernel) joins into the whole.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,41 +39,101 @@ launches = 0
 MAX_HEAD_DIM = 256
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, lengths: torch.Tensor,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """q [n, hq, d]; k_cache/v_cache [n, hkv, S, d] with ``hq % hkv ==
-    0``; lengths [n] valid prefix lengths -> [n, hq, d]."""
-    global launches
+def _check(q, k_cache, v_cache, lengths, scale, what):
+    """The shared checks of both forms; returns the scale."""
     n, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if tuple(k_cache.shape) != (n, hkv, s, d) or \
             tuple(v_cache.shape) != tuple(k_cache.shape) or hq % hkv or \
             tuple(lengths.shape) != (n,):
-        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
+        raise ValueError(f"{what}: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, "
                          f"lengths {tuple(lengths.shape)} disagree")
-    scale = float(d ** -0.5) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale)
+    return float(d ** -0.5) if scale is None else float(scale)
+
+
+def _launch_args(q, k_cache, v_cache, lengths, what):
+    """The CUDA checks of both forms; returns the int32 lengths."""
+    d = q.shape[2]
     build.require("decode_attention", dtypes=tuple(DTYPES), q=q, k=k_cache,
                   v=v_cache)
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"decode_attention: q and the caches must share a "
+        raise TypeError(f"{what}: q and the caches must share a "
                         f"dtype, got {q.dtype}, {k_cache.dtype}, "
                         f"{v_cache.dtype}")
     # cache rows are staged 16 bytes at a time: each row must be whole
     # 16-byte units (d % 4 in fp32, d % 8 in bf16) and start aligned
     if d * q.element_size() % 16 or d > MAX_HEAD_DIM or \
             any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError(f"decode_attention: head dim {d} must fill whole "
+        raise ValueError(f"{what}: head dim {d} must fill whole "
                          f"16-byte units in {q.dtype} and be at most "
                          f"{MAX_HEAD_DIM}, q and the caches 16-byte aligned")
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    return lengths.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q [n, hq, d]; k_cache/v_cache [n, hkv, S, d] with ``hq % hkv ==
+    0``; lengths [n] valid prefix lengths -> [n, hq, d]."""
+    global launches
+    scale = _check(q, k_cache, v_cache, lengths, scale, "decode_attention")
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale)
+    lengths = _launch_args(q, k_cache, v_cache, lengths, "decode_attention")
+    n, hq, d = q.shape
     out = torch.empty_like(q)
     build.check(build.lib("decode_attention").decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), n, hq, hkv, s, d, scale,
-        DTYPES[q.dtype], build.stream_of(q)), "decode_attention")
+        lengths.data_ptr(), out.data_ptr(), n, hq, k_cache.shape[1],
+        k_cache.shape[2], d, scale, DTYPES[q.dtype], build.stream_of(q)),
+        "decode_attention")
     launches += 1
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lengths: torch.Tensor,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """As :func:`decode_attention`, but returns (o [n, hq, d] fp32,
+    normalised over the row's own keys and never rounded to ``q.dtype``,
+    lse [n, hq] fp32, the natural log-sum-exp of its scaled scores); a
+    row of length 0 gives o = 0 and lse = -inf.  Its launches count as
+    :func:`decode_attention`'s."""
+    global launches
+    scale = _check(q, k_cache, v_cache, lengths, scale,
+                   "decode_attention_partial")
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial_ref(q, k_cache, v_cache, lengths,
+                                                scale)
+    lengths = _launch_args(q, k_cache, v_cache, lengths,
+                           "decode_attention_partial")
+    n, hq, d = q.shape
+    out = torch.empty((n, hq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((n, hq), dtype=torch.float32, device=q.device)
+    build.check(build.lib("decode_attention").decode_attention_partial_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), n, hq,
+        k_cache.shape[1], k_cache.shape[2], d, scale, DTYPES[q.dtype],
+        build.stream_of(q)), "decode_attention_partial")
+    launches += 1
+    return out, lse
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The rows of R parts over disjoint key ranges joined into the
+    attention over all of them: o [R, n, hq, d] and lse [R, n, hq] from
+    :func:`decode_attention_partial` -> [n, hq, d] in ``dtype``, rounded
+    once.  Each part weighs exp(lse - max lse), a part with no keys 0;
+    the parts add in order r = 0, 1, ..., so every caller with the same
+    parts gets the same bits.  A row with no key in any part gives 0.
+    Plain tensor code: R n hq (d + 1) values."""
+    m = lse.max(dim=0).values
+    w = torch.exp(lse - torch.where(torch.isinf(m), 0.0, m))
+    num, den = o[0] * w[0, ..., None], w[0]
+    for r in range(1, o.shape[0]):
+        num = num + o[r] * w[r, ..., None]
+        den = den + w[r]
+    return (num / torch.where(den > 0, den, 1.0)[..., None]).to(dtype)

@@ -40,6 +40,8 @@ from repro_torch.kernels import upsample_conv as _upsample_conv
 group_norm_silu = _gn_silu.group_norm_silu
 flash_attention = _flash_attention.flash_attention
 decode_attention = _decode_attention.decode_attention
+decode_attention_partial = _decode_attention.decode_attention_partial
+merge_partials = _decode_attention.merge_partials
 rwkv6_scan = _rwkv6_scan.rwkv6_scan
 
 

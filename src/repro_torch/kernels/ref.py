@@ -283,6 +283,19 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-token decode attention against a KV cache.  q: [n, hq, d];
     k_cache/v_cache: [n, hkv, S, d]; lengths: [n] valid prefix lengths
     (a sequence of length 0 gives 0).  Returns [n, hq, d]."""
+    return decode_attention_partial_ref(q, k_cache, v_cache, lengths,
+                                        scale)[0].to(q.dtype)
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention_ref` before its output is rounded: (o
+    [n, hq, d] fp32, normalised over the row's keys, and lse [n, hq]
+    fp32, the log-sum-exp of its scaled scores; o = 0 and lse = -inf on a
+    row of length 0)."""
     n, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hkv
@@ -293,9 +306,11 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     logits = torch.einsum("nhd,nhsd->nhs", q.float(), k_cache.float()) * scale
     mask = (torch.arange(s, device=q.device)[None, :]
             < lengths.to(q.device)[:, None])[:, None, :]       # [n, 1, S]
-    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
     p = p.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
-    return torch.einsum("nhs,nhsd->nhd", p, v_cache.float()).to(q.dtype)
+    return (torch.einsum("nhs,nhsd->nhd", p, v_cache.float()),
+            torch.logsumexp(logits, dim=-1))
 
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

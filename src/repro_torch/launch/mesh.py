@@ -58,11 +58,13 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
     """The production mesh through ``init_device_mesh``: one rank per
     card, the world already launched (``torchrun`` or an initialised
     process group).  Raises, naming both numbers, where the world size
-    is not the mesh's."""
+    is not the mesh's.  ``device_type`` ``"cpu"`` is the dry run's mesh
+    over a fake world (:mod:`repro_torch.launch.dryrun`)."""
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
@@ -73,7 +75,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     if world != size:
         raise ValueError(f"the production mesh {shape} {axes} needs "
                          f"{size} ranks, and the world has {world}")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(device=None):

@@ -13,12 +13,16 @@ CUDA cores with TF32 off; for ``sd35_vae`` ``PEAK_FLOPS_TF32 / 3``
 
 FLOPs and HBM bytes come from the analytic model (``launch/costs.py``;
 see its header for why not cost_analysis on rolled loops) — global,
-divided by chip count.  Collective bytes and the chip count come from the
-dry-run artifacts under ``ART_DIR`` (JSON files, one per cell, in the
-JAX package's format: trip-count-aware HLO parse, already per-device).
-The port writes none yet (its dry run is ROADMAP A 16), so without them
-the table is empty.  The dominant term is the projected step bottleneck;
-roofline fraction = compute term / max(all terms).
+divided by chip count.  Collective bytes, peak memory and the chip count
+come from the port's dry-run artifacts under ``ART_DIR`` (JSON files, one
+per cell, in the JAX package's format, already per device), which
+``python -m repro_torch.launch.dryrun`` writes (:mod:`repro_torch.launch.
+dryrun`: collectives counted as the traced step issues them, at the
+config's full depth).  A cell without an artifact has no row.
+The dominant term is the projected step bottleneck; roofline fraction =
+compute term / max(all terms).
+
+    PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh multi]
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from repro_torch.launch.mesh import (HBM_BW, ICI_BW, PEAK_FLOPS_BF16,
                                      PEAK_FLOPS_FP32, PEAK_FLOPS_TF32)
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                       "artifacts", "dryrun")
+                       "artifacts", "dryrun_torch")
 
 
 def analyze_cell(arch: str, shape_name: str, mesh: str = "single",

@@ -69,9 +69,12 @@ def attn_pspecs(cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
-def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+         token: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> q [B, S, Hq, dh], k/v [B, S, Hkv, dh], roped."""
+    """x [B, S, D] -> q [B, S, Hq, dh], k/v [B, S, Hkv, dh], roped.  With
+    ``token`` (a decode step's one token) DTensor projections are laid
+    out by :func:`token_layout` before they split into heads."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ params["wq"]
@@ -81,7 +84,11 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    q, k, v = q_projection_layout(q, cfg), kv_projection_layout(k, cfg), kv_projection_layout(v, cfg)
+    if token and D.is_dtensor(q):
+        q, k, v = token_layout(q), token_layout(k), token_layout(v)
+    else:
+        q, k, v = (q_projection_layout(q, cfg), kv_projection_layout(k, cfg),
+                   kv_projection_layout(v, cfg))
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
@@ -112,9 +119,18 @@ def _seq_parallel(x, cfg: ModelConfig) -> bool:
 def q_projection_layout(q, cfg: ModelConfig):
     """A q projection ``[B, S, H*dh]`` before it splits into heads: in
     the sequence-parallel layout its sequence carries the model axis
-    (heads that the axis does not divide cannot)."""
-    return D.constrain(q, "data", "model", None) \
+    (heads that the axis does not divide cannot), unless the axis does
+    not divide the prompt's length either: then it stays whole."""
+    return D.constrain(q, "data", "model", None, loose=(1,)) \
         if _seq_parallel(q, cfg) else q
+
+
+def token_layout(t):
+    """A DTensor whose dim 0 is the batch (one token's projections, a
+    decode step's output) with its rows over the data axes that divide
+    them and replicated over "model": an all-gather of one token's
+    heads."""
+    return D.lay_out(t, P(D.dp_axes(t.device_mesh)))
 
 
 def kv_projection_layout(t, cfg: ModelConfig):
@@ -132,7 +148,8 @@ def constrain_attention_layout(q: torch.Tensor, k: torch.Tensor,
     heads % TP == 0  -> Megatron head sharding P(dp, model, None, None);
     otherwise        -> sequence-parallel scores: q's seq dim carries the
                         model axis (k/v replicated over model), so the
-                        scores shard on Sq."""
+                        scores shard on Sq (a prompt length the axis
+                        does not divide stays whole)."""
     mesh = D.get_constraint_mesh()
     if mesh is None:
         return q, k, v
@@ -142,7 +159,7 @@ def constrain_attention_layout(q: torch.Tensor, k: torch.Tensor,
         k = D.constrain(k, "data", "model", None, None)
         v = D.constrain(v, "data", "model", None, None)
     else:
-        q = D.constrain(q, "data", None, "model", None)
+        q = D.constrain(q, "data", None, "model", None, loose=(2,))
         k = D.constrain(k, "data", None, None, None)
         v = D.constrain(v, "data", None, None, None)
     return q, k, v
@@ -183,11 +200,13 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
     if kv is None:
         q, k, v = _qkv(params, x, cfg, positions)
     else:
-        q = q_projection_layout(x @ params["wq"], cfg).reshape(b, s, cfg.n_heads,
-                                                  cfg.head_dim)
+        # the bias goes on before the head split, as in _qkv: a sharded
+        # bias may not split into heads the model axis does not divide
+        q = x @ params["wq"]
         if cfg.qkv_bias:
-            q = q + params["bq"].to(q.dtype).reshape(cfg.n_heads,
-                                                     cfg.head_dim)
+            q = q + params["bq"].to(q.dtype)
+        q = q_projection_layout(q, cfg).reshape(b, s, cfg.n_heads,
+                                                cfg.head_dim)
         k, v = kv
     # the kernels take contiguous [n, h, s, d]
     qt, kt, vt = constrain_attention_layout(
@@ -208,18 +227,80 @@ def attention_decode(params, x1: torch.Tensor, cfg: ModelConfig,
     package returns updated copies; a copy of the whole cache per layer
     and step is what the port saves) and returns out [B, 1, D].  Sliding
     windows use ring-buffer slots (RoPE is applied before the cache, so
-    slot order is free)."""
+    slot order is free).  DTensor caches go through
+    :func:`decode_attention_sharded`."""
     b = x1.shape[0]
     s_max = k_cache.shape[2]
-    q, k, v = _qkv(params, x1, cfg, pos[:, None])
+    q, k, v = _qkv(params, x1, cfg, pos[:, None], token=True)
     slot = pos % s_max if cfg.sliding_window else torch.clamp(pos,
                                                               max=s_max - 1)
-    bidx = torch.arange(b, device=pos.device)
-    k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
     lengths = torch.clamp(pos + 1, max=s_max)
-    o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths)
+    if D.is_dtensor(k_cache):
+        o = decode_attention_sharded(q[:, 0], k_cache, v_cache, lengths,
+                                     (k[:, 0], v[:, 0], slot))
+    else:
+        bidx = torch.arange(b, device=pos.device)
+        k_cache[bidx, :, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, :, slot] = v[:, 0].to(v_cache.dtype)
+        o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                                 lengths)
     return o.reshape(b, 1, cfg.q_dim) @ params["wo"]
+
+
+def _slot_dim(cache) -> Optional[int]:
+    """The mesh dim of more than one rank that splits a DTensor cache
+    ``[B, Hkv, S, dh]``'s slots, or None where each rank holds them all."""
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(2) and cache.device_mesh.size(i) > 1:
+            return i
+    return None
+
+
+def decode_attention_sharded(q, k_cache, v_cache, lengths, new=None):
+    """One token's attention against DTensor caches ``[B, Hkv, S, dh]``
+    laid out by ``cache_pspecs`` (rows over the data axes, slots over
+    "model" where they divide): DTensors q [B, Hq, dh], lengths [B]; ``new`` = (k,
+    v [B, Hkv, dh], slot [B]) is first written in place, by the rank
+    that owns the slot, at its local slot.  Returns [B, Hq, dh] over the
+    data axes, replicated over "model".
+
+    Slots not split: ``ops.decode_attention`` on each rank's shard.
+    Split over R ranks, rank r holding slots [r S_l, (r + 1) S_l): the
+    partial form on its slots at lengths clamp(len - r S_l, 0, S_l); (o,
+    lse) all-gathered over that mesh dim (one buffer) and merged in rank
+    order by ``ops.merge_partials``, rounded once to the cache's dtype,
+    so every rank has the same bits."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    mesh = k_cache.device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in k_cache.placements]
+
+    def local(t):
+        return t.redistribute(mesh, rows).to_local()
+    ql, lengths = local(q).contiguous(), local(lengths)
+    kc, vc = k_cache.to_local(), v_cache.to_local()     # views: written
+    md = _slot_dim(k_cache)
+    r, s_l = (0 if md is None else mesh.get_coordinate()[md]), kc.shape[2]
+    if new is not None:
+        kn, vn, slot = (local(t) for t in new)
+        bidx = torch.arange(kc.shape[0], device=kc.device)
+        ls = slot - r * s_l
+        mine = ((ls >= 0) & (ls < s_l))[:, None, None]
+        ls = torch.clamp(ls, 0, s_l - 1)
+        for c, t in ((kc, kn), (vc, vn)):
+            c[bidx, :, ls] = torch.where(mine, t.to(c.dtype), c[bidx, :, ls])
+    if md is None:
+        o = ops.decode_attention(ql, kc, vc, lengths)
+    else:
+        n, hq, dh = ql.shape
+        o, lse = ops.decode_attention_partial(
+            ql, kc, vc, torch.clamp(lengths - r * s_l, 0, s_l))
+        parts = funcol.all_gather_tensor(
+            torch.cat([o.reshape(n, hq * dh), lse], dim=1), 0,
+            (mesh, md)).reshape(-1, n, hq * (dh + 1))
+        o = ops.merge_partials(parts[..., :hq * dh].reshape(-1, n, hq, dh),
+                               parts[..., hq * dh:], kc.dtype)
+    return D.from_local(o, mesh, rows, (q.shape[0],) + tuple(o.shape[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -358,10 +439,19 @@ def _moe_sharded(params, x, cfg: ModelConfig,
     weights), routes them all, and runs its own experts (expert
     parallel) or its slice of every expert's ffn (ffn-sharded).  Its
     output is a partial sum over the mesh dims that split the experts,
-    reduced into ``x``'s layout."""
+    reduced into ``x``'s layout.  Weights stored split over other mesh
+    dims too (FSDP's storage over "data") are gathered on those first."""
     from torch.distributed.tensor import Partial, Replicate
     mesh = x.device_mesh
     b, s, d = x.shape
+    names = D.axis_names(mesh)
+
+    def on_model(w):
+        pl = [p if names[i] == "model" else Replicate()
+              for i, p in enumerate(w.placements)]
+        return w if pl == list(w.placements) else w.redistribute(mesh, pl)
+
+    params = {name: on_model(w) for name, w in params.items()}
     lead = params["w_gate"]
     part = [Partial() if p.is_shard() else Replicate()
             for p in lead.placements]

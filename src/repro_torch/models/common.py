@@ -123,11 +123,16 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     over a mesh dim (the reference's ``P("model", None)``) is looked up
     on each rank's rows, the ids outside them giving 0, and the result is
     ``Partial`` over that dim (Megatron's vocab-parallel embedding);
-    over any other mesh dim the rows take the tokens' layout."""
+    over any other mesh dim the rows take the tokens' layout.  A table
+    whose width is split too (FSDP's storage over "data") is first
+    gathered on those mesh dims."""
     if not D.is_dtensor(table):
         return table[tokens]
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = table.device_mesh
+    if any(p.is_shard() and not p.is_shard(0) for p in table.placements):
+        table = table.redistribute(mesh, [
+            p if p.is_shard(0) else Replicate() for p in table.placements])
     if not D.is_dtensor(tokens):
         tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
     ids = tokens.to_local()

@@ -204,12 +204,12 @@ def cross_kv(p_attn, enc_out: torch.Tensor, cfg: ModelConfig
     encoder states."""
     b, se, _ = enc_out.shape
     shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
-    kx = B.kv_projection_layout(enc_out @ p_attn["wk"], cfg).reshape(shape)
-    vx = B.kv_projection_layout(enc_out @ p_attn["wv"], cfg).reshape(shape)
-    if cfg.qkv_bias:
-        kx = kx + p_attn["bk"].to(kx.dtype).reshape(shape[2:])
-        vx = vx + p_attn["bv"].to(vx.dtype).reshape(shape[2:])
-    return kx, vx
+    kx, vx = enc_out @ p_attn["wk"], enc_out @ p_attn["wv"]
+    if cfg.qkv_bias:              # before the head split (blocks._qkv)
+        kx = kx + p_attn["bk"].to(kx.dtype)
+        vx = vx + p_attn["bv"].to(vx.dtype)
+    return (B.kv_projection_layout(kx, cfg).reshape(shape),
+            B.kv_projection_layout(vx, cfg).reshape(shape))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -281,30 +281,45 @@ def prefill(params, tokens: torch.Tensor, frames: torch.Tensor,
 def decode_step(params, cache: Dict[str, Any], tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens [B] -> (logits [B, V], the cache, updated in place).  The
-    learned position is ``pos_embed[min(pos, max_pos - 1)]``."""
-    D.refuse_mesh(params["embed"], "decode_step")
-    b = tokens.shape[0]
-    pos = cache["pos"]
-    max_pos = params["pos_embed"].shape[0]
-    x = (params["embed"][tokens]
-         + params["pos_embed"][torch.clamp(pos, max=max_pos - 1)])[:, None]
-    se = cache["xk"].shape[3]
-    lengths = torch.full((b,), se, dtype=torch.int32, device=tokens.device)
-    for i, p in enumerate(params["dec_layers"]):
-        x = x + B.attention_decode(p["self_attn"], _ln(x, p["ln1"], cfg),
-                                   cfg, cache["k"][i], cache["v"][i], pos)
-        # cross-attention against the cached encoder K/V
-        pa = p["cross_attn"]
-        q = (_ln(x, p["lnx"], cfg) @ pa["wq"]).reshape(b, cfg.n_heads,
-                                                       cfg.head_dim)
-        if cfg.qkv_bias:
-            q = q + pa["bq"].to(q.dtype).reshape(cfg.n_heads, cfg.head_dim)
-        o = ops.decode_attention(q, cache["xk"][i], cache["xv"][i], lengths)
-        x = x + o.reshape(b, 1, cfg.q_dim) @ pa["wo"]
-        x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
-    cache["pos"] = pos + 1
-    h = _ln(x[:, 0], params["final_norm"], cfg)
-    return h @ params["embed"].T, cache
+    learned position is ``pos_embed[min(pos, max_pos - 1)]``.  On DTensor
+    parameters and cache, as :func:`repro_torch.models.lm.decode_step`:
+    the self-attention's slots merged across "model", the cross K/V read
+    on each rank's rows."""
+    mesh = D.mesh_of(params["embed"])
+    with D.on_mesh(mesh):
+        if mesh is not None:
+            tokens = D.distribute_batch({"tokens": tokens}, mesh)["tokens"]
+        b = tokens.shape[0]
+        pos = cache["pos"]
+        max_pos = params["pos_embed"].shape[0]
+        x = (C.embed_lookup(params["embed"], tokens) + C.embed_lookup(
+            params["pos_embed"], torch.clamp(pos, max=max_pos - 1)))[:, None]
+        lengths = torch.full_like(pos, cache["xk"].shape[3])
+        for i, p in enumerate(params["dec_layers"]):
+            x = x + B.attention_decode(p["self_attn"], _ln(x, p["ln1"], cfg),
+                                       cfg, cache["k"][i], cache["v"][i], pos)
+            # cross-attention against the cached encoder K/V
+            pa = p["cross_attn"]
+            q = _ln(x, p["lnx"], cfg) @ pa["wq"]
+            if cfg.qkv_bias:          # before the head split (blocks._qkv)
+                q = q + pa["bq"].to(q.dtype)
+            if D.is_dtensor(q):
+                q = B.token_layout(q)
+            q = q.reshape(b, cfg.n_heads, cfg.head_dim)
+            if D.is_dtensor(q):
+                o = B.decode_attention_sharded(q, cache["xk"][i],
+                                               cache["xv"][i], lengths)
+            else:
+                o = ops.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                         lengths)
+            x = x + o.reshape(b, 1, cfg.q_dim) @ pa["wo"]
+            x = x + B.mlp(p["mlp"], _ln(x, p["ln2"], cfg), cfg)
+        cache["pos"] = pos + 1
+        h = _ln(x[:, 0], params["final_norm"], cfg)
+        lg = h @ params["embed"].T
+        if mesh is not None:
+            lg = D.lay_out(lg, P(D.dp_axes(mesh), "model"))
+    return lg, cache
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +383,7 @@ class EncDecLM:
 
     def decode_step(self, cache: Dict[str, Any], tokens
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        with torch.inference_mode():
+        with D.serving_mode(self.params["embed"]):
             return decode_step(self.params, cache, self._tokens(tokens),
                                self.cfg)
 

@@ -28,9 +28,8 @@ reference's specs (a per-layer leaf's spec drops the reference's leading
 ``None`` of its ``[L, ...]`` stack; the cache keeps the stack).  With a
 constraint mesh installed (:mod:`repro_torch.dist.sharding`) and a
 DTensor parameter tree, every layer starts from the reference's
-residual-stream layout (:func:`_boundary`), and the loss and
-:func:`prefill` run sharded; :func:`decode_step` runs on plain tensors
-only (ROADMAP A 16).
+residual-stream layout (:func:`_boundary`), and the loss,
+:func:`prefill` and :func:`decode_step` run sharded.
 """
 
 from __future__ import annotations
@@ -184,13 +183,14 @@ def _boundary(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     heads % TP == 0: batch-sharded, replicated over model (Megatron);
     otherwise sequence-sharded over model (Megatron-SP), so the
-    sequence-parallel attention scores compose with it."""
+    sequence-parallel attention scores compose with it (a prompt length
+    the axis does not divide stays whole)."""
     mesh = D.get_constraint_mesh()
     if mesh is None or x.ndim != 3:
         return x
     if cfg.n_heads % D.axis_size(mesh, "model") == 0:
         return D.constrain(x, "data", None, None)
-    return D.constrain(x, "data", "model", None)
+    return D.constrain(x, "data", "model", None, loose=(1,))
 
 
 # ---------------------------------------------------------------------------
@@ -441,24 +441,37 @@ def prefill(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
 
 def decode_step(params, cache: Dict[str, Any], tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens [B] -> (logits [B, V], the cache, updated in place)."""
-    D.refuse_mesh(params["embed"], "decode_step")
-    pos = cache["pos"]
-    x = params["embed"][tokens][:, None, :]              # [B, 1, d]
-    for i, p in enumerate(params["layers"]):
-        if cfg.ssm_type:
-            x = _ssm_layer(p, x, cfg, _layer_state(cache, i))
-        else:
-            x = _attn_block_decode(p, x, cfg, cache["k"][i], cache["v"][i],
-                                   pos)
-        app = _shared_slot(cfg, i)
-        if app is not None:
-            x = _attn_block_decode(params["shared"], x, cfg,
-                                   cache["shared_k"][app],
-                                   cache["shared_v"][app], pos)
-    cache["pos"] = pos + 1
-    h = _norm(x[:, 0], params["final_norm"], cfg)
-    return logits(params, h, cfg), cache
+    """tokens [B] -> (logits [B, V], the cache, updated in place).
+
+    On DTensor parameters and a cache laid out by :func:`cache_pspecs`
+    (as :func:`prefill` leaves it) the tokens' rows go over the data
+    axes, each attention layer writes its token into the rank that owns
+    the slot and merges the ranks' partial attention
+    (``blocks.decode_attention_sharded``), the SSM state stays on each
+    rank's heads, and the logits come back over (data axes, "model")."""
+    mesh = D.mesh_of(params["embed"])
+    with D.on_mesh(mesh):
+        if mesh is not None:
+            tokens = D.distribute_batch({"tokens": tokens}, mesh)["tokens"]
+        pos = cache["pos"]
+        x = C.embed_lookup(params["embed"], tokens)[:, None, :]   # [B, 1, d]
+        for i, p in enumerate(params["layers"]):
+            if cfg.ssm_type:
+                x = _ssm_layer(p, x, cfg, _layer_state(cache, i))
+            else:
+                x = _attn_block_decode(p, x, cfg, cache["k"][i],
+                                       cache["v"][i], pos)
+            app = _shared_slot(cfg, i)
+            if app is not None:
+                x = _attn_block_decode(params["shared"], x, cfg,
+                                       cache["shared_k"][app],
+                                       cache["shared_v"][app], pos)
+        cache["pos"] = pos + 1
+        h = _norm(x[:, 0], params["final_norm"], cfg)
+        lg = logits(params, h, cfg)
+        if mesh is not None:
+            lg = D.lay_out(lg, P(D.dp_axes(mesh), "model"))
+    return lg, cache
 
 
 # ---------------------------------------------------------------------------
@@ -539,7 +552,7 @@ class CausalLM:
 
     def decode_step(self, cache: Dict[str, Any], tokens
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        with torch.inference_mode():
+        with D.serving_mode(self.params["embed"]):
             return decode_step(self.params, cache, self._tokens(tokens),
                                self.cfg)
 

@@ -211,6 +211,69 @@ def test_decode_attention(dev, n, hq, hkv, s, d, lengths, dtype):
                      == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,s,d,lengths", DECODE)
+def test_decode_attention_partial(dev, n, hq, hkv, s, d, lengths, dtype):
+    """The partial form against its plain version at the ragged shapes:
+    o fp32 within 2e-5 (fp32) or 1e-4 (bf16 inputs: both sides sum exact
+    products in fp32, in other orders) of each row's largest, lse within
+    1e-5 of max(1, |lse|); a row of length 0 gives o = 0, lse = -inf.
+    One launch, counted as ``decode_attention``'s, and o rounded to the
+    inputs' dtype is the default form's output bit for bit."""
+    q, kc, vc = (a.to(dtype) for a in randn(
+        dev, 17, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d)))
+    lens = torch.tensor(lengths, device=dev)
+    ops.reset_launch_counts()
+    o, lse = ops.decode_attention_partial(q, kc, vc, lens)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want_o, want_lse = ref.decode_attention_partial_ref(q, kc, vc, lens)
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == want_o.shape and lse.shape == want_lse.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-4
+    for i, n_keys in enumerate(lengths):
+        if n_keys == 0:
+            assert torch.all(o[i] == 0) and torch.all(torch.isneginf(lse[i]))
+            continue
+        assert max_err(o[i], want_o[i]) <= tol * float(
+            want_o[i].abs().max()), (i, n_keys)
+        assert max_err(lse[i], want_lse[i]) <= 1e-5 * max(
+            1.0, float(want_lse[i].abs().max())), (i, n_keys)
+    assert torch.equal(o.to(dtype), ops.decode_attention(q, kc, vc, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [2, 16])
+def test_decode_attention_partial_split_and_merged(dev, dtype, parts):
+    """Qwen2-7B's decode shape with its slots split into ``parts`` ranges
+    (some empty at the short lengths), each through the partial kernel,
+    merged by ``ops.merge_partials``: against one ``decode_attention``
+    call, fp32 within 1e-5 of each row's largest, bf16 within one ulp of
+    the output (both round the same fp32 row once)."""
+    n, hq, hkv, s, d = 4, 28, 4, 2112, 128
+    q, kc, vc = (a.to(dtype) for a in randn(
+        dev, 23, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d)))
+    lens = torch.tensor((2049, 2080, 1500, 7), device=dev)
+    s_l = s // parts
+    os_, lses = [], []
+    for r in range(parts):
+        sl = slice(r * s_l, (r + 1) * s_l)
+        o, lse = ops.decode_attention_partial(
+            q, kc[:, :, sl].contiguous(), vc[:, :, sl].contiguous(),
+            torch.clamp(lens - r * s_l, 0, s_l))
+        os_.append(o)
+        lses.append(lse)
+    got = ops.merge_partials(torch.stack(os_), torch.stack(lses), dtype)
+    want = ops.decode_attention(q, kc, vc, lens)
+    for i in range(n):
+        w = want[i].float()
+        if dtype == torch.float32:
+            assert max_err(got[i], want[i]) <= 1e-5 * float(w.abs().max()), i
+        else:                  # one bf16 ulp: 2^-7 of each output's binade
+            ulp = torch.exp2(torch.floor(torch.log2(
+                w.abs().clamp(min=2.0 ** -126))) - 7)
+            assert torch.all((got[i].float() - w).abs() <= ulp), i
+
+
 def test_decode_attention_independent_of_batch_and_cache_length(dev):
     """A sequence's result depends on its own rows and length only: the
     same bits alone, in a batch, and in a longer cache.  Lengths 2049 and

@@ -15,9 +15,12 @@ sequence-parallel attention layout), each against the JAX package's
 unsharded step on the same weights and batch; ``prefill`` on DTensor
 parameters for every causal family and the enc-dec on (2, 2), and
 qwen2-7b on (1, 3), against the JAX prefill (logits and every cache
-leaf), and on a (1, 1) mesh in this process against the plain prefill,
-bit for bit; one sharded VAE decode step on a (2, 2) mesh against the
-JAX decode.
+leaf), and on a (1, 1) mesh in this process against the plain prefill
+(and its decode steps against the plain ones); ``decode_step`` after a
+prefill on DTensor parameters and cache for every causal family and the
+enc-dec on (2, 2), and qwen2-7b and mixtral-8x7b on (1, 4) with the KV
+slots split four ways, against the JAX package's unsharded chain; one
+sharded VAE decode step on a (2, 2) mesh against the JAX decode.
 
 Ranks are processes (``torch.multiprocessing``, spawn), one spawn per
 case running all of its checks, rendezvous through a
@@ -183,6 +186,62 @@ def test_placements_and_uneven_shards(world1):
     with pytest.raises(ValueError, match="rank-1"):
         D.distribute_tree({"a": torch.zeros(4)}, {"a": P(None, None)},
                           mesh2)
+
+
+#: (dims, the constraint's axes, its ``loose`` dims, the placements it
+#: gives over a fake ("data", "model") = (2, 4) mesh, or None: it raises)
+CONSTRAIN_CASES = {
+    "even": ((4, 8, 6), ("data", "model", None), (), ["S(0)", "S(1)"]),
+    "batch of one": ((1, 8, 6), ("data", "model", None), (), ["R", "S(1)"]),
+    "one token": ((4, 1, 6), ("data", "model", None), (), ["S(0)", "R"]),
+    "uneven batch": ((3, 8, 6), ("data", "model", None), (), None),
+    "uneven prompt": ((4, 5, 6), ("data", "model", None), (), None),
+    "uneven prompt, loose": ((4, 5, 6), ("data", "model", None), (1,),
+                             ["S(0)", "R"]),
+}
+
+CONSTRAIN_CODE = """
+import json, torch
+from repro_torch.dist import sharding as D
+from repro_torch.launch.dryrun import fake_mesh
+from torch.distributed.tensor import Replicate
+mesh = fake_mesh((2, 4))
+D.set_constraint_mesh(mesh)
+dims, axes, loose = {dims!r}, {axes!r}, {loose!r}
+x = D.from_local(torch.zeros(dims), mesh, [Replicate(), Replicate()], dims)
+try:
+    got = [str(p).replace("Shard(dim=", "S(").replace("Replicate()", "R")
+           for p in D.constrain(x, *axes, loose=loose).placements]
+except ValueError as e:
+    got = str(e)
+print(json.dumps(got))
+"""
+
+
+@pytest.mark.parametrize("case", sorted(CONSTRAIN_CASES))
+def test_constrain_fits_only_small_or_loose_dims(case):
+    """``constrain`` on a fake (2, 4) world (a child process): an axis
+    that does not divide its dim replicates it where the dim is smaller
+    than the axis (a batch of one, one token) or the caller lists it as
+    loose (a prompt's length), and raises otherwise."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    dims, axes, loose, want = CONSTRAIN_CASES[case]
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", CONSTRAIN_CODE.format(dims=dims, axes=axes,
+                                                     loose=loose)],
+        env=dict(os.environ, OMP_NUM_THREADS="1",
+                 PYTHONPATH=str(root / "src")),
+        cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if want is None:
+        assert "does not split evenly" in got, got
+    else:
+        assert got == want
 
 
 class _Sized:
@@ -681,8 +740,9 @@ def test_prefill_on_a_one_by_one_mesh_is_the_plain_prefill(world1, arch):
     max(1, the plain one's max |value|) (``chip_smoke.py`` holds them bit
     for bit on the card; on the CPU the two runs' products round apart
     now and then, on copies at other addresses: rwkv6-7b's logits in 3 of
-    62 runs, at most 1.6e-6 apart against a max of about 3.5), and
-    ``decode_step`` over a mesh raises naming ROADMAP A 16."""
+    62 runs, at most 1.6e-6 apart against a max of about 3.5), and so do
+    the logits and cache of ``decode_step`` over the mesh after it,
+    against the plain decode step on the plain prefill's cache."""
     import repro_torch.configs as TC
     cfg = TC.reduced_config(TC.get_config(arch))
     tm = TC.build_model(cfg, device="cpu", seed=3)
@@ -703,10 +763,168 @@ def test_prefill_on_a_one_by_one_mesh_is_the_plain_prefill(world1, arch):
         for p in want:
             _close(got[p].float().numpy(), want[p].float().numpy(), p,
                    tol=1e-5)
-        with pytest.raises(NotImplementedError, match="ROADMAP A 16"):
-            tm.decode_step(cache, inputs["tokens"][:, -1])
+        lg, cache = tm.decode_step(cache, inputs["tokens"][:, -1])
+        tm.params = plain
+        D.set_constraint_mesh(None)
+        want_lg, want_c = tm.decode_step(want_c, inputs["tokens"][:, -1])
+        _close(lg.full_tensor().numpy(), want_lg, "decode logits", tol=1e-5)
+        got, want = _walk(cache, lambda t: t.full_tensor()), _walk(
+            want_c, lambda t: t)
+        for p in want:
+            _close(got[p].float().numpy(), want[p].float().numpy(),
+                   ("decode",) + p, tol=1e-5)
     finally:
         D.set_constraint_mesh(None)
+
+
+#: the architectures whose decode steps run on each mesh, and the cache
+#: slots there: on (2, 2) every causal family and the enc-dec, 14 slots
+#: in two ranges of 7 (the 5-token prompt leaves the second empty, and
+#: the second step crosses into it; the VLM's 4 embeds more); on (1, 4)
+#: qwen2-7b in four ranges of 3 (two ranks start with no keys, the
+#: steps cross from the second range into the third) and mixtral-8x7b's
+#: ring buffer of 8 slots in four ranges of 2 (the last rank starts
+#: empty, the fourth step wraps to slot 0)
+DECODE_MESHES = {(2, 2): (["qwen2-7b", "mixtral-8x7b", "rwkv6-7b",
+                           "zamba2-2.7b", "qwen2-vl-72b",
+                           "whisper-large-v3"], 14),
+                 (1, 4): (["qwen2-7b", "mixtral-8x7b"], {"qwen2-7b": 12,
+                                                        "mixtral-8x7b": 8})}
+#: prompt tokens before the decode steps, and the steps
+DECODE_PROMPT, DECODE_STEPS = 5, 4
+
+
+def _decode_max_len(shape, arch):
+    slots = DECODE_MESHES[shape][1]
+    return slots[arch] if isinstance(slots, dict) else slots
+
+
+def _lm_decode_rank(rank, world, store, out, shape, cases):
+    """Each case's prefill and then its decode steps through the model's
+    entry points on DTensor parameters; rank 0 writes each step's
+    gathered logits, the final cache, and whether every leaf kept the
+    layout of ``cache_pspecs`` (fitted to its shape)."""
+    import torch.distributed as dist
+    import repro_torch.configs as TC
+    from repro_torch.kernels import ops
+    from repro_torch.models.bridge import encdec_from_numpy, lm_from_numpy
+    _init(rank, world, store)
+    try:
+        mesh = local_mesh(shape, ("data", "model"))
+        res = {}
+        for arch, tree, inputs, steps, max_len in cases:
+            cfg = TC.reduced_config(TC.get_config(arch))
+            enc = cfg.family == "encdec"
+            tm = (encdec_from_numpy if enc else lm_from_numpy)(
+                cfg, tree, device="cpu")
+            tm.params = D.distribute_tree(
+                tm.params, tm.param_pspecs(D.axis_size(mesh, "model")), mesh)
+            D.set_constraint_mesh(mesh)
+            if enc:
+                _, cache = tm.prefill(inputs["tokens"], inputs["frames"],
+                                      max_len=max_len)
+            else:
+                _, cache = tm.prefill(inputs["tokens"], max_len=max_len,
+                                      embeds=inputs.get("embeds"))
+            partial, logits = ops.decode_attention_partial, []
+            seen = {"partial": 0}
+
+            def spy(*a, **k):
+                seen["partial"] += 1
+                return partial(*a, **k)
+
+            ops.decode_attention_partial = spy
+            try:
+                for tok in steps:
+                    lg, cache = tm.decode_step(cache, tok)
+                    logits.append(lg.full_tensor().numpy())
+            finally:
+                ops.decode_attention_partial = partial
+            D.set_constraint_mesh(None)
+            specs = _walk(tm.cache_pspecs(), lambda sp: sp)
+            res[arch] = {
+                "logits": logits, "logits_placements": str(lg.placements),
+                "partial_calls": seen["partial"],
+                "cache": _walk(cache, lambda t: t.full_tensor().numpy()),
+                "placements": _walk(cache, lambda t: str(t.placements)),
+                "laid_out": all(
+                    tuple(t.placements) == tuple(D.placements(D.fit_spec(
+                        specs[p], t.shape, mesh), mesh))
+                    for p, t in _walk(cache, lambda t: t).items())}
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", sorted(DECODE_MESHES))
+def test_sharded_decode_steps_match_jax(shape, tmp_path, monkeypatch):
+    """``prefill`` of :data:`DECODE_PROMPT` tokens and then
+    :data:`DECODE_STEPS` ``decode_step`` calls on DTensor parameters, one
+    spawn per mesh, against the JAX package's unsharded prefill and
+    decode steps on the same weights and tokens: every step's logits and
+    the final cache's every leaf within 1e-4 of max(1, the reference's
+    max |value|), ``pos`` exactly.  The cache keeps ``cache_pspecs``'s
+    layout; where the slots split over "model" every attention layer's
+    step went through the partial kernel's plain version (one call a
+    layer a step), elsewhere through the plain decode attention."""
+    import jax
+    import jax.numpy as jnp
+    import repro.configs as RC
+    import repro_torch.configs as TC
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cases, want = [], {}
+    for i, arch in enumerate(DECODE_MESHES[shape][0]):
+        jcfg = RC.reduced_config(RC.get_config(arch))
+        jm = RC.build_model(jcfg)
+        params = jax.jit(jm.init)(jax.random.PRNGKey(4))
+        r = np.random.default_rng(20 + i)
+        inputs = _prefill_inputs(jcfg, 30 + i)
+        inputs["tokens"] = inputs["tokens"][:, :DECODE_PROMPT]
+        steps = [r.integers(0, jcfg.vocab_size, (PROMPT[0],)).astype(
+            np.int32) for _ in range(DECODE_STEPS)]
+        max_len = _decode_max_len(shape, arch)
+        ji = {k: jnp.asarray(v) for k, v in inputs.items()}
+        if jcfg.family == "encdec":
+            _, cache = jm.prefill(params, ji["tokens"], ji["frames"],
+                                  max_len=max_len)
+        else:
+            _, cache = jm.prefill(params, ji["tokens"], ji.get("embeds"),
+                                  max_len=max_len)
+        logits = []
+        for tok in steps:
+            lg, cache = jm.decode_step(params, cache, jnp.asarray(tok))
+            logits.append(np.asarray(lg))
+        want[arch] = (logits, cache)
+        cases.append((arch, jax.tree_util.tree_map(np.asarray, params),
+                      inputs, steps, max_len))
+    res = _spawn(_lm_decode_rank, shape[0] * shape[1], tmp_path, shape,
+                 cases)
+    for arch, (jl, jc) in want.items():
+        got = res[arch]
+        for i, (g, w) in enumerate(zip(got["logits"], jl, strict=True)):
+            _close(g, w, (arch, "step", i))
+        jleaves = _walk(jc, np.asarray)
+        assert sorted(got["cache"]) == sorted(jleaves), arch
+        for path, w in jleaves.items():
+            if path == ("pos",):
+                np.testing.assert_array_equal(got["cache"][path], w)
+            else:
+                _close(got["cache"][path], w, (arch, path))
+        assert got["laid_out"], (arch, got["placements"])
+        assert got["logits_placements"] == \
+            "(Shard(dim=0), Shard(dim=1))", (arch, got["logits_placements"])
+        cfg = TC.reduced_config(TC.get_config(arch))
+        if cfg.ssm_type == "rwkv6":
+            layers = 0
+        elif cfg.ssm_type:                   # the hybrid's shared block
+            layers = cfg.n_layers // cfg.attn_every
+        else:                                # the enc-dec's self-attention
+            layers = cfg.n_layers
+        assert got["partial_calls"] == layers * DECODE_STEPS, \
+            (arch, got["partial_calls"])
 
 
 def _decode_rank(rank, world, store, out, tree, z):

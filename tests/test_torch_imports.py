@@ -84,7 +84,8 @@ def test_every_module_imports_without_jax_or_repro():
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_compare.py", "examples/quickstart_torch.py",
        "examples/serve_trace_replay_torch.py",
-       "examples/train_tiny_lm_torch.py"]))
+       "examples/train_tiny_lm_torch.py",
+       "examples/adaptive_cache_demo_torch.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), path

@@ -436,6 +436,21 @@ def test_quickstart_example_on_the_cpu():
     assert out.stdout.strip().endswith("latent-first roundtrip OK on cpu")
 
 
+def test_adaptive_cache_demo_is_the_reference_example():
+    """``examples/adaptive_cache_demo_torch.py`` is the JAX package's
+    example with its imports rewritten (``repro.`` -> ``repro_torch.``)
+    and nothing else, and prints what the reference's prints."""
+    ref = (ROOT / "examples" / "adaptive_cache_demo.py").read_text()
+    port = (ROOT / "examples" / "adaptive_cache_demo_torch.py").read_text()
+    assert "from repro." in ref
+    assert port == ref.replace("from repro.", "from repro_torch.")
+    got = run_example("adaptive_cache_demo_torch.py")
+    want = run_example("adaptive_cache_demo.py")
+    assert got.returncode == want.returncode == 0, got.stderr + want.stderr
+    assert got.stdout == want.stdout
+    assert got.stdout.splitlines()[0].startswith("phase 1:")
+
+
 def test_serve_trace_replay_example_on_the_cpu():
     out = run_example("serve_trace_replay_torch.py", "--device", "cpu")
     assert out.returncode == 0, out.stderr
