@@ -24,7 +24,7 @@ same checks and timed by the same code:
   for the quantized weight cases);
 - ``--phases``, in order: ``vae_times`` (below), a serving phase of
   ``chip_smoke.SERVE`` (``lm``, ``ssm``, ``hybrid``, ``moe``, ``vlm``,
-  ``encdec``), ``rwkv6`` or
+  ``encdec``, ``kimi``), ``rwkv6`` or
   ``lm_attention`` (``chip_smoke.<name>_checks``), or any other
   ``chip_smoke.phase_<name>`` (``invariance``, ``slice``, ...).
 

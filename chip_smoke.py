@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's read path, its write and regeneration
 path, its persistent sharded store, its serving runtime, its launcher,
 quickstart and decode cost model, its LM serving paths (dense, RWKV-6,
-Mamba-2 hybrid, MoE, VLM, enc-dec) and its training loop on one NVIDIA
-GPU and hold every Hopper kernel against its plain PyTorch version.
+Mamba-2 hybrid, MoE, VLM, enc-dec, and kimi-k2's 384-expert MoE) and its
+training loop on one NVIDIA GPU and hold every Hopper kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py                    # needs one GPU and nvcc
 
@@ -18,8 +19,8 @@ wall seconds (any failure exits non-zero):
                 Qwen2-7B prefill's and decode step's attention shapes (bf16
                 and fp32, with a sliding-window case), at zamba2-2.7b's
                 shared-block attention shapes (head_dim 80), at
-                mixtral-8x7b's and qwen2-vl-72b's (bf16), at
-                whisper-large-v3's (head_dim 64: the encoder's non-causal
+                mixtral-8x7b's, qwen2-vl-72b's and kimi-k2-1t-a32b's
+                (bf16; kimi-k2's head_dim 112), at whisper-large-v3's (head_dim 64: the encoder's non-causal
                 1500 x 1500, the decoder's causal 384 x 384 and its
                 cross-attention of 384 queries over 1500 keys; the decode
                 step's self-attention over 448 slots and cross-attention
@@ -146,7 +147,9 @@ wall seconds (any failure exits non-zero):
                 relative tolerance; and small fp32 qwen2-, RWKV-6-, zamba2-,
                 mixtral- (at the published capacity factor 1.25, so its
                 decode steps drop entries), qwen2-vl- (7 seeded embeds
-                first) and whisper-family (150 seeded frames) LMs' prefill
+                first), whisper-family (150 seeded frames) and kimi-k2
+                (head_dim 112, 384 experts, top-8, capacity factor 1.25:
+                the twin its serving phase cannot hold) LMs' prefill
                 and decode steps, logits and every cache leaf within a
                 relative tolerance, the positions equal;
 12. lm          the LM serving paths: ``build_model`` of Qwen2-7B,
@@ -167,7 +170,17 @@ wall seconds (any failure exits non-zero):
                 the timed prefill and step), and a ``torch.profiler``
                 window of a prefill and four steps (device-busy share, top
                 kernels);
-18. dist        sharded layouts and RWKV-6 training on the card: (c)
+18. kimi        kimi-k2-1t-a32b at full width, 1 of its 61 layers
+                (``DEPTH_CUT``; 38.8 GB of bf16), served as above with
+                the launches checked exactly, but with no fp32 twin
+                (``NO_TWIN``: it would not fit): its first layer's MoE on
+                4 x 16 seeded bf16 tokens against an fp32 per-token
+                reference routed by the layer's own router, at capacity
+                factor E / k and at the published 1.25 (the rule's
+                entries dropped), within 2e-2 of the reference's max;
+                decode after a 4 x 64 prefill at capacity factor E / k,
+                reported and not gated;
+19. dist        sharded layouts and RWKV-6 training on the card: (c)
                 ``make_decode_step(SD35_VAE, make_local_mesh())`` at
                 bucket 8, 512x512, its pixels bit-identical to the
                 unsharded step's; (a) rwkv6-7b at full width, 2 of 32
@@ -199,7 +212,7 @@ wall seconds (any failure exits non-zero):
                 mesh on a DTensor copy of the weights: logits and cache
                 bit for bit, one kernel launch a layer a step, each
                 step's ms both ways;
-19. train       training on one card: a CUDA wrapper with no backward
+20. train       training on one card: a CUDA wrapper with no backward
                 (``conv3x3``) refuses an input that requires grad, and
                 ``rwkv6_scan`` under grad launches once through
                 ``RWKV6Scan`` (f); ``FlashAttention`` forward (the kernel)
@@ -227,7 +240,7 @@ wall seconds (any failure exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (times summed over one uint8
 decode, one encode and one float decode of a 512x512 image, and one
 prefill and one decode step of each LM; launches summed over the slice,
-write, store, stream, quant, autotune, launch, the six serving phases,
+write, store, stream, quant, autotune, launch, the seven serving phases,
 every run of the dist phase and the train phase's first run; the card's
 peaks from ``repro_torch.launch.mesh.card_peaks``).  The partial form's
 wrapper counts its launches as ``decode_attention``'s, but none reaches
@@ -274,6 +287,7 @@ HYBRID_ARCH = "zamba2-2.7b"
 MOE_ARCH = "mixtral-8x7b"
 VLM_ARCH = "qwen2-vl-72b"
 ENCDEC_ARCH = "whisper-large-v3"
+KIMI_ARCH = "kimi-k2-1t-a32b"
 LM_BATCH = 4
 LM_PROMPT = 2048          # prompt tokens per sequence
 LM_MAX_LEN = 2112         # KV-cache slots: prompt + 64 steps
@@ -288,7 +302,11 @@ ENCDEC_LENGTHS = (385, 448, 416, 400)     # ragged self-attention lengths
 VAE_PASSES = ("decode", "encode", "float_decode")
 #: each LM serving phase -> the model it serves
 SERVE = {"lm": LM_ARCH, "ssm": SSM_ARCH, "hybrid": HYBRID_ARCH,
-         "moe": MOE_ARCH, "vlm": VLM_ARCH, "encdec": ENCDEC_ARCH}
+         "moe": MOE_ARCH, "vlm": VLM_ARCH, "encdec": ENCDEC_ARCH,
+         "kimi": KIMI_ARCH}
+#: serving phases whose fp32 twin does not fit beside the bf16 model: their
+#: checks are ``no_twin_checks``'s
+NO_TWIN = ("kimi",)
 #: serving phases cut in depth (full width): phase -> (layers, why)
 DEPTH_CUT = {
     "moe": (4, "mixtral-8x7b is 93.4 GB of bf16 weights at its 32 layers, "
@@ -298,6 +316,11 @@ DEPTH_CUT = {
     "vlm": (4, "qwen2-vl-72b is 145 GB of bf16 weights at its 80 layers; 4 "
                "layers and the embeddings are 12.0 GB, and the fp32 twin "
                "adds 24"),
+    "kimi": (1, "kimi-k2-1t-a32b is about 2 TB of bf16 weights at its 61 "
+                "layers; one layer and the embeddings are 38.8 GB (its 384 "
+                "experts 33.8), two 72.8, which leaves too little of an "
+                "80 GB card for the prefill and the checks; no fp32 twin "
+                "fits beside either (NO_TWIN)"),
 }
 PASSES = VAE_PASSES + tuple(f"{ph}_{p}" for ph in SERVE
                             for p in ("prefill", "decode_step"))
@@ -321,8 +344,24 @@ CONSISTENCY_TOL = {
                                 "tokens)")),
     "encdec": (2e-2, _BF16.replace("[4, 2049]", "[4, 385]") + "; the "
                "encoder's 32 layers see the same frames in both"),
+    "kimi": (None, "not gated in bf16, as the moe phase, for the same "
+                   "router near-ties (384 experts, top-8), over a prompt of "
+                   "KIMI_PROMPT tokens: at capacity factor E / k the "
+                   "full prompt's expert slots would take 45 GB; no fp32 "
+                   "twin fits, so the MoE layer is gated against an fp32 "
+                   "per-token reference instead (KIMI_MOE_TOL)"),
 }
 FP32_CONSISTENCY_TOL = 1e-3
+#: no_twin_checks: the prompt of its decode-after-prefill check, the
+#: [batch, seq] of seeded bf16 activations its MoE check takes, their seed,
+#: and that check's tolerance
+KIMI_PROMPT = 64
+KIMI_MOE_TOKENS = (4, 16)
+KIMI_MOE_SEED = 43
+KIMI_MOE_TOL = (2e-2, "bf16 expert products, SiLU and gate sums against "
+                      "fp32 throughout, on the same bf16 inputs and weights "
+                      "and the same routing; relative to the reference's "
+                      "max |value|")
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -942,8 +981,10 @@ def lm_attention_cases(get_config):
     block (head_dim 80, 32 q over 32 kv heads): its causal prefill and its
     decode step, 9 calls each per pass, bf16.  mixtral-8x7b (32 q over 8
     kv heads of 128, window 4096) and qwen2-vl-72b (64 over 8; 256 embeds
-    and 1792 tokens) at the depth of their phases: the causal prefill and
-    the decode step, bf16.  whisper-large-v3 (20 heads of 64 over 20): the
+    and 1792 tokens) and kimi-k2-1t-a32b (64 over 8 of 112: the bf16
+    flash tile's zero-padded lanes, and the decode's CUDA-core p v path at
+    rep 8) at the depth of their phases: the causal prefill and the decode
+    step, bf16.  whisper-large-v3 (20 heads of 64 over 20): the
     encoder's non-causal 1500 x 1500, the decoder's causal 384 x 384 and
     its cross-attention, non-causal 384 queries over 1500 keys (32 calls
     each per prefill); the decode step's self-attention against 448 slots
@@ -975,7 +1016,7 @@ def lm_attention_cases(get_config):
                   dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
                        lengths=list(DECODE_LENGTHS)), "bfloat16",
                   {"hybrid_decode_step": napp}))
-    for phase in ("moe", "vlm"):
+    for phase in ("moe", "vlm", "kimi"):
         c = serve_config(get_config, phase)
         n, hq, hkv, d = LM_BATCH, c.n_heads, c.n_kv_heads, c.head_dim
         cases.append((SERVE[phase], "flash_attention",
@@ -2760,7 +2801,10 @@ def phase_crossdevice(torch, log, state):
 #: small fp32 models of each served family for the crossdevice phase (the
 #: MoE at its published 8 experts, top-2 and capacity factor 1.25, so its
 #: steps drop entries; the VLM at head_dim 128 for the published M-RoPE
-#: sections)
+#: sections; kimi-k2's geometry narrowed: its head_dim 112 with 8 q heads
+#: over 1 kv head, its 384 experts, top-8 and capacity factor 1.25, the
+#: fp32 twin its serving phase cannot hold, ``tests/test_torch_kimi.py``
+#: holding this one to the JAX package)
 CROSS_LMS = {
     LM_ARCH: dict(n_layers=4, d_model=512, n_heads=8, n_kv_heads=2,
                   d_ff=1024, vocab_size=4096),
@@ -2776,6 +2820,8 @@ CROSS_LMS = {
     ENCDEC_ARCH: dict(n_layers=4, encoder_layers=4, encoder_seq=150,
                       d_model=512, n_heads=8, n_kv_heads=8, d_ff=1024,
                       vocab_size=4096),
+    KIMI_ARCH: dict(n_layers=2, d_model=896, n_heads=8, n_kv_heads=1,
+                    d_ff=64, vocab_size=4096),
 }
 CROSS_PREFIX = 7          # vision embeds before the small VLM's tokens
 
@@ -3059,61 +3105,13 @@ def phase_serve(torch, log, state, phase: str):
 
     prof_prefill = profile_share(torch, run_prefill, 1)
     prof_step = profile_share(torch, run_step, 4)
-    del holder
-
-    # decode_step on x after prefill(p) against the last logits of
-    # prefill(p + [x]); the MoE at capacity factor E / k (cap = T: no entry
-    # dropped), on the same weights
-    extra = {}
-    cons_cfg, cons = cfg, model
-    if cfg.family == "moe":
-        cf = cfg.n_experts / cfg.experts_per_token
-        cons_cfg = dataclasses.replace(cfg, capacity_factor=cf)
-        cons = type(model)(cons_cfg, device="cuda", params=model.params)
-        t_pre, t_step = LM_BATCH * prompt, LM_BATCH
-        extra = dict(cap_prefill=moe_capacity(t_pre, cfg),
-                     cap_decode_step=moe_capacity(t_step, cfg),
-                     consistency_capacity_factor=cf,
-                     consistency_cap_prefill=[
-                         moe_capacity(t_pre, cons_cfg),
-                         moe_capacity(t_pre + LM_BATCH, cons_cfg)],
-                     consistency_cap_decode_step=moe_capacity(t_step,
-                                                              cons_cfg),
-                     timed_capacity_factor=cfg.capacity_factor)
-        del lp, c
-        _, c = prefill_of(cons, side)(prompts, max_len=max_len)
-    ld, c = cons.decode_step(c, first)
-    del c
-    longer = np.concatenate([prompts, first.cpu().numpy()[:, None]], axis=1)
-    lf, _ = prefill_of(cons, side)(longer)
-    del _
-    err = float((ld.float() - lf.float()).abs().max())
-    scale = float(lf.float().abs().max())
-    tol, tol_reason = CONSISTENCY_TOL[phase]
-    if tol is not None:
-        need(err <= tol * scale, f"{arch} decode-after-prefill logits differ "
-             f"from a prefill of {prefix + prompt + 1} positions by {err} > "
-             f"{tol} * {scale}")
-    # the same check in fp32, on the bf16 weights cast exactly: the path's
-    # own error without bf16 rounding; and how far the bf16 logits of the
-    # longer prefill lie from the fp32 ones (the bf16 noise floor)
-    twin = type(model)(dataclasses.replace(cons_cfg, dtype=torch.float32),
-                       device="cuda", params=model.params)
-    del model, cons, run
-    gc.collect()
-    torch.cuda.empty_cache()
-    side32 = None if side is None else side.float()
-    _, c = prefill_of(twin, side32)(prompts, max_len=max_len)
-    ld32, c = twin.decode_step(c, first)
-    del c
-    lf32, _ = prefill_of(twin, side32)(longer)
-    del _, twin, side, side32
-    scale32 = float(lf32.abs().max())
-    err32 = float((ld32 - lf32).abs().max())
-    floor = float((lf.float() - lf32).abs().max()) / scale32
-    need(err32 <= FP32_CONSISTENCY_TOL * scale32, f"{arch} fp32 decode-"
-         f"after-prefill logits differ by {err32} > {FP32_CONSISTENCY_TOL} "
-         f"* {scale32}")
+    del holder, lp
+    if phase in NO_TWIN:
+        checks = no_twin_checks(torch, state, phase, model, prompts, side)
+    else:
+        checks = twin_consistency(torch, state, phase, model, prompts, side,
+                                  first, c, max_len)
+    del model, run, c
     gc.collect()
     torch.cuda.empty_cache()
     steps = LM_BATCH * (prefix + prompt)
@@ -3138,19 +3136,201 @@ def phase_serve(torch, log, state, phase: str):
          decode_tokens_per_s=LM_BATCH / statistics.median(dev) * 1e3,
          launches=launches, launches_after_prefill=after_prefill,
          launches_per_prefill=per_prefill, launches_per_step=per_step,
-         first_tokens=first.tolist(), **extra,
+         first_tokens=first.tolist(),
          profile_prefill=prof_prefill, profile_decode_step=prof_step,
-         consistency_max_abs_err=err, consistency_logit_max=scale,
-         consistency_rel_err=err / scale, consistency_tol=tol,
-         consistency_tol_reason=tol_reason,
-         fp32_consistency_rel_err=err32 / scale32,
-         fp32_consistency_tol=FP32_CONSISTENCY_TOL,
-         fp32_consistency_tol_reason="fp32 with other summation orders in "
-                                     "the [4, 1] and [4, 2049] products and "
-                                     "kernels (and the one-step against the "
-                                     "chunked SSD); relative to the max "
-                                     "|logit|",
-         bf16_vs_fp32_prefill_rel=floor)
+         **checks)
+
+
+def twin_consistency(torch, state, phase, model, prompts, side, first, c,
+                     max_len):
+    """A serving phase's decode-after-prefill check: ``decode_step`` on
+    ``first`` after the prefill of ``prompts`` (whose cache is ``c``)
+    against the last logits of a prefill one token longer, in bf16 (gated
+    by ``CONSISTENCY_TOL``) and on an fp32 twin of the same weights cast
+    exactly (gated by ``FP32_CONSISTENCY_TOL``); a MoE both at capacity
+    factor E / k (cap = T: no entry dropped).  Returns the phase line's
+    fields."""
+    import dataclasses
+    from repro_torch.models.blocks import moe_capacity
+    np = state["np"]
+    cfg, arch = model.cfg, SERVE[phase]
+    prompt, prefix, _ = serve_lengths(cfg)
+    extra = {}
+    cons_cfg, cons = cfg, model
+    if cfg.family == "moe":
+        cf = cfg.n_experts / cfg.experts_per_token
+        cons_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        cons = type(model)(cons_cfg, device="cuda", params=model.params)
+        t_pre, t_step = LM_BATCH * prompt, LM_BATCH
+        extra = dict(cap_prefill=moe_capacity(t_pre, cfg),
+                     cap_decode_step=moe_capacity(t_step, cfg),
+                     consistency_capacity_factor=cf,
+                     consistency_cap_prefill=[
+                         moe_capacity(t_pre, cons_cfg),
+                         moe_capacity(t_pre + LM_BATCH, cons_cfg)],
+                     consistency_cap_decode_step=moe_capacity(t_step,
+                                                              cons_cfg),
+                     timed_capacity_factor=cfg.capacity_factor)
+        del c
+        _, c = prefill_of(cons, side)(prompts, max_len=max_len)
+    ld, c = cons.decode_step(c, first)
+    del c
+    longer = np.concatenate([prompts, first.cpu().numpy()[:, None]], axis=1)
+    lf, _ = prefill_of(cons, side)(longer)
+    del _
+    err = float((ld.float() - lf.float()).abs().max())
+    scale = float(lf.float().abs().max())
+    tol, tol_reason = CONSISTENCY_TOL[phase]
+    if tol is not None:
+        need(err <= tol * scale, f"{arch} decode-after-prefill logits differ "
+             f"from a prefill of {prefix + prompt + 1} positions by {err} > "
+             f"{tol} * {scale}")
+    # the same check in fp32, on the bf16 weights cast exactly: the path's
+    # own error without bf16 rounding; and how far the bf16 logits of the
+    # longer prefill lie from the fp32 ones (the bf16 noise floor)
+    twin = type(model)(dataclasses.replace(cons_cfg, dtype=torch.float32),
+                       device="cuda", params=model.params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    side32 = None if side is None else side.float()
+    _, c = prefill_of(twin, side32)(prompts, max_len=max_len)
+    ld32, c = twin.decode_step(c, first)
+    del c
+    lf32, _ = prefill_of(twin, side32)(longer)
+    del _, twin, side32
+    scale32 = float(lf32.abs().max())
+    err32 = float((ld32 - lf32).abs().max())
+    floor = float((lf.float() - lf32).abs().max()) / scale32
+    need(err32 <= FP32_CONSISTENCY_TOL * scale32, f"{arch} fp32 decode-"
+         f"after-prefill logits differ by {err32} > {FP32_CONSISTENCY_TOL} "
+         f"* {scale32}")
+    return dict(
+        extra, consistency_max_abs_err=err, consistency_logit_max=scale,
+        consistency_rel_err=err / scale, consistency_tol=tol,
+        consistency_tol_reason=tol_reason,
+        fp32_consistency_rel_err=err32 / scale32,
+        fp32_consistency_tol=FP32_CONSISTENCY_TOL,
+        fp32_consistency_tol_reason="fp32 with other summation orders in "
+                                    "the [4, 1] and [4, 2049] products and "
+                                    "kernels (and the one-step against the "
+                                    "chunked SSD); relative to the max "
+                                    "|logit|",
+        bf16_vs_fp32_prefill_rel=floor)
+
+
+def moe_token_reference(torch, params, x, cfg, cap=None):
+    """The MoE layer ``params`` on ``x [B, S, d]`` one token at a time in
+    fp32: each token's top-k experts from the layer's own fp32 router by
+    the ops ``blocks.moe`` routes with, on the same input (the same bits,
+    so no near-tie can part the two); their SwiGLU in fp32 on the bf16
+    weights of those k experts upcast one token at a time; the outputs
+    weighted by the renormalised gates.  With ``cap``, an entry ranked at
+    or past ``cap`` in its expert, token by token and choice by choice
+    (the capacity rule), adds nothing.  Returns (out [B, S, d] fp32, the
+    experts [T, k], the entries kept [T, k] bool)."""
+    import torch.nn.functional as F
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    logits = xt.float() @ params["router"]
+    gates, idx = torch.topk(torch.softmax(logits, dim=-1),
+                            cfg.experts_per_token)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    seen = Counter()
+    kept = []
+    for experts in idx.tolist():
+        kept.append([cap is None or seen[e] < cap for e in experts])
+        seen.update(experts)
+    kept = torch.tensor(kept, dtype=torch.bool, device=x.device)
+    out = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    for i in range(b * s):
+        sel = idx[i][kept[i]]
+        if sel.numel() == 0:
+            continue
+        xi = xt[i].float()
+        h = (F.silu(xi @ params["w_gate"][sel].float())
+             * (xi @ params["w_up"][sel].float()))                 # [k, f]
+        ho = torch.bmm(h[:, None], params["w_down"][sel].float())[:, 0]
+        out[i] = (gates[i][kept[i]][:, None] * ho).sum(0)
+    return out.reshape(b, s, d), idx, kept
+
+
+def no_twin_checks(torch, state, phase, model, prompts, side):
+    """The checks of a serving phase whose fp32 twin does not fit beside
+    its bf16 model (``NO_TWIN``; the crossdevice phase holds a narrow fp32
+    twin of the same geometry to the CPU).  (b) The first layer's MoE on
+    ``KIMI_MOE_TOKENS`` seeded bf16 activations against
+    ``moe_token_reference`` at capacity factor E / k, where nothing drops,
+    and at the published capacity factor, where the reference drops the
+    capacity rule's entries and their count is the rule's (``moe_capacity``
+    slots an expert), each within ``KIMI_MOE_TOL`` (TF32 off).  (d) Decode
+    after a prefill of ``KIMI_PROMPT`` tokens a sequence against a prefill
+    one token longer, at capacity factor E / k, reported and not gated
+    (``CONSISTENCY_TOL``).  Returns the phase line's fields."""
+    import dataclasses
+    from repro_torch.models.blocks import moe, moe_capacity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = model.cfg
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cf = e / k
+    layer = model.params["layers"][0]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(KIMI_MOE_SEED)
+    x = torch.randn((*KIMI_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    t = x.shape[0] * x.shape[1]
+    rel, tol_reason = KIMI_MOE_TOL
+    moe_ref = {"tokens": list(KIMI_MOE_TOKENS), "tol": rel,
+               "tol_reason": tol_reason}
+    for label, factor in (("no_drop", cf), ("published", cfg.capacity_factor)):
+        cap = moe_capacity(t, cfg, factor)
+        got = moe(layer, x, cfg, capacity_factor=factor)
+        want, idx, kept = moe_token_reference(torch, layer, x, cfg, cap)
+        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        rule = int((counts - cap).clamp(min=0).sum())
+        dropped = int((~kept).sum())
+        err = float((got.float() - want).abs().max())
+        scale = float(want.abs().max())
+        need(tuple(got.shape) == tuple(x.shape) and got.dtype == x.dtype and
+             bool(torch.isfinite(got.float()).all()),
+             f"MoE layer gives {tuple(got.shape)} {got.dtype}")
+        need(dropped == rule, f"the reference dropped {dropped} entries at "
+             f"capacity {cap}, the rule {rule}")
+        need((dropped > 0) == (label == "published"),
+             f"{dropped} entries dropped at capacity factor {factor}")
+        need(err <= rel * scale, f"MoE layer at capacity factor {factor} "
+             f"differs from the fp32 per-token reference by {err} > {rel} * "
+             f"{scale}")
+        moe_ref[label] = dict(capacity_factor=factor, cap=cap,
+                              dropped=dropped, dropped_rule=rule,
+                              max_abs_err=err, ref_max=scale,
+                              rel_err=err / scale)
+        del got, want
+    del x
+    cons_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    cons = type(model)(cons_cfg, device="cuda", params=model.params)
+    short = prompts[:, :KIMI_PROMPT]
+    run = prefill_of(cons, side)
+    lp, c = run(short, max_len=KIMI_PROMPT + 1)
+    first = lp.argmax(-1)
+    ld, c = cons.decode_step(c, first)
+    longer = state["np"].concatenate([short, first.cpu().numpy()[:, None]],
+                                     axis=1)
+    lf, _ = run(longer)
+    need(bool(torch.isfinite(ld.float()).all()), "non-finite decode logits")
+    err = float((ld.float() - lf.float()).abs().max())
+    scale = float(lf.float().abs().max())
+    t_pre = LM_BATCH * KIMI_PROMPT
+    tol, tol_reason = CONSISTENCY_TOL[phase]
+    return dict(
+        cap_prefill=moe_capacity(LM_BATCH * prompts.shape[1], cfg),
+        cap_decode_step=moe_capacity(LM_BATCH, cfg),
+        timed_capacity_factor=cfg.capacity_factor, moe_ref=moe_ref,
+        consistency_prompt=KIMI_PROMPT, consistency_capacity_factor=cf,
+        consistency_cap_prefill=[moe_capacity(t_pre, cons_cfg),
+                                 moe_capacity(t_pre + LM_BATCH, cons_cfg)],
+        consistency_cap_decode_step=moe_capacity(LM_BATCH, cons_cfg),
+        consistency_max_abs_err=err, consistency_logit_max=scale,
+        consistency_rel_err=err / scale, consistency_tol=tol,
+        consistency_tol_reason=tol_reason)
 
 
 # ---------------------------------------------------------------------------

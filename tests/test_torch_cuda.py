@@ -143,7 +143,12 @@ LM_ATTENTION = [(1, 4, 4, 70, 70, 128, True, None),
                 (1, 20, 20, 1500, 1500, 64, False, None),
                 (2, 20, 20, 384, 384, 64, True, None),
                 (2, 20, 20, 384, 1500, 64, False, None),
-                (1, 64, 8, 300, 300, 128, True, None)]
+                (1, 64, 8, 300, 300, 128, True, None),
+                # kimi-k2's d 112 (the bf16 tile's 16 zero-padded lanes),
+                # 64 over 8 heads; ragged sq < skv and sq > skv, a window
+                (1, 64, 8, 130, 130, 112, True, None),
+                (2, 16, 2, 70, 200, 112, True, 50),
+                (1, 8, 1, 190, 65, 112, False, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -160,8 +165,8 @@ def test_flash_attention_lm_cases(dev, n, hq, hkv, sq, skv, d, causal,
 
 
 # ragged lengths incl. 0, 1 and S; S not a multiple of the 64-row tile;
-# rep 7, rep 1 and rep 12 (two groups of 8 heads); d 32, 64, 128, 256 and
-# zamba2's 80
+# rep 7, rep 1 and rep 12 (two groups of 8 heads); d 32, 64, 128, 256,
+# zamba2's 80 and kimi-k2's 112
 DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
           (2, 7, 1, 1000, 64, (999, 128)),
           (3, 8, 8, 64, 32, (64, 63, 2)),
@@ -177,6 +182,10 @@ DECODE = [(4, 28, 4, 300, 128, (300, 129, 1, 0)),
           (4, 64, 8, 2112, 128, (2049, 2080, 1500, 7)),
           (4, 20, 20, 448, 64, (385, 448, 416, 400)),
           (4, 20, 20, 1500, 64, (1500, 1500, 1500, 1500)),
+          # kimi-k2-1t-a32b: d 112 at rep 8 (224-byte rows, the CUDA-core
+          # p v path), its serving shape and the partition's edges
+          (4, 64, 8, 2112, 112, (2049, 2080, 1500, 7)),
+          (6, 8, 1, 1100, 112, (1, 31, 33, 65, 129, 1100)),
           # the partition's edges: a tile of 32 rows (fp32 d 128) or 64
           # (bf16 d 128, d 80) +-1; a CTA's span of the 8-way split steps
           # by 16 rows at len 128 k -> 128 k + 1; S itself; lengths that
