@@ -43,10 +43,14 @@ wall seconds (any failure exits non-zero):
                 with the statistics' own read (``two_pass_bound_ms``); for
                 ``output_epilogue`` the share of bytes off by 1 LSB; then
                 the totals of each pass, and the plain
-                ``downsample``'s ms per encode.  The upsampler's lines
-                also carry its two costs apart: ``phase_collapse_ms``
-                (the wrapper's per-call tap collapse) and ``kernel_ms``
-                (the launch alone, from taps collapsed beforehand).  The
+                ``downsample``'s ms per encode.  The upsampler's ``ms``
+                is its launch from taps collapsed beforehand (what a
+                decode runs: the serving tree holds them; also
+                ``kernel_ms``), beside ``phase_collapse_ms`` (a per-call
+                collapse alone) and ``per_call_collapse_ms`` (the wrapper
+                that collapses on every call).  First, one ``wgmma`` TF32
+                product through the conv tile's operand layouts against
+                the float64 product (``wgmma_probe``).  The
                 four conv kernels' bf16 and int8 weight cases at every
                 decode shape, each
                 against its plain version at the fp32 tolerance, with
@@ -104,7 +108,9 @@ wall seconds (any failure exits non-zero):
                 served image within +-1 LSB of the fp32-weight decode,
                 bucket 8 bit-identical to batch 1, each kernel's launches
                 (all > 0), device ms per image per bucket beside fp32
-                weights, ``decoder_storage``; then a raw int8 engine on
+                weights, ``decoder_storage`` of the serving tree beside
+                the stored one's and the bytes of every decoder tree the
+                VAE holds (each tensor once); then a raw int8 engine on
                 the unsnapped decoder, accepted or refused as its gate
                 says;
 9. autotune    the kernel autotuner at SD3.5-VAE width on a 64x64x16
@@ -388,10 +394,19 @@ DESIGN = {
                "on the 128-wide tile, 4 < Cout <= 32 on the 32-wide tile with "
                "K split over a CTA cluster and a DSMEM merge; Cout <= 4 on the "
                "CUDA-core fp32 tile",
-    "gn_silu_conv3x3": "3xTF32 mma.sync implicit GEMM (tc_conv_tile.cuh)",
-    "upsample_conv3x3": "3xTF32 mma.sync implicit GEMM (tc_conv_tile.cuh), "
-                        "phase form: a block per phase, its 4 collapsed "
-                        "2x2 taps, 128-wide tile",
+    "gn_silu_conv3x3": "3xTF32 wgmma m64n128k8 TF32 implicit GEMM, both "
+                       "operands K-major in shared memory (wg_conv_tile.cuh): "
+                       "a weights warpgroup (cp.async ring, split hi/lo "
+                       "K-major) and a halo warpgroup (cp.async two chunks "
+                       "ahead, GN + SiLU, split hi/lo) feed two consumer "
+                       "warpgroups of 64 pixels x 128 channels through "
+                       "mbarriers, registers moved by setmaxnreg; a chain of "
+                       "one 16-channel chunk per fresh accumulator",
+    "upsample_conv3x3": "3xTF32 wgmma m64n128k8 TF32 implicit GEMM "
+                        "(wg_conv_tile.cuh, as gn_silu_conv3x3's with no "
+                        "prologue), phase form: a block per phase, its 4 "
+                        "collapsed 2x2 taps (collapsed once in the serving "
+                        "tree)",
     "output_epilogue": "coalesced GN statistics pass (gn_stats.cu), then a "
                        "16x32 tile x 3 outputs a block of 512 threads: the "
                        "whole filter in shared memory once, the halo by "
@@ -639,17 +654,24 @@ def kernel_error(kernel, got, want):
 
 
 def collapse_ms(torch, x, w, b, w_scale=None):
-    """The upsampler's two costs apart: ms of the wrapper's per-call phase
-    collapse of a stored filter alone (tensor additions on the card, part
-    of its ``ms``), and of the kernel launch alone from taps collapsed
-    beforehand (``upsample_conv3x3_taps``)."""
+    """The upsampler's costs apart: ms of a per-call phase collapse of a
+    stored filter alone (tensor additions on the card), of the wrapper
+    that collapses on every call (``upsample_conv3x3``,
+    ``per_call_collapse_ms``), and of the kernel launch alone from taps
+    collapsed beforehand (``upsample_conv3x3_taps``, ``kernel_ms``), which
+    is what a decode runs since its serving tree holds the taps: the
+    row's ``ms``."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.upsample_conv import upsample_conv3x3_taps
+    from repro_torch.kernels.upsample_conv import (upsample_conv3x3,
+                                                   upsample_conv3x3_taps)
     wc = ref.storage_phase_weights(w).contiguous()
+    kernel_ms = cuda_ms(
+        torch, lambda: upsample_conv3x3_taps(x, wc, b, w_scale), REPS)
     return {"phase_collapse_ms": cuda_ms(
                 torch, lambda: ref.storage_phase_weights(w), REPS),
-            "kernel_ms": cuda_ms(
-                torch, lambda: upsample_conv3x3_taps(x, wc, b, w_scale), REPS)}
+            "per_call_collapse_ms": cuda_ms(
+                torch, lambda: upsample_conv3x3(x, w, b, w_scale), REPS),
+            "kernel_ms": kernel_ms}
 
 
 def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
@@ -686,6 +708,7 @@ def quantized_checks(torch, log, state, kernel, args, a, fp32_ms, calls,
         plain_ms = cuda_ms(torch, lambda: plains[kernel](pa, w_scale), REPS)
         if kernel == "upsample_conv3x3":
             extra.update(collapse_ms(torch, a[0], w_store, a[-1], w_scale))
+            ms = extra["kernel_ms"]          # a decode launches from taps
         emit(log, "kernel_quant", name=kernel, weight_dtype=wd,
              shape=list(args), calls_per_decode=calls, max_abs_err=err,
              tol=tol, tol_reason=why, ms=ms, plain_ms=plain_ms,
@@ -824,6 +847,7 @@ def measure_kernel(torch, state, kernel, args, a, fns):
             device_kernels=kern["top"])
     if kernel == "upsample_conv3x3":
         extra.update(collapse_ms(torch, a[0], a[1], a[2]))
+        row["ms"] = extra["kernel_ms"]       # a decode launches from taps
     with_bound(row, state["peaks"][1])
     row.update(tflops=flops / row["ms"] / 1e9, **extra)
     return row
@@ -882,10 +906,37 @@ def vae_kernel_checks(torch, log, state, names=None):
     return totals, max_err, kernel_alone
 
 
+def tf32_rna(torch, x):
+    """fp32 -> tf32 as ``cvt.rna`` rounds (ties away from zero, 13 low bits
+    cleared), on the CPU."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    out = (bits & 0x80000000) | (((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000)
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+def wgmma_probe_check(torch, log):
+    """One ``wgmma`` m64n128k8 TF32 product through the warpgroup conv
+    tile's operand layouts (A as a halo plane, B as a weight slot) on
+    TF32-exact inputs: each product is exact in fp32, so it is the float64
+    product up to the fp32 sum of eight terms."""
+    from repro_torch.kernels.gn_silu_conv import wgmma_tf32_probe
+    g = torch.Generator().manual_seed(77)
+    a = tf32_rna(torch, torch.randn(64, 8, generator=g))
+    b = tf32_rna(torch, torch.randn(8, 128, generator=g))
+    got = wgmma_tf32_probe(a.cuda(), b.cuda()).cpu().double()
+    want = a.double() @ b.double()
+    err = float((got - want).abs().max())
+    tol = 8 * 2.0 ** -23 * float((a.double().abs() @ b.double().abs()).max())
+    emit(log, "wgmma_probe", shape=[64, 128, 8], max_abs_err=err, tol=tol)
+    need(err <= tol, f"wgmma TF32 probe: max error {err} > {tol}")
+
+
 def phase_kernels(torch, log, state):
     from repro_torch.vae.model import SD35_VAE
     image_hw = 8 * LATENT_HW
     byte_peak = state["peaks"][1]
+    wgmma_probe_check(torch, log)
     totals, max_err, kernel_alone = vae_kernel_checks(torch, log, state)
     lm_attention_checks(torch, log, state, totals, max_err)
     rwkv6_checks(torch, log, state, totals, max_err)
@@ -2195,6 +2246,22 @@ def phase_stream(torch, log, state):
          launches=dict(launches))
 
 
+def resident_decoder_bytes(vae):
+    """Bytes of the decoder weights ``vae`` holds: its fp32 tree and every
+    serving tree it has derived, each tensor counted once."""
+    from repro_torch.kernels import ops
+    from repro_torch.vae.model import map_params
+    seen = {}
+
+    def add(p):
+        parts = (p.q, p.scale) if isinstance(p, ops.QuantizedWeight) else (p,)
+        for t in parts:
+            seen[t.data_ptr()] = int(t.nbytes)
+    for tree in [vae.decoder] + list(vae._qparams.values()):
+        map_params(tree, add)
+    return sum(seen.values())
+
+
 def phase_quant(torch, log, state):
     """The quantized read path at SD3.5-VAE width.  Engines opened with
     bf16 weights on the calibrated decoder, int8 on a grid-snapped copy
@@ -2313,8 +2380,11 @@ def phase_quant(torch, log, state):
                    served_by="engine" if box is not None else "decode_u8",
                    serve_s=serve_s, served_max_lsb_vs_fp32=served_lsb,
                    bucket8_bit_identical=same, device_decode_ms=device_ms,
-                   launches=launches, decoder_storage=Q.decoder_storage(
-                       Q.quantize_decoder(v.decoder, wd)))
+                   launches=launches,
+                   decoder_storage=Q.decoder_storage(v._params_for(wd)),
+                   stored_storage=Q.decoder_storage(
+                       Q.quantize_decoder(v.decoder, wd)),
+                   resident_decoder_bytes=resident_decoder_bytes(v))
         if box is not None:
             summ = box.summary()
             run.update(hit_classes=dict(hits), decodes=summ["decodes"],
@@ -2334,6 +2404,8 @@ def phase_quant(torch, log, state):
          buckets=list(QUANT_BUCKETS), gate_latent=list(GATE_LATENT),
          runs=runs, raw_int8={"engine": raw_outcome, "gate_lsb": raw_gate},
          fp32_storage=Q.decoder_storage(vae.decoder),
+         fp32_serving_storage=Q.decoder_storage(vae._params_for("float32")),
+         fp32_resident_decoder_bytes=resident_decoder_bytes(vae),
          lsb_tol=1, lsb_tol_reason="the engine's open-time gate: quantized "
          "uint8 within +-1 LSB of the fp32-weight decode at every bucket; "
          "a configuration above it is refused")
@@ -4022,7 +4094,7 @@ def dist_decode_step(torch, state, mesh):
     bucket 8, 512x512, against ``mesh=None``: pixels bit-identical, the
     decode kernels launched, both steps' device ms."""
     from repro_torch.kernels import ops
-    from repro_torch.vae.model import SD35_VAE
+    from repro_torch.vae.model import SD35_VAE, with_phase_taps
     from repro_torch.vae.serve import make_decode_step
     vae, _ = shared_vae(torch, state)
     gen = torch.Generator(device="cuda").manual_seed(61)
@@ -4031,12 +4103,13 @@ def dist_decode_step(torch, state, mesh):
                     device="cuda")
     plain = make_decode_step(SD35_VAE)
     on_mesh = make_decode_step(SD35_VAE, mesh)
+    params = with_phase_taps(vae.decoder)       # the taps collapsed once
     ops.reset_launch_counts()
-    got = on_mesh(vae.decoder, z)
+    got = on_mesh(params, z)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     state["launches"]["dist_decode"] = launches
-    want = plain(vae.decoder, z)
+    want = plain(params, z)
     need(torch.equal(got.full_tensor(), want),
          "the mesh decode's pixels differ from the unsharded decode's")
     need(all(p.is_shard(0) for p in got.placements),
@@ -4049,8 +4122,8 @@ def dist_decode_step(torch, state, mesh):
             "latent": list(z.shape), "pixels": list(got.shape),
             "placements": [str(p) for p in got.placements],
             "launches": launches,
-            "mesh_ms": cuda_ms(torch, lambda: on_mesh(vae.decoder, z), 3),
-            "plain_ms": cuda_ms(torch, lambda: plain(vae.decoder, z), 3)}
+            "mesh_ms": cuda_ms(torch, lambda: on_mesh(params, z), 3),
+            "plain_ms": cuda_ms(torch, lambda: plain(params, z), 3)}
 
 
 #: (e): the partial form at Qwen2-7B's decode shape, its slots split

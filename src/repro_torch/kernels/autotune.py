@@ -9,11 +9,14 @@ eight batch-1 decodes.  A tuner that keys its entries by bucket may only
 choose among launches that give the default's bits.  So the knobs here
 are the ones that leave every sum alone:
 
-* ``layout`` of the tensor-core conv tile (``csrc/tc_conv_tile.cuh``) that
-  ``conv3x3``, ``gn_silu_conv3x3`` and ``upsample_conv3x3`` run: 128
-  output channels a block on 8 warps (two blocks per SM) or on 16 (one),
-  or 64 channels on 8 warps (twice the blocks).  0 is the hand-picked
-  rule: 16 warps where the 128-wide grid fits the SMs once over, else 8;
+* ``layout`` of the conv tiles.  ``conv3x3`` runs the ``mma.sync`` tile
+  (``csrc/tc_conv_tile.cuh``): 128 output channels a block on 8 warps
+  (two blocks per SM) or on 16 (one), or 64 channels on 8 warps (twice
+  the blocks); 0 is the hand-picked rule: 16 warps where the 128-wide
+  grid fits the SMs once over, else 8.  ``gn_silu_conv3x3`` and
+  ``upsample_conv3x3`` run the warpgroup tile
+  (``csrc/wg_conv_tile.cuh``), which has one layout (0, or its name 1):
+  their sweep times that launch alone;
 * ``tile_h`` of ``output_epilogue`` (``csrc/output_epilogue.cu``): 16 or 8
   rows of pixels a block.  0 is 16.
 
@@ -64,17 +67,25 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-SCHEMA_VERSION = 1
+#: 2 since the fused GN conv and the upsampler moved to the warpgroup
+#: tile: their layout codes name other launches than version 1's
+SCHEMA_VERSION = 2
 CACHE_FILENAME = "tuning_cache.json"
 
 #: Kernels the tuner drives (the ``decode_u8`` launch set).
 KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
            "output_epilogue")
 
-#: The tensor-core conv tile's layout codes (``tc_conv_tile.cuh``'s
-#: ``Layout``): the rule by grid size, 128 wide on 8 or 16 warps, 64 wide
-#: on 8 (compiled for the vectorised path only).
+#: The ``mma.sync`` conv tile's layout codes (``tc_conv_tile.cuh``'s
+#: ``Layout``; ``conv3x3``): the rule by grid size, 128 wide on 8 or 16
+#: warps, 64 wide on 8 (compiled for the vectorised path only).
 RULE, WIDE8, WIDE16, HALF8 = 0, 1, 2, 3
+#: The warpgroup conv tile's (``wg_conv_tile.cuh``'s ``Layout``;
+#: ``gn_silu_conv3x3`` and ``upsample_conv3x3``): its one layout, two
+#: consumer warpgroups a block, by name (0 launches it too).
+ROWS2 = 1
+#: the kernels that run the warpgroup tile
+WG_KERNELS = ("gn_silu_conv3x3", "upsample_conv3x3")
 #: The epilogue's tile heights (``output_epilogue.cu``; 8 vectorised only).
 TILE_HEIGHTS = (16, 8)
 
@@ -90,8 +101,8 @@ DEFAULTS = {
 #: kernel -> (its knob, the values an entry may give it)
 KNOBS = {
     "conv3x3": ("layout", (RULE, WIDE8, WIDE16, HALF8)),
-    "gn_silu_conv3x3": ("layout", (RULE, WIDE8, WIDE16, HALF8)),
-    "upsample_conv3x3": ("layout", (RULE, WIDE8, WIDE16, HALF8)),
+    "gn_silu_conv3x3": ("layout", (RULE, ROWS2)),
+    "upsample_conv3x3": ("layout", (RULE, ROWS2)),
     "output_epilogue": ("tile_h", (0,) + TILE_HEIGHTS),
 }
 
@@ -305,17 +316,16 @@ def _itemsize(kernel: str, weight_dtype: str) -> int:
 
 def _one_layout(kernel: str, cout: int) -> bool:
     """The routes with one launch: conv3x3's 32-wide tile and CUDA-core
-    tile (Cout <= 32), the fused GN conv's CUDA-core tile (Cout <= 4)."""
-    return ((kernel == "conv3x3" and cout <= 32)
-            or (kernel == "gn_silu_conv3x3" and cout <= 4))
+    tile (Cout <= 32); the warpgroup tile of the fused GN conv and the
+    upsampler, and the GN conv's CUDA-core tile (Cout <= 4)."""
+    return kernel in WG_KERNELS or (kernel == "conv3x3" and cout <= 32)
 
 
 def rule_layout(kernel: str, spec: Dict[str, Any], sms: int) -> int:
-    """The layout that code 0 runs for a wide-tile shape: 16 warps where
-    the 128-wide grid fits the SMs once over, else 8."""
+    """The layout that code 0 runs for a shape of ``conv3x3``'s wide tile:
+    16 warps where the 128-wide grid fits the SMs once over, else 8."""
     blocks = (spec["n"] * -(-spec["h"] // _TC_TH) * -(-spec["w"] // _TC_TW)
-              * -(-spec["cout"] // 128)
-              * (4 if kernel == "upsample_conv3x3" else 1))
+              * -(-spec["cout"] // 128))
     return WIDE16 if blocks <= sms else WIDE8
 
 

@@ -65,6 +65,7 @@ SIGNATURES = {
 MORE_SIGNATURES = {
     "decode_attention": [("decode_attention_partial_launch",
                           [P, P, P, P, P, P, I, I, I, I, I, F, I, P])],
+    "gn_silu_conv": [("wgmma_tf32_probe_launch", [P, P, P, P])],
 }
 
 

@@ -39,7 +39,7 @@ int launch_tc(const rt::ConvArgs& a, int ksplit, int layout, cudaStream_t stream
     return tcc::launch_narrow<WT>(a, ksplit, stream);
   }
   if (ksplit != 1) return (int)cudaErrorInvalidValue;
-  return tcc::launch_wide<tcc::kRaw, 9, WT>(a, layout, stream);
+  return tcc::launch_wide<WT>(a, layout, stream);
 }
 
 }  // namespace

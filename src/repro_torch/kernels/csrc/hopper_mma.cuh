@@ -1,13 +1,16 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the attention
 // and convolution kernels: the warpgroup products (wgmma) that read a bf16
 // A operand from registers and B from shared memory through a matrix
-// descriptor, the warp-level TF32 product (mma.sync.m16n8k8) with the
-// hi/lo split of 3xTF32, the bf16 one (mma.sync.m16n8k16) with ldmatrix,
-// and the cp.async copies that stage tiles in shared memory.
+// descriptor, and the TF32 one with both operands in shared memory (the
+// decode's conv tile, wg_conv_tile.cuh); the warp-level TF32 product
+// (mma.sync.m16n8k8) with the hi/lo split of 3xTF32, the bf16 one
+// (mma.sync.m16n8k16) with ldmatrix; the cp.async copies that stage tiles
+// in shared memory, and the mbarriers that order a producer's stages
+// before their consumers.
 //
 // Shared-memory operands of wgmma use the layout without swizzle: the unit
-// is an 8 x 8 "core matrix" of bf16 stored as 128 contiguous bytes, eight
-// rows of 16 bytes.  For a K-major operand (rows along M or N, K
+// is a "core matrix" stored as 128 contiguous bytes, eight rows of 16
+// bytes (8 x 8 bf16, or 8 x 4 TF32).  For a K-major operand (rows along M or N, K
 // contiguous) a row of the core matrix is 8 consecutive K values; for an
 // MN-major operand (the transposed B, as V is in P V) it is 8 consecutive
 // N values of one K.  The descriptor gives the byte strides between core
@@ -245,6 +248,84 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128] in TF32, both from shared memory
+// through descriptors, both K-major (wgmma transposes no 32-bit operand): a
+// no-swizzle core matrix is 8 rows (m or n) of 16 bytes (4 k), the two
+// along K lbo bytes apart, those of the next 8 rows sbo.  accumulate 0
+// starts a fresh sum (scale-d 0), 1 adds to D.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float* d, uint64_t da, uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// a warpgroup's registers a thread, lowered or raised (setmaxnreg): the
+// whole warpgroup runs it; a raise waits until others' lowering frees them
+template <int N>
+__device__ __forceinline__ void regs_lower() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_raise() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers in shared memory: a phase completes when `count` threads have
+// arrived; a wait names the parity of the phase it waits for (0 for the
+// first completion, then 1, 0, ...)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible before any thread uses them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive with release semantics: this thread's earlier reads and writes of
+// shared memory are ordered before the phase completes
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the phase of this parity to complete (a waiting thread sleeps
+// until it does, up to the 10 ms hint, then tries again)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT_AGAIN:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1, %2;\n"
+      "@!done bra WAIT_AGAIN;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "r"(0x989680)
+      : "memory");
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the m16n8k16

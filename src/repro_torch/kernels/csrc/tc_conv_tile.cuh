@@ -1,6 +1,8 @@
-// The tensor-core convolution tile shared by gn_silu_conv.cu, conv3x3.cu
-// and upsample_conv.cu: an implicit GEMM in 3xTF32 on mma.sync.m16n8k8,
-// NHWC fp32 activations, HWIO weights in their storage type.
+// The tensor-core convolution tile of conv3x3.cu: an implicit GEMM in
+// 3xTF32 on mma.sync.m16n8k8, NHWC fp32 activations, HWIO weights in their
+// storage type.  (The fused GN conv and the upsampler run on the
+// warpgroup tile of wg_conv_tile.cuh; moving conv3x3's wide path there is
+// ROADMAP B 3.)
 //
 // Why 3xTF32.  The card's peaks: 67 TFLOP/s in fp32 on the CUDA cores,
 // 495 in TF32 on the tensor cores (165 for the three passes of 3xTF32).
@@ -10,21 +12,11 @@
 // hi), and a product sums lo*hi + hi*lo + hi*hi into fp32 accumulators.
 //
 // GEMM shape: M = a block's 128 output pixels (4 rows x 32), N = a Cout
-// tile, K = taps x Cin walked as (16-channel chunk, tap), one tap of one
-// chunk per step.  Three choices are template parameters:
-//   PRO   the prologue applied to each input value as the halo is staged:
-//         GroupNorm + affine + SiLU (kGnSilu; statistics from gn_stats.cu),
-//         or none (kRaw).
-//   TAPS  the tap geometry: 9, a 3x3 SAME conv; or 4, the nearest-2x
-//         upsampler's phase form: blockIdx.y also selects the output phase
-//         (pi, pj), whose four collapsed taps ([2, 2, 2, 2, Cin, Cout]
-//         filter, index [pi, pj, a, b]) read the pre-upsample halo at
-//         (pi + a, pj + b), and whose outputs are the pixels (2y + pi,
-//         2x + pj) of the [2H, 2W] result: 16 taps per pixel of the input
-//         where the upsampled conv has 36, and the upsampled tensor never
-//         exists.
-//   Tile  the Cout tile and warp layout: 128 wide, eight warps (2 along M
-//         x 4 along N, each 64 pixels x 32 channels), two blocks per SM;
+// tile, K = 9 taps x Cin walked as (16-channel chunk, tap), one tap of one
+// chunk per step.
+//   Tile  (a template parameter) the Cout tile and warp layout: 128 wide,
+//         eight warps (2 along M x 4 along N, each 64 pixels x 32
+//         channels), two blocks per SM;
 //         128 wide with sixteen warps (2 x 8, each 64 x 16); 64 wide, eight
 //         warps (2 x 4, each 64 x 16), twice the blocks of a 128-wide grid;
 //         or 32 wide (Cout <= 32), eight warps (4 x 2, each 32 x 16), its K
@@ -48,14 +40,11 @@
 //   whole block costs a stage of shared memory and a pass: both measured
 //   slower.)
 //   Halo: the input halo of a chunk (6 x 34 pixels x 16 channels) is
-//   loaded once, passed through the prologue, set to zero outside the
-//   image AFTER it (the SAME padding ring: silu(gn(0)) != 0; with no
-//   prologue the ring is just the bounds test of the load, which for the
-//   upsampler is exactly the SAME padding of the upsampled image), split
-//   into hi and lo planes and kept in shared memory.  Two halo buffers:
-//   the next chunk's halo is staged a TAPS-th per step during this
-//   chunk's steps, beside that step's products.  (Issuing its loads before
-//   the products and its stores after them, or copying it raw by cp.async
+//   loaded once (zeros outside the image: the SAME padding), split into hi
+//   and lo planes and kept in shared memory.  Two halo buffers: the next
+//   chunk's halo is staged a ninth per step during this chunk's steps,
+//   beside that step's products.  (Issuing its loads before the products
+//   and its stores after them, or copying it raw by cp.async
 //   two steps ahead, measured slower on the H100 for the fused GN conv:
 //   both cost registers or instructions the products need.)  The A
 //   fragment of a tap is read from the halo at a shifted offset: there is
@@ -85,12 +74,10 @@
 // shape, never on the batch.
 //
 // Weights in their storage type (the TPU kernels' quantized operand
-// forms): fp32, bf16, int8 codes with a per-Cout scale, or int16 (the
-// upsampler's int8 taps collapsed per phase, |tap| <= 4 * 127, with the
-// same scale).  The raw rows come through the same cp.async ring (16
-// bytes carry 4, 8 or 16 weights).  bf16 values and integer codes of at
-// most 11 bits are exact in TF32, so a weight's lo half would be zero: its
-// B fragment is the value's fp32 bits, with no split, and each product
+// forms): fp32, bf16, or int8 codes with a per-Cout scale.  The raw rows
+// come through the same cp.async ring (16 bytes carry 4, 8 or 16
+// weights).  bf16 values and int8 codes are exact in TF32, so a weight's
+// lo half would be zero: its B fragment is the value's fp32 bits, with no split, and each product
 // takes two TF32 MMAs (a_hi b + a_lo b, tc::mma_2xtf32) instead of three.
 // The dropped a_hi b_lo product is exactly zero, so the result is the bit
 // pattern the fp32 path gives for the same weight values.
@@ -112,8 +99,6 @@ constexpr int HPIX = (TH + 2) * HWD;          // halo pixels
 constexpr int PLANE = 232;                    // >= HPIX, 8 mod 32 words
 constexpr int HALO_WORDS = 2 * BK * PLANE;    // one halo buffer, hi and lo
 constexpr int MAX_SPLIT = 8;                  // cluster ranks of a K split
-
-enum Prologue { kRaw = 0, kGnSilu = 1 };
 
 // BN output channels per block, NT threads, MW warps along M (the rest
 // along N)
@@ -149,16 +134,16 @@ struct Stage {
 };
 
 // V4: Cin % 4 == 0, Cout a multiple of 16 bytes of weights, and 16-byte
-// aligned x, w (and gamma and beta): the halo is read four channels at a
+// aligned x and w: the halo is read four channels at a
 // time and the weights copied 16 bytes at a time; else one value at a time.
 // SPLIT: the kernel may run as a cluster of ks blocks splitting K.
-template <int PRO, int TAPS, class T, int V4, class WT, bool SPLIT>
+template <class T, int V4, class WT, bool SPLIT>
 __global__ void __launch_bounds__(T::NT, 512 / T::NT)
 tc_conv_kernel(rt::ConvArgs a, int ks) {
   constexpr bool F32 = sizeof(WT) == 4;
   constexpr int BN = T::BN, NT = T::NT, NWN = T::NWN, NTW = T::NTW, MT = T::MT, WR = T::WR;
   constexpr int RS = Stage<WT, BN>::RS, W_ELEMS = Stage<WT, BN>::ELEMS;
-  static_assert(TAPS == 9 || TAPS == 4, "3x3 taps or the 2x2 phase form");
+  constexpr int TAPS = 9;
   static_assert(!SPLIT || MT * NTW * 4 * NT <= 2 * HALO_WORDS, "partial sums fit the halo");
   extern __shared__ __align__(16) uint32_t sm[];
   uint32_t* const halo = sm;                           // [2][hi, lo][BK][PLANE]
@@ -170,12 +155,10 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
   const int tile = SPLIT ? (int)(blockIdx.x / ks) : (int)blockIdx.x;
   const int tiles_w = (a.W + TW - 1) / TW;
   const int y0 = (tile / tiles_w) * TH, x0 = (tile % tiles_w) * TW;
-  const int phase = TAPS == 4 ? (int)(blockIdx.y & 3) : 0;
-  const int pi = phase >> 1, pj = phase & 1;
-  const int n0 = (TAPS == 4 ? (int)(blockIdx.y >> 2) : (int)blockIdx.y) * BN, img = blockIdx.z;
+  const int n0 = (int)blockIdx.y * BN, img = blockIdx.z;
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
   const float* __restrict__ x = a.x + (size_t)img * H * W * Cin;
-  const WT* const w = static_cast<const WT*>(a.w) + (size_t)phase * TAPS * Cin * Cout;
+  const WT* const w = static_cast<const WT*>(a.w);
   const int chunks = (Cin + BK - 1) / BK;
   // this block's chunks: all, or its rank's share of a K split
   const int c_lo = SPLIT ? rank * chunks / ks : 0;
@@ -207,13 +190,6 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
     buf[k * PLANE + pix] = p.hi;
     buf[BK * PLANE + k * PLANE + pix] = p.lo;
   };
-  const float2* const stats =
-      PRO ? reinterpret_cast<const float2*>(a.stats) + img * a.G : nullptr;
-  const int cpg = PRO ? Cin / a.G : 1;
-  auto act = [&](float xv, float2 st, float gamma, float beta) {
-    const float u = fmaf((xv - st.x) * st.y, gamma, beta);
-    return __fdividef(u, 1.f + __expf(-u));   // u * sigmoid(u); -0 for u -> -inf
-  };
   // the halo of chunk ch as ITEMS items (GROUP channels at one pixel each),
   // pixel index fastest; item e's raw input, or zeros outside the image
   constexpr int GROUP = V4 ? 4 : 1;
@@ -234,26 +210,6 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
   auto store_item = [&](int ch, int e, float4 v) {
     uint32_t* buf = halo + (ch & 1) * HALO_WORDS;
     const int cg = e / HPIX, pix = e % HPIX;
-    if constexpr (PRO == kGnSilu) {
-      const int gy = y0 + pix / HWD - 1, gx = x0 + pix % HWD - 1, c = ch * BK + cg * GROUP;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-      if (V4) {
-        if (in) {
-          const float4 ga = __ldg(reinterpret_cast<const float4*>(a.gamma + c));
-          const float4 be = __ldg(reinterpret_cast<const float4*>(a.beta + c));
-          // one group for the four channels unless C / G is not a multiple of 4
-          const float2 s0 = __ldg(stats + c / cpg);
-          const bool one = cpg % 4 == 0;
-          const float2 s1 = one ? s0 : __ldg(stats + (c + 1) / cpg);
-          const float2 s2 = one ? s0 : __ldg(stats + (c + 2) / cpg);
-          const float2 s3 = one ? s0 : __ldg(stats + (c + 3) / cpg);
-          v = make_float4(act(v.x, s0, ga.x, be.x), act(v.y, s1, ga.y, be.y),
-                          act(v.z, s2, ga.z, be.z), act(v.w, s3, ga.w, be.w));
-        }
-      } else {
-        v.x = in ? act(v.x, __ldg(stats + c / cpg), __ldg(a.gamma + c), __ldg(a.beta + c)) : 0.f;
-      }
-    }
     if (V4) {
       put(buf, 4 * cg, pix, v.x);
       put(buf, 4 * cg + 1, pix, v.y);
@@ -284,9 +240,8 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
     if (s + 2 < s_hi) copy_weights(s + 2);
     tc::cp_async_commit();   // one group per step, empty at the end
     const int ch = s / TAPS, tap = s % TAPS;
-    const int ry = TAPS == 9 ? tap / 3 : pi + tap / 2;   // the tap's halo offset
-    const int cx = TAPS == 9 ? tap % 3 : pj + tap % 2;
-    // a TAPS-th of the next chunk's halo
+    const int ry = tap / 3, cx = tap % 3;   // the tap's halo offset
+    // a ninth of the next chunk's halo
     const bool next = ch + 1 < c_hi;
     const int e0 = tap * ITEMS / TAPS + tid, e1 = (tap + 1) * ITEMS / TAPS;
 #pragma unroll
@@ -370,12 +325,10 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
   // -- epilogue: scale, bias, four consecutive channels per thread, float4 --
   const bool even = (t & 1) == 0;
   float* out = static_cast<float*>(a.out);
-  const int OH = TAPS == 4 ? 2 * H : H, OW = TAPS == 4 ? 2 * W : W;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int y = y0 + WR * wm + mt / (TW / 16);
     const int xx = x0 + (mt % (TW / 16)) * 16 + g + (even ? 0 : 8);
-    const int oy = TAPS == 4 ? 2 * y + pi : y, ox = TAPS == 4 ? 2 * xx + pj : xx;
 #pragma unroll
     for (int nt = 0; nt < NTW; ++nt) {
       if (SPLIT && (mt * NTW + nt) % ks != rank) continue;
@@ -399,7 +352,7 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
         if (rt::Scaled<WT>::value) v[j] = __fmul_rn(v[j], in ? __ldg(a.wscale + cb + j) : 0.f);
         v[j] += in ? __ldg(a.bias + cb + j) : 0.f;
       }
-      float* o = out + (((size_t)img * OH + oy) * OW + ox) * Cout + cb;
+      float* o = out + (((size_t)img * H + y) * W + xx) * Cout + cb;
       if ((Cout & 3) == 0 && cb + 3 < Cout) {
         *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
@@ -411,15 +364,15 @@ tc_conv_kernel(rt::ConvArgs a, int ks) {
   }
 }
 
-template <int PRO, int TAPS, class T, int V4, class WT, bool SPLIT>
+template <class T, int V4, class WT, bool SPLIT>
 int launch_tile(const rt::ConvArgs& a, int ks, cudaStream_t stream) {
   constexpr int SMEM_BYTES = Stage<WT, T::BN>::SMEM_BYTES;
-  auto kernel = tc_conv_kernel<PRO, TAPS, T, V4, WT, SPLIT>;
+  auto kernel = tc_conv_kernel<T, V4, WT, SPLIT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW);
-  const dim3 grid(tiles * ks, ((a.Cout + T::BN - 1) / T::BN) * (TAPS == 4 ? 4 : 1), a.N);
+  const dim3 grid(tiles * ks, (a.Cout + T::BN - 1) / T::BN, a.N);
   if (ks == 1) {
     kernel<<<grid, T::NT, SMEM_BYTES, stream>>>(a, 1);
     return (int)cudaGetLastError();
@@ -441,11 +394,9 @@ int launch_tile(const rt::ConvArgs& a, int ks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int PRO, class WT, int BN>
+template <class WT, int BN>
 bool vec4(const rt::ConvArgs& a) {
-  uintptr_t p = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w);
-  if (PRO == kGnSilu)
-    p |= reinterpret_cast<uintptr_t>(a.gamma) | reinterpret_cast<uintptr_t>(a.beta);
+  const uintptr_t p = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w);
   return a.Cin % 4 == 0 && a.Cout % Stage<WT, BN>::VEC == 0 && p % 16 == 0;
 }
 
@@ -453,27 +404,27 @@ bool vec4(const rt::ConvArgs& a) {
 // fits the SMs once over (one 64 x 64 latent's 3x3 convs: 128 blocks), else
 // 8 warps and two blocks per SM; kWide8, kWide16 and kHalf8 as named.
 // a.N <= 65535, a.Cout > 0.
-template <int PRO, int TAPS, class WT>
+template <class WT>
 int launch_wide(const rt::ConvArgs& a, int layout, cudaStream_t stream) {
   if (rt::Scaled<WT>::value && a.wscale == nullptr) return (int)cudaErrorInvalidValue;
   if (layout == kRule) {
     const int sms = tc::sm_count();
     if (sms <= 0) return (int)cudaErrorInvalidDevice;
     const long blocks = (long)a.N * ((a.H + TH - 1) / TH) * ((a.W + TW - 1) / TW) *
-                        ((a.Cout + Wide::BN - 1) / Wide::BN) * (TAPS == 4 ? 4 : 1);
+                        ((a.Cout + Wide::BN - 1) / Wide::BN);
     layout = blocks <= sms ? kWide16 : kWide8;
   }
-  const bool v4 = vec4<PRO, WT, Wide::BN>(a);
+  const bool v4 = vec4<WT, Wide::BN>(a);
   switch (layout) {
     case kWide8:
-      return v4 ? launch_tile<PRO, TAPS, Wide, 1, WT, false>(a, 1, stream)
-                : launch_tile<PRO, TAPS, Wide, 0, WT, false>(a, 1, stream);
+      return v4 ? launch_tile<Wide, 1, WT, false>(a, 1, stream)
+                : launch_tile<Wide, 0, WT, false>(a, 1, stream);
     case kWide16:
-      return v4 ? launch_tile<PRO, TAPS, WideOnce, 1, WT, false>(a, 1, stream)
-                : launch_tile<PRO, TAPS, WideOnce, 0, WT, false>(a, 1, stream);
+      return v4 ? launch_tile<WideOnce, 1, WT, false>(a, 1, stream)
+                : launch_tile<WideOnce, 0, WT, false>(a, 1, stream);
     case kHalf8:
       if (!v4) return (int)cudaErrorInvalidValue;
-      return launch_tile<PRO, TAPS, Half, 1, WT, false>(a, 1, stream);
+      return launch_tile<Half, 1, WT, false>(a, 1, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -486,8 +437,8 @@ int launch_narrow(const rt::ConvArgs& a, int ks, cudaStream_t stream) {
   if (a.Cout > Narrow::BN || (ks & (ks - 1)) != 0 || ks < 1 || ks > MAX_SPLIT ||
       ks > (a.Cin + BK - 1) / BK)
     return (int)cudaErrorInvalidValue;
-  return vec4<kRaw, WT, Narrow::BN>(a) ? launch_tile<kRaw, 9, Narrow, 1, WT, true>(a, ks, stream)
-                                        : launch_tile<kRaw, 9, Narrow, 0, WT, true>(a, ks, stream);
+  return vec4<WT, Narrow::BN>(a) ? launch_tile<Narrow, 1, WT, true>(a, ks, stream)
+                                  : launch_tile<Narrow, 0, WT, true>(a, ks, stream);
 }
 
 }  // namespace tcc

@@ -10,18 +10,18 @@
 // storage_phase_weights, or taps collapsed beforehand) each phase is a 2x2
 // convolution of the pre-upsample tensor: 16 taps over H*W pixels instead
 // of 9 over 4*H*W, 2.25x fewer products, and the 4x upsampled tensor is
-// never written to device memory.  The tile is tc_conv_tile.cuh's in
-// 3xTF32 with no prologue, the phase form's taps (TAPS = 4) and the
-// 128-wide Cout tile: blockIdx.y carries the phase and the Cout tile, the
-// block reads the pre-upsample halo at the phase's offsets and writes its
+// never written to device memory.  The tile is wg_conv_tile.cuh's
+// warpgroup tile in 3xTF32 with no prologue and the phase form's taps
+// (TAPS = 4): blockIdx.y carries the phase and the Cout tile, the block
+// reads the pre-upsample halo at the phase's offsets and writes its
 // phase's pixels of the interleaved [2H, 2W] output.  The zero halo at the
 // image edge is exactly the SAME padding of the upsampled image (the input
-// is pre-activation), so no ring masking.  The launch alone takes
-// 0.718-0.735, 2.784-2.803 and 2.813-2.868 ms at the decoder's 64 x 64 x
-// 512, 128 x 128 x 512 and 256 x 256 x 256 (F.conv2d on the upsampled
-// input: 1.873-1.896, 7.480-7.490, 7.842-7.929): 29-30 % of its 3xTF32
-// bound at the two larger shapes, as the fused GN conv (chip_smoke.py on
-// an H100 80GB HBM3 at 700 W).
+// is pre-activation), so no ring masking.  The decoder collapses its taps
+// once, when its serving tree is derived (vae/model.py), and launches from
+// them.  At 128 x 128 x 512 it takes 1.556 ms against a 0.833 ms 3xTF32
+// bound, where the mma.sync tile it replaces took 2.808 (chip_compare.py
+// on an H100 80GB HBM3 at 700 W; every decode shape in PERF.md, section
+// 6).
 //
 // Weights (the TPU kernel's quantized operand forms, upsample_conv.py:
 // 66-97, 126-144): fp32; bf16 collapsed in bf16 (each add rounded, as the
@@ -30,11 +30,11 @@
 // scale applied to the fp32 sum before the bias.  bf16 and int16 taps are
 // exact in TF32: two TF32 products per product, the fp32 path's bits.
 
-#include "tc_conv_tile.cuh"
+#include "wg_conv_tile.cuh"
 
 // x [N, H, W, Cin], wc [2, 2, 2, 2, Cin, Cout] in its storage type wtype
 // (0 fp32, 1 bf16, 3 int16 with wscale [Cout]), b [Cout], out [N, 2H, 2W,
-// Cout], all contiguous; layout a tcc::Layout code
+// Cout], all contiguous; layout a wgc::Layout code
 extern "C" int upsample_conv3x3_launch(const float* x, const void* wc,
                                        const float* wscale, const float* b,
                                        float* out, int N, int H, int W,
@@ -45,9 +45,9 @@ extern "C" int upsample_conv3x3_launch(const float* x, const void* wc,
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || N > 65535)
     return (int)cudaErrorInvalidValue;
   switch (wtype) {
-    case rt::kF32: return tcc::launch_wide<tcc::kRaw, 4, float>(a, layout, stream);
-    case rt::kBF16: return tcc::launch_wide<tcc::kRaw, 4, rt::bf16w>(a, layout, stream);
-    case rt::kI16: return tcc::launch_wide<tcc::kRaw, 4, int16_t>(a, layout, stream);
+    case rt::kF32: return wgc::launch<wgc::kRaw, 4, float>(a, layout, stream);
+    case rt::kBF16: return wgc::launch<wgc::kRaw, 4, rt::bf16w>(a, layout, stream);
+    case rt::kI16: return wgc::launch<wgc::kRaw, 4, int16_t>(a, layout, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@
 On CUDA: ``csrc/gn_stats.cu`` computes the per-(n, group) statistics,
 then ``csrc/gn_silu_conv.cu`` normalises, activates and convolves the
 input halo in shared memory (the normalised activation never reaches
-device memory), an implicit GEMM in 3xTF32 on the tensor cores (two
-TF32 products per product for bf16 and int8 weights, which TF32 holds
-exactly).  The tile's layout (``layout``; see
+device memory), an implicit GEMM in 3xTF32 on the warpgroup tile of
+``csrc/wg_conv_tile.cuh`` (``wgmma`` TF32 products; two TF32 products
+per product for bf16 and int8 weights, which TF32 holds exactly).  The
+tile's layout code (``layout``: the tile has one, 0 or its name 1; see
 :mod:`repro_torch.kernels.autotune`) is the active tuning cache's for the
 call's shape, or the shape's default.  On the CPU: the plain version,
 ``ref.gn_silu_conv3x3_ref``, which takes no layout.
@@ -106,3 +107,21 @@ def gn_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         f"gn_silu_conv3x3 (layout {layout})")
     launches += 1
     return out
+
+
+def wgmma_tf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One ``wgmma`` TF32 product on the card through the conv tile's
+    operand layouts (``csrc/wg_conv_tile.cuh``: A as a halo plane, B as a
+    weight slot, both K-major): a [64, 8] @ b [8, 128] ->
+    [64, 128] fp32, each input used as its TF32 bits (a check of the
+    layouts against a product on the CPU; not a wrapper of the main path,
+    so it counts no launch)."""
+    build.require("wgmma_tf32_probe", a=a, b=b)
+    if tuple(a.shape) != (64, 8) or tuple(b.shape) != (8, 128):
+        raise ValueError(f"wgmma_tf32_probe: a [64, 8] and b [8, 128], got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    d = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    build.check(build.lib("gn_silu_conv").wgmma_tf32_probe_launch(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), build.stream_of(a)),
+        "wgmma_tf32_probe")
+    return d

@@ -126,6 +126,15 @@ def upsample_conv3x3(x, w, b=None):
     return _upsample_conv.upsample_conv3x3(x, wq, b, w_scale=s)
 
 
+def upsample_conv3x3_taps(x, wc, b=None):
+    """The upsampler from taps collapsed beforehand
+    (``ref.storage_phase_weights`` of the filter, ``[2, 2, 2, 2, Cin,
+    Cout]``): fp32, bf16, or a :class:`QuantizedWeight` of int16 codes
+    with the filter's per-Cout scale."""
+    wq, s = weight_parts(wc)
+    return _upsample_conv.upsample_conv3x3_taps(x, wq, b, w_scale=s)
+
+
 def output_epilogue(x, scale, bias, w, b=None, groups: int = 32,
                     eps: float = 1e-6):
     """GroupNorm + SiLU + conv_out + clamp + uint8; ``w`` as for

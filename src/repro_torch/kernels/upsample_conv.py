@@ -2,18 +2,20 @@
 (counterpart of the JAX package's ``kernels/upsample_conv.py``).
 
 On CUDA: the weights collapse into per-phase 2x2 filters in their
-storage dtype (``ref.storage_phase_weights``, a few tensor additions per
-call: int8 codes in int16, which holds their sums exactly, bf16 in bf16,
-rounding as the JAX package's collapse does), then
-``csrc/upsample_conv.cu`` computes the four phases from the
-pre-upsample tensor in 3xTF32 on the tensor cores; the 4x upsampled
-intermediate never exists.  :func:`upsample_conv3x3_taps` is the launch
-alone, from taps collapsed beforehand.  The tile's layout (``layout``;
-see :mod:`repro_torch.kernels.autotune`) is the active tuning cache's for
-the call's shape, keyed by the filter's storage dtype (int8 taps, though
-launched in int16, key as ``"int8"``), or the shape's default.  On the
-CPU: the plain versions, ``ref.upsample_conv3x3_ref`` and
-``ref.upsample_conv3x3_phase_ref``, which take no layout.
+storage dtype (``ref.storage_phase_weights``: int8 codes in int16, which
+holds their sums exactly, bf16 in bf16, rounding as the JAX package's
+collapse does), then ``csrc/upsample_conv.cu`` computes the four phases
+from the pre-upsample tensor in 3xTF32 on the warpgroup tile of
+``csrc/wg_conv_tile.cuh``; the 4x upsampled intermediate never exists.
+:func:`upsample_conv3x3_taps` is the launch alone, from taps collapsed
+beforehand: the decoder's serving tree holds its upsamplers' taps
+collapsed once (``vae/model.py``), so a decode runs no collapse;
+:func:`upsample_conv3x3` collapses on every call.  The tile's layout
+(``layout``; see :mod:`repro_torch.kernels.autotune`) is the active
+tuning cache's for the call's shape, keyed by the filter's storage dtype
+(int8 taps, though launched in int16, key as ``"int8"``), or the shape's
+default.  On the CPU: the plain versions, ``ref.upsample_conv3x3_ref``
+and ``ref.upsample_conv3x3_phase_ref``, which take no layout.
 """
 
 from __future__ import annotations

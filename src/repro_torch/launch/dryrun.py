@@ -482,11 +482,12 @@ def build_vae_cell(shape: ShapeSpec, mesh):
     it, the decoder's fp32 weights (the port's serving precision)
     replicated, each device decoding its rows."""
     from torch.distributed.tensor import Replicate, Shard
-    from repro_torch.vae.model import SD35_VAE, decode, init_decoder
+    from repro_torch.vae.model import (SD35_VAE, decode, init_decoder,
+                                       with_phase_taps)
     cfg = SD35_VAE
     lat = shape.seq_len // cfg.spatial_factor
     b = shape.global_batch
-    params = init_decoder(torch.Generator(), cfg)
+    params = with_phase_taps(init_decoder(torch.Generator(), cfg))
     pl, ways = [], 1
     for i, a in enumerate(D.axis_names(mesh)):
         if len(pl) == i and b % (ways * mesh.size(i)) == 0:

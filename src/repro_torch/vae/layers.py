@@ -161,8 +161,10 @@ def attn_block(x: torch.Tensor, p: Params, groups: int = 32) -> torch.Tensor:
 
 
 def upsample(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """Nearest-neighbour 2x + 3x3 conv via the fused kernel."""
-    return ops.upsample_conv3x3(x, p["conv"]["w"], p["conv"]["b"])
+    """Nearest-neighbour 2x + 3x3 conv via the fused kernel, from the
+    conv's taps, collapsed once when the serving tree was derived
+    (``vae.model.with_phase_taps``)."""
+    return ops.upsample_conv3x3_taps(x, p["conv"]["taps"], p["conv"]["b"])
 
 
 def downsample(x: torch.Tensor, p: Params) -> torch.Tensor:

@@ -12,6 +12,9 @@ output epilogue), ``decode`` (float pixels in [-1, 1]) and ``encode``
 (the write and regeneration path).  ``decode_u8`` may serve decoder
 weights stored in bf16 or int8 (``VAE(weight_dtype=)``, see
 :mod:`repro_torch.vae.quantize`); the fp32 tree stays as the oracle.
+:func:`decode`, :func:`decode_u8` and :class:`VAE` decode serving trees
+(:func:`with_phase_taps`), whose upsamplers hold their taps collapsed
+once, so no decode collapses them.
 """
 
 from __future__ import annotations
@@ -133,6 +136,34 @@ def map_params(tree, fn):
     return fn(tree)
 
 
+def with_phase_taps(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The serving form of a decoder tree: a copy with new dicts along the
+    path to each upsampler and every other node shared, whose upsamplers'
+    convs hold ``taps`` in place of their 3x3 filter ``w``: the filter
+    collapsed per phase once (``ref.storage_phase_weights`` of the stored
+    filter, with its rounding: fp32 and bf16 taps in their dtype, int8
+    codes in int16 with the filter's scale).  ``layers.upsample`` launches
+    from them, so a decode collapses nothing per call and gives the bits
+    of the per-call collapse.  A tree already in serving form keeps its
+    taps."""
+    from repro_torch.kernels import ref
+    levels = []
+    for level in params["up"]:
+        conv = level.get("upsample", {}).get("conv", {})
+        if "w" in conv:
+            w = conv["w"]
+            if isinstance(w, ops.QuantizedWeight):
+                taps = ops.QuantizedWeight(
+                    ref.storage_phase_weights(w.q).contiguous(), w.scale)
+            else:
+                taps = ref.storage_phase_weights(w).contiguous()
+            conv = {k: v for k, v in conv.items() if k != "w"}
+            level = {**level, "upsample": {**level["upsample"],
+                                           "conv": {**conv, "taps": taps}}}
+        levels.append(level)
+    return {**params, "up": levels}
+
+
 def param_count(params) -> int:
     leaves = []
     map_params(params, leaves.append)
@@ -146,7 +177,9 @@ def param_count(params) -> int:
 def _decode_trunk(params: Dict[str, Any], z: torch.Tensor,
                   cfg: VAEConfig) -> torch.Tensor:
     """Shared decode trunk: latent -> pre-epilogue activation [N, 8h, 8w,
-    C0] (everything up to, excluding, norm_out + conv_out)."""
+    C0] (everything up to, excluding, norm_out + conv_out).  ``params`` is
+    a decoder tree in serving form (:func:`with_phase_taps`), as for
+    :func:`decode_u8` and :func:`decode`."""
     z = z / cfg.scaling_factor + cfg.shift_factor
     x = L.conv2d(z, params["conv_in"])
     x = L.resnet_block(x, params["mid"]["res1"], cfg.groups)
@@ -244,23 +277,21 @@ class VAE:
         self.set_weight_dtype(weight_dtype)
 
     def set_weight_dtype(self, weight_dtype: str) -> None:
-        """(Re-)derive the serving tree at ``weight_dtype`` from the
-        current fp32 decoder.  Unconditional: a caller that changed
-        ``self.decoder`` (calibration, tests) gets fresh quantized
-        weights."""
-        from repro_torch.vae import quantize as Q      # late: no cycle
-        self._qparams: Dict[str, Any] = {"float32": self.decoder}
-        if weight_dtype != "float32":
-            self._qparams[weight_dtype] = Q.quantize_decoder(self.decoder,
-                                                             weight_dtype)
+        """(Re-)derive the serving trees (:func:`with_phase_taps`) of the
+        fp32 oracle and of ``weight_dtype`` from the current fp32
+        decoder.  Unconditional: a caller that changed ``self.decoder``
+        (calibration, tests) gets fresh quantized weights and taps."""
+        self._qparams: Dict[str, Any] = {}
+        self._params_for("float32")
+        self._params_for(weight_dtype)
         self.weight_dtype = weight_dtype
 
     def _params_for(self, precision: Optional[str]) -> Dict[str, Any]:
         precision = precision or self.weight_dtype
         if precision not in self._qparams:
-            from repro_torch.vae import quantize as Q
-            self._qparams[precision] = Q.quantize_decoder(self.decoder,
-                                                          precision)
+            from repro_torch.vae import quantize as Q   # late: no cycle
+            self._qparams[precision] = with_phase_taps(
+                Q.quantize_decoder(self.decoder, precision))
         return self._qparams[precision]
 
     def _leaf(self, p: torch.Tensor) -> torch.Tensor:
@@ -282,7 +313,8 @@ class VAE:
         """latents [N, h, w, C] -> float pixels [N, 8h, 8w, 3] on this
         device (asynchronous on CUDA)."""
         with torch.no_grad():
-            return decode(self.decoder, self._input(z), self.cfg)
+            return decode(self._params_for("float32"), self._input(z),
+                          self.cfg)
 
     def decode_u8(self, z, precision: Optional[str] = None) -> torch.Tensor:
         """latents [N, h, w, C] -> uint8 [N, 8h, 8w, 3] on this device
@@ -295,7 +327,8 @@ class VAE:
 
     def decode_trunk(self, z) -> torch.Tensor:
         with torch.no_grad():
-            return _decode_trunk(self.decoder, self._input(z), self.cfg)
+            return _decode_trunk(self._params_for("float32"),
+                                 self._input(z), self.cfg)
 
     @property
     def decoder_params(self) -> int:

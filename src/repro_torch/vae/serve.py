@@ -35,17 +35,19 @@ import torch
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_TF32
-from repro_torch.vae.model import SD35_VAE, VAEConfig, decode
+from repro_torch.vae.model import SD35_VAE, VAEConfig, decode, with_phase_taps
 
 
 def make_decode_step(cfg: VAEConfig, mesh=None, device=None):
     """``(params, z) -> decode(params, z, cfg)`` under
     ``torch.inference_mode`` on ``device`` (``"cuda"`` unless the caller
     asks for the CPU; raises where CUDA is absent).  ``params`` is a
-    decoder tree on that device (``VAE.decoder``); ``z`` (numpy or a
-    tensor, ``[N, h, w, C_lat]``) is moved there as float32.  Returns
-    float pixels ``[N, 8h, 8w, 3]`` on the device (asynchronous on
-    CUDA).
+    decoder tree on that device: its serving form
+    (``model.with_phase_taps``), whose upsampler taps were collapsed once,
+    or ``VAE.decoder``, whose taps the step collapses on every call.
+    ``z`` (numpy or a tensor, ``[N, h, w, C_lat]``) is moved there as
+    float32.  Returns float pixels ``[N, 8h, 8w, 3]`` on the device
+    (asynchronous on CUDA).
 
     With a ``mesh`` (a ``DeviceMesh`` on ``device``'s type) the latent
     batch shards over every mesh axis (``Shard(0)`` on each mesh dim, N
@@ -60,6 +62,7 @@ def make_decode_step(cfg: VAEConfig, mesh=None, device=None):
 
     def step(params, z):
         with torch.inference_mode():
+            params = with_phase_taps(params)
             z = torch.as_tensor(z, dtype=torch.float32, device=dev)
             if mesh is None:
                 return decode(params, z, cfg)

@@ -1219,6 +1219,91 @@ def test_tensor_core_convs_issue_one_device_kernel(dev):
     assert sum(ops.launch_counts().values()) == 1
 
 
+# -- gn_silu_conv3x3 and upsample_conv3x3 on the warpgroup tile -------------
+# (csrc/wg_conv_tile.cuh): one wgmma TF32 product through its operand
+# layouts against the CPU, and every shape the SD3.5 VAE's decode gives
+# the two kernels in every weight form against the plain versions, with
+# the tile's named layout's bits equal to the default's
+
+
+def tf32_rna(x):
+    """fp32 -> tf32 as ``cvt.rna`` rounds (ties away from zero, 13 low bits
+    cleared), on the CPU."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    out = (bits & 0x80000000) | (((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000)
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+def test_wgmma_tf32_product_against_cpu(dev):
+    """A [64, 8] @ B [8, 128] in one wgmma m64n128k8 TF32 (A as a halo
+    plane, B as a weight slot of the conv tile, both K-major): on
+    TF32-exact inputs each product is exact in fp32, so the result is the
+    float64 product up to the fp32 sum of eight terms."""
+    from repro_torch.kernels.gn_silu_conv import wgmma_tf32_probe
+    g = torch.Generator().manual_seed(61)
+    a = tf32_rna(torch.randn(64, 8, generator=g))
+    b = tf32_rna(torch.randn(8, 128, generator=g))
+    got = wgmma_tf32_probe(a.to(dev), b.to(dev)).cpu()
+    want = a.double() @ b.double()
+    scale = (a.double().abs() @ b.double().abs()).max()
+    assert float((got.double() - want).abs().max()) <= 8 * 2.0 ** -23 * scale
+
+
+def decode_conv_shapes():
+    """(kernel, H, W, Cin, Cout) of every gn_silu_conv3x3 and
+    upsample_conv3x3 call of a 512x512 decode of the SD3.5 VAE."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.vae.model import SD35_VAE
+    return [(s["kernel"], s["h"], s["w"], s["cin"], s["cout"])
+            for s in at.decode_shapes(SD35_VAE, (64, 64, 16), 1)
+            if s["kernel"] in at.WG_KERNELS]
+
+
+@pytest.mark.parametrize("weight_dtype", ["float32"] + QUANT)
+@pytest.mark.parametrize("kernel,h,w,cin,cout", [
+    ("gn_silu_conv3x3", 64, 64, 512, 512),
+    ("gn_silu_conv3x3", 128, 128, 512, 512),
+    ("gn_silu_conv3x3", 256, 256, 512, 256),
+    ("gn_silu_conv3x3", 256, 256, 256, 256),
+    ("gn_silu_conv3x3", 512, 512, 256, 128),
+    ("gn_silu_conv3x3", 512, 512, 128, 128),
+    ("upsample_conv3x3", 64, 64, 512, 512),
+    ("upsample_conv3x3", 128, 128, 512, 512),
+    ("upsample_conv3x3", 256, 256, 256, 256)])
+def test_warpgroup_tile_at_every_decode_shape(dev, weight_dtype, kernel, h,
+                                              w, cin, cout):
+    """Each decode shape in fp32, bf16 and int8 weights (the upsampler
+    from taps collapsed once, int8 codes in int16) against the plain
+    version within 1e-4 of the output's max; the tile's layout by name
+    (code 1) gives the default's bits, and a code it lacks raises."""
+    from repro_torch.kernels import gn_silu_conv as gsc
+    from repro_torch.kernels import upsample_conv as uc
+    assert (kernel, h, w, cin, cout) in decode_conv_shapes()
+    x, sc, gb, wt, b = randn(dev, 62, (1, h, w, cin), (cin,), (cin,),
+                             (3, 3, cin, cout), (cout,))
+    sc = 1.0 + 0.1 * sc
+    wt = wt * (9 * cin) ** -0.5
+    wq, s = tuned_weight(wt, weight_dtype)
+    if kernel == "gn_silu_conv3x3":
+        def call(c):
+            return gsc.gn_silu_conv3x3(x, sc, gb, wq, b, groups=32,
+                                       w_scale=s, layout=c)
+        want = ref.gn_silu_conv3x3_ref(x, sc, gb, wq, b, 32, w_scale=s)
+    else:
+        wc = ref.storage_phase_weights(wq).contiguous()
+
+        def call(c):
+            return uc.upsample_conv3x3_taps(x, wc, b, w_scale=s, layout=c)
+        want = ref.upsample_conv3x3_phase_ref(x, wc, b, s)
+    from repro_torch.kernels import autotune as at
+    got = call(0)
+    assert rel_err(got, want) <= 1e-4
+    assert torch.equal(call(at.ROWS2), got)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        call(2)
+
+
 # ---------------------------------------------------------------------------
 # the GroupNorm statistics pass and the output epilogue, redesigned: the
 # coalesced statistics kernel held to its CPU model bit for bit, its scalar
@@ -1344,16 +1429,18 @@ def tuned_weight(wt, weight_dtype):
     return plain_args(stored(wt, weight_dtype))
 
 
-def layouts_hold(call, kernel, spec, weight_dtype, codes, knob="layout"):
-    """Each code that ``candidates`` lists gives code 0's bits; each other
-    code raises (the kernel lacks it for this shape)."""
+def layouts_hold(call, kernel, spec, weight_dtype, codes, knob="layout",
+                 named=()):
+    """Each code that ``candidates`` lists, and each of ``named`` (a name
+    of a listed launch), gives code 0's bits; each other code raises (the
+    kernel lacks it for this shape)."""
     from repro_torch.kernels import autotune as at
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     listed = {c[knob] for c in at.candidates(kernel, spec, sms,
                                              weight_dtype)}
     base = call(0)
     for code in codes:
-        if code in listed:
+        if code in listed or code in named:
             assert torch.equal(call(code), base), (kernel, code)
         else:
             with pytest.raises(RuntimeError, match="CUDA launch failed"):
@@ -1367,6 +1454,7 @@ def layouts_hold(call, kernel, spec, weight_dtype, codes, knob="layout"):
 @pytest.mark.parametrize("n,h,w,cin,cout", TUNE_SHAPES)
 def test_tile_layouts_give_layout_0_bits(dev, weight_dtype, n, h, w, cin,
                                          cout):
+    from repro_torch.kernels import autotune as at
     from repro_torch.kernels import conv3x3 as c3
     from repro_torch.kernels import gn_silu_conv as gsc
     from repro_torch.kernels import upsample_conv as uc
@@ -1382,18 +1470,24 @@ def test_tile_layouts_give_layout_0_bits(dev, weight_dtype, n, h, w, cin,
             x, sc, gb, wq, b, groups=groups, w_scale=s, layout=c),
         "upsample_conv3x3": lambda c: uc.upsample_conv3x3(
             x, wq, b, w_scale=s, layout=c)}
+    # the warpgroup tile has one layout, code 0, also named code 1
+    wg_named = (at.ROWS2,)
     for kernel, call in calls.items():
         listed = layouts_hold(call, kernel, dict(spec, kernel=kernel),
-                              weight_dtype, LAYOUT_CODES)
-        assert {1, 2} <= listed                  # both 128-wide layouts
-        assert (3 in listed) == (cin % 4 == 0 and not (
-            weight_dtype == "int8" and kernel != "upsample_conv3x3"
-            and cout % 16))
+                              weight_dtype, LAYOUT_CODES,
+                              named=wg_named if kernel in at.WG_KERNELS
+                              else ())
+        if kernel == "conv3x3":
+            assert {1, 2} <= listed              # both 128-wide layouts
+            assert (3 in listed) == (cin % 4 == 0 and not (
+                weight_dtype == "int8" and cout % 16))
+        else:
+            assert listed == {at.RULE}
     # the launch from collapsed taps takes the same codes
     layouts_hold(lambda c: uc.upsample_conv3x3_taps(x, wc, b, w_scale=s,
                                                     layout=c),
                  "upsample_conv3x3", dict(spec, kernel="upsample_conv3x3"),
-                 weight_dtype, LAYOUT_CODES)
+                 weight_dtype, LAYOUT_CODES, named=wg_named)
 
 
 @pytest.mark.parametrize("weight_dtype", ["float32", "bfloat16", "int8"])
@@ -1443,19 +1537,31 @@ def test_wrappers_launch_the_active_cache_layout(dev, tmp_path):
     from repro_torch.kernels import autotune as at
     x, sc, gb, wt, b = randn(dev, 44, (1, 9, 40, 6), (6,), (6,),
                              (3, 3, 6, 64), (64,))
-    base = ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2)
+    base = ops.conv3x3(x, wt, b)
     cache = at.TuningCache(None)
-    key = at.cache_key("gn_silu_conv3x3", 1, 9, 40, 6, 64, "float32")
+    key = at.cache_key("conv3x3", 1, 9, 40, 6, 64, "float32")
     with at.active_cache(cache):
         cache.put(key, {"layout": at.WIDE8})
-        assert torch.equal(ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2),
-                           base)
+        assert torch.equal(ops.conv3x3(x, wt, b), base)
         cache.put(key, {"layout": at.HALF8})     # Cin 6: not compiled
         with pytest.raises(RuntimeError, match="layout 3"):
-            ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2)
+            ops.conv3x3(x, wt, b)
         cache.put(key, {"rows": 8, "block_cout": 32})   # not this package's
+        assert torch.equal(ops.conv3x3(x, wt, b), base)
+    # the warpgroup tile of the fused GN conv: its layout by name gives the
+    # default's bits; the mma.sync tile's code 3 is none of its codes, so
+    # the entry is not read
+    gbase = ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2)
+    key = at.cache_key("gn_silu_conv3x3", 1, 9, 40, 6, 64, "float32")
+    with at.active_cache(cache):
+        cache.put(key, {"layout": at.ROWS2})
         assert torch.equal(ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2),
-                           base)
+                           gbase)
+        cache.put(key, {"layout": at.HALF8})
+        assert at.tuned_params("gn_silu_conv3x3", x.shape, 64,
+                               "float32") == {}
+        assert torch.equal(ops.gn_silu_conv3x3(x, sc, gb, wt, b, groups=2),
+                           gbase)
 
 
 def test_autotuner_sweeps_on_the_card(dev, tmp_path):
