@@ -49,8 +49,11 @@ wall seconds (any failure exits non-zero):
                 ``kernel_ms``), beside ``phase_collapse_ms`` (a per-call
                 collapse alone) and ``per_call_collapse_ms`` (the wrapper
                 that collapses on every call).  First, one ``wgmma`` TF32
-                product through the conv tile's operand layouts against
-                the float64 product (``wgmma_probe``).  The
+                product through the conv tile's operand layouts, and one
+                of each product of ``flash_attention``'s fp32 kernel above
+                head dim 128 (P V with P from registers and V transposed;
+                q k^T), against the float64 products (``wgmma_probe``
+                lines).  The
                 four conv kernels' bf16 and int8 weight cases at every
                 decode shape, each
                 against its plain version at the fp32 tolerance, with
@@ -414,7 +417,15 @@ DESIGN = {
                        "ring, one barrier a chunk, GN + SiLU once per halo "
                        "element, CUDA-core fp32 products, packed "
                        "uint8 stores",
-    "flash_attention": "wgmma bf16, 3xTF32 mma.sync fp32",
+    "flash_attention": "bf16 up to d 128: wgmma m64n64k16, Q and P from "
+                       "registers; fp32 up to d 128: 3xTF32 mma.sync; fp32 "
+                       "(and bf16) above d 128: 3xTF32 wgmma TF32, a CTA "
+                       "cluster of d/128 per 64 query rows, one S per "
+                       "(row block, 64-key tile) from parts over 128-column "
+                       "slices of d summed by a DSMEM reduce-scatter and "
+                       "all-gather in rank order, P V with P from registers, "
+                       "a producer warpgroup splitting Q once and K/V per "
+                       "tile",
     "group_norm_silu": "coalesced GN statistics pass (gn_stats.cu), then a "
                        "float4 apply with four loads in flight a thread "
                        "(CUDA-core fp32; streaming stores above 32 MB)",
@@ -932,11 +943,34 @@ def wgmma_probe_check(torch, log):
     need(err <= tol, f"wgmma TF32 probe: max error {err} > {tol}")
 
 
+def flash_wide_probe_check(torch, log):
+    """One ``wgmma`` of each product of ``flash_attention``'s fp32 kernel
+    above head dim 128, through its operand layouts, on TF32-exact inputs:
+    P V with P [64, 8] from registers in the accumulator layout of S and V
+    [8, 128] transposed with its keys permuted (two m64n64k8), and q k^T
+    with q and k [64, 8] K-major (m64n64k8).  Each is the float64 product
+    up to the fp32 sum of eight terms."""
+    from repro_torch.kernels.flash_attention import wide_probe
+    g = torch.Generator().manual_seed(78)
+    p, v, q, k = (tf32_rna(torch, torch.randn(*s, generator=g))
+                  for s in ((64, 8), (8, 128), (64, 8), (64, 8)))
+    o, s = wide_probe(p.cuda(), v.cuda(), q.cuda(), k.cuda())
+    for name, got, a, b in (("p_v", o, p, v), ("q_kT", s, q, k.T)):
+        want = a.double() @ b.double()
+        err = float((got.cpu().double() - want).abs().max())
+        tol = 8 * 2.0 ** -23 * float((a.double().abs() @ b.double().abs()).max())
+        emit(log, "wgmma_probe", product=name, shape=list(got.shape) + [8],
+             max_abs_err=err, tol=tol)
+        need(err <= tol, f"flash_attention wgmma probe {name}: max error "
+             f"{err} > {tol}")
+
+
 def phase_kernels(torch, log, state):
     from repro_torch.vae.model import SD35_VAE
     image_hw = 8 * LATENT_HW
     byte_peak = state["peaks"][1]
     wgmma_probe_check(torch, log)
+    flash_wide_probe_check(torch, log)
     totals, max_err, kernel_alone = vae_kernel_checks(torch, log, state)
     lm_attention_checks(torch, log, state, totals, max_err)
     rwkv6_checks(torch, log, state, totals, max_err)

@@ -66,6 +66,7 @@ MORE_SIGNATURES = {
     "decode_attention": [("decode_attention_partial_launch",
                           [P, P, P, P, P, P, I, I, I, I, I, F, I, P])],
     "gn_silu_conv": [("wgmma_tf32_probe_launch", [P, P, P, P])],
+    "flash_attention": [("flash_wide_probe_launch", [P, P, P, P, P, P, P])],
 }
 
 

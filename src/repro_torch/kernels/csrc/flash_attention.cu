@@ -16,7 +16,7 @@
 // Bound on the H100: operations.  Each query row does 2 * Skv * d MACs for
 // q k^T and as many for p v against O(d) bytes; the card's peaks are 67
 // TFLOP/s in fp32 on the CUDA cores, 495 TFLOP/s in TF32 and 989 TFLOP/s in
-// bf16 on the tensor cores.  Both paths run on the tensor cores:
+// bf16 on the tensor cores.  Every path runs on the tensor cores:
 //
 // bf16 (the LM prefill): a block of three warpgroups owns 192 queries, each
 // warpgroup 64 of them, with its rows of Q held in registers.  S = Q K^T is
@@ -28,35 +28,80 @@
 // K/V tiles of 64 keys, shared by the warpgroups, arrive by cp.async into a
 // ring of two stages, so the next tile's copy overlaps this tile's
 // products.  The head dim is padded with zeros to the MMA depth (16).
-// Above d = 128, which no model uses, bf16 runs through the fp32 kernel
-// below: its loads widen bf16 exactly and its output rounds to bf16, and
-// 3xTF32 with an fp32 P is the more accurate of the two paths.
+// Above d = 128, which no model uses, bf16 runs through the fp32 kernels
+// below: their loads widen bf16 exactly and their output rounds to bf16,
+// and 3xTF32 with an fp32 P is the more accurate of the two paths.
 //
-// fp32 (the VAE, and fp32 LMs): 3xTF32 on mma.sync.m16n8k8, 16 query rows
-// per warp, 4 or 8 warps per block (8 share each K/V slice among 128 rows,
-// where the grid still fills the card twice over and no window applies).
-// Every operand is split once, as it is staged in shared memory, into tf32
-// hi and lo planes; a product sums lo*hi + hi*lo + hi*hi (lo*lo dropped),
-// which keeps fp32-grade products (about 2^-22 relative) at up to 165
-// TFLOP/s, where one TF32 pass keeps 2^-11.  q and k are streamed in
-// 32-wide slices of d, v in 128-column slices of the output; P stays fp32
-// and is split in registers, its accumulator fragment reused as the A
-// fragment of P V by ordering each 8-key step's keys (2t, 2t+1) -> (t,
-// t+4) on both operands.  Each 32-wide slice of q k^T and each tile's P V
-// is summed in a fresh fragment, then added on the CUDA cores with
-// round-to-nearest (the tensor core's own accumulation drifts; see
-// hopper_mma.cuh), the rescale of O folded into that add.
+// fp32 runs in 3xTF32: every operand is split into tf32 hi and lo planes
+// (hi = tf32(x), lo = tf32(x - hi), rounded as cvt.rna rounds) and a
+// product sums lo*hi + hi*lo + hi*hi (lo*lo dropped), which keeps
+// fp32-grade products (about 2^-22 relative) at up to 165 TFLOP/s, where
+// one TF32 pass keeps 2^-11.  Each short chain of products is summed in a
+// fresh accumulator, then added on the CUDA cores with round-to-nearest
+// (the tensor core's own accumulation drifts; see hopper_mma.cuh).
 //
-// Both paths: the longest causal rows first, so the short ones fill the
+// fp32 up to d = 128 (fp32 LMs): mma.sync.m16n8k8, 16 query rows per warp,
+// 4 or 8 warps per block (8 share each K/V slice among 128 rows, where
+// the grid still fills the card twice over and no window applies).  q and
+// k are streamed in 32-wide slices of d and split as they are staged, v
+// in 128-column slices of the output; P stays fp32 and is split in
+// registers, its accumulator fragment reused as the A fragment of P V by
+// ordering each 8-key step's keys (2t, 2t+1) -> (t, t+4) on both
+// operands.  Each 32-wide slice of q k^T and each tile's P V is a fresh
+// fragment, the rescale of O folded into its add.  (Run above d = 128, a
+// block per 128-column output slice recomputes all of S and re-splits q
+// for every key tile: 2.5x the products at d = 512.)
+//
+// fp32 above d = 128 (the VAE's d = 512): the wide kernel (namespace
+// wide), one S per (64-row block, 64-key tile), on wgmma.  A thread block
+// cluster of CL = ceil(d / 128) CTAs owns 64 query rows; CTA r holds
+// columns [128 r, 128 r + 128) of d, both as the depth of its part of
+// q k^T and as its output columns.  A CTA is two warpgroups:
+//   - the producer splits its slice of Q once into hi/lo K-major planes,
+//     resident for the whole kernel; then streams K's slice and V's 128
+//     columns: each tile is loaded into registers a step ahead, split and
+//     stored K K-major and V transposed (keys contiguous: wgmma transposes
+//     no 32-bit operand), V's keys permuted as P's fragment needs.  One
+//     buffer each, handed over and back by mbarriers: K is read only
+//     while S is computed and V only during P V;
+//   - the consumer computes its part of S = Q_r K_r^T [64 x 64] as one
+//     chain of 48 wgmma.m64n64k8 TF32 (both operands in shared memory),
+//     a tile ahead of the softmax, so that the exchange of one tile's
+//     parts overlaps the products of the next.  The parts are summed over
+//     the cluster through distributed shared memory as a reduce-scatter
+//     (CTA u % CL sums unit u of the tile over the CL parts in rank order)
+//     and an all-gather, so every CTA holds the same bits of S and
+//     computes the same m and l; then the online softmax, P split in
+//     registers, and O += P V [64 x 128] as two chains of 24
+//     wgmma.m64n64k8 TF32 with P from registers.
+// Shared memory: Q 64 KB, a K and a V tile 64 KB each (hi and lo), two
+// exchange buffers 32 KB: 229,504 bytes, one block an SM.  Mbarriers hand
+// the tiles between the warpgroups and the exchange's steps between the
+// CTAs (a remote arrive releases at cluster scope, a wait acquires).  TF32
+// products a call: 3 x (2 * 64 * 64 * 128 for S and as many for P V) per
+// CTA and key tile, that is 3 x 4 * Sq' * Skv' * D' (Sq' and Skv' rounded
+// up to 64, tiles past the causal diagonal or before the window skipped;
+// D' rounded up to 128), plus one S tile per row block past the last key
+// tile (the consumer issues it unconditionally and drops it).  At the
+// VAE's shapes (Sq = Skv = 4,096 or 16,384, d = 512) that is 3 x 4 Sq Skv
+// d x (1 + 1 / (2 Skv / 64)): at most 1.008 x the 3xTF32 products (no S
+// recomputed across output slices, Q split once).  Above d = 1,024 (more
+// than 8 CTAs a cluster; no model) the mma.sync kernel runs.
+//
+// Every path: the longest causal rows first, so the short ones fill the
 // tail; the kv loop is bounded by the causal diagonal and the window, and
 // only tiles that cross the diagonal, the window's edge or Skv are masked.
 // Every row is reduced in a fixed order by the same threads, so the result
 // does not depend on how many images or sequences share the launch.
 
+#include <cooperative_groups.h>
+
 #include "attn_common.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int BKV = 64;                 // keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
@@ -509,6 +554,480 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 // ===========================================================================
+// fp32 above d = 128: 3xTF32 on wgmma, one S per (row block, key tile)
+// ===========================================================================
+
+namespace wide {
+
+constexpr int BQ = 64;                   // query rows of a cluster: wgmma's M
+constexpr int DS = 128;                  // columns of d a CTA holds
+constexpr int MAX_D = 8 * DS;            // clusters of up to 8 CTAs (portable)
+constexpr int NT = 256;                  // a producer and a consumer warpgroup
+constexpr int QKG = BQ * 16;             // a 4-column group of Q's rows, bytes
+constexpr int KKG = BKV * 16;            // ... of a K tile's keys
+constexpr int QPLANE = DS / 4 * QKG;     // Q's hi or lo plane: 32 KB
+constexpr int KPLANE = DS / 4 * KKG;     // a K tile's: 32 KB
+constexpr int VSG = DS * 16;             // 4 key slots of V's 128 columns, bytes
+constexpr int VPLANE = BKV / 4 * VSG;    // a V tile's hi or lo plane: 32 KB
+constexpr int XF = BQ * BKV;             // floats of a partial S tile
+enum Bar {
+  kQFull, kKFull, kKEmpty, kVFull, kVEmpty,
+  kXFull, kSFull = kXFull + 2, kXEmpty = kSFull + 2, kBars = kXEmpty + 2
+};
+constexpr int Q_OFF = 128;               // after the barriers
+constexpr int K_OFF = Q_OFF + 2 * QPLANE;
+constexpr int V_OFF = K_OFF + 2 * KPLANE;
+constexpr int X_OFF = V_OFF + 2 * VPLANE;  // two partial S tiles
+constexpr int BYTES = X_OFF + 2 * XF * 4;
+static_assert(kBars * 8 <= Q_OFF, "the barriers fit");
+static_assert(BYTES <= 232448, "one block an SM");
+
+// byte offset of (row r, column c) in a Q or K plane: K-major no-swizzle
+// core matrices, a 4-column group of all rows one run of `kg` bytes (16 a
+// row), so a k8 slice's descriptor strides kg bytes along K and 128 (8
+// rows) along M or N
+__host__ __device__ constexpr int kmaj(int r, int c, int kg) {
+  return (c >> 2) * kg + r * 16 + (c & 3) * 4;
+}
+
+// V as the B operand of P V, K-major (keys contiguous): byte offset of
+// column n, key slot s in a V plane.  Slot 8j + u of an 8-key step holds
+// key 8j + 2u for u < 4 and key 8j + 2(u - 4) + 1 above, the order in
+// which the accumulator fragment of S (keys 2t, 2t+1 of a thread) is the
+// A fragment of P (k slots t, t + 4).
+__host__ __device__ constexpr int vslot_off(int n, int s) {
+  return (s >> 2) * VSG + n * 16 + (s & 3) * 4;
+}
+
+// A producer thread p's 16 (row, 4-column group) units of a 64-row tile:
+// a quarter warp stores one group of 8 consecutive rows (16 bytes each, no
+// bank conflict), a warp reads 64 contiguous bytes of each of its rows
+__device__ __forceinline__ int unit_row(int p, int i) { return 8 * (i & 7) + (p & 7); }
+__device__ __forceinline__ int unit_col(int p, int i) {
+  return 32 * (p >> 5) + 16 * (i >> 3) + 4 * ((p & 31) >> 3);
+}
+
+// rows [row0, row0 + 64) x columns [col0, col0 + 128) of a [nrows, D]
+// matrix, widened to fp32: producer thread p's units (zeros outside),
+// the rows walked by one pointer
+template <typename T>
+__device__ __forceinline__ void load_tile(float4 (&x)[16], const T* src, int row0, int nrows,
+                                          int col0, int D, int p) {
+  const int r0 = row0 + unit_row(p, 0), c0 = col0 + unit_col(p, 0);
+  const T* rp = src + (size_t)r0 * D + c0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i, rp += (size_t)8 * D) {
+    const bool in = r0 + 8 * i < nrows;
+    x[i] = in && c0 < D ? attn::load4(rp) : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[i + 8] = in && c0 + 16 < D ? attn::load4(rp + 16) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ... split into tf32 hi and lo, stored K-major into the hi plane at `hi`
+// and the lo plane `plane` bytes on
+__device__ __forceinline__ void store_tile(unsigned char* hi, int plane, const float4 (&x)[16],
+                                           int p) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int off = kmaj(unit_row(p, i), unit_col(p, i), 1024);
+    const tc::Split a = tc::split_rna(x[i].x), b = tc::split_rna(x[i].y),
+                    c = tc::split_rna(x[i].z), d = tc::split_rna(x[i].w);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(a.hi, b.hi, c.hi, d.hi);
+    *reinterpret_cast<uint4*>(hi + plane + off) = make_uint4(a.lo, b.lo, c.lo, d.lo);
+  }
+}
+
+// keys [row0, row0 + 8) of columns [c0, c0 + 4) of a [nrows, D] matrix,
+// widened to fp32 (zeros outside): a warp reads 512 contiguous bytes of a
+// row when its lanes take consecutive column quads
+template <typename T>
+__device__ __forceinline__ void load_v_group(float4 (&y)[8], const T* src, int row0, int nrows,
+                                             int c0, int D) {
+  const T* rp = src + (size_t)row0 * D + c0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i, rp += D)
+    y[i] = row0 + i < nrows && c0 < D ? attn::load4(rp) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// ... split and stored as columns 4 cq .. 4 cq + 3 of a V plane, key slots
+// 8 g .. 8 g + 7 (keys permuted as vslot_off says: one 16-byte store of
+// keys 0, 2, 4, 6 and one of 1, 3, 5, 7 a column and plane).  At step c a
+// lane stores column 4 cq + ((c + lane / 2) & 3): a quarter warp's eight
+// 16-byte stores then hit distinct banks.
+__device__ __forceinline__ void store_v_group(unsigned char* hi, int plane, const float4 (&y)[8],
+                                              int cq, int g, int lane) {
+  const int rot = (lane >> 1) & 3;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int cc = (c + rot) & 3;
+    tc::Split e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = tc::split_rna(cc == 0 ? y[i].x : cc == 1 ? y[i].y : cc == 2 ? y[i].z : y[i].w);
+    unsigned char* const even = hi + vslot_off(4 * cq + cc, 8 * g);
+    unsigned char* const odd = hi + vslot_off(4 * cq + cc, 8 * g + 4);
+    *reinterpret_cast<uint4*>(even) = make_uint4(e[0].hi, e[2].hi, e[4].hi, e[6].hi);
+    *reinterpret_cast<uint4*>(odd) = make_uint4(e[1].hi, e[3].hi, e[5].hi, e[7].hi);
+    *reinterpret_cast<uint4*>(even + plane) = make_uint4(e[0].lo, e[2].lo, e[4].lo, e[6].lo);
+    *reinterpret_cast<uint4*>(odd + plane) = make_uint4(e[1].lo, e[3].lo, e[5].lo, e[7].lo);
+  }
+}
+
+// P (the accumulator fragment of S, NJ 8-key steps) as the A fragments
+// of P V, split into hi and lo: step j's keys (2t, 2t+1) at slots (t, t+4)
+template <int NJ>
+__device__ __forceinline__ void split_p(const float* s, uint32_t* ph, uint32_t* pl) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const tc::Split a0 = tc::split_rna(s[4 * j]), a1 = tc::split_rna(s[4 * j + 2]),
+                    a2 = tc::split_rna(s[4 * j + 1]), a3 = tc::split_rna(s[4 * j + 3]);
+    ph[4 * j] = a0.hi;
+    ph[4 * j + 1] = a1.hi;
+    ph[4 * j + 2] = a2.hi;
+    ph[4 * j + 3] = a3.hi;
+    pl[4 * j] = a0.lo;
+    pl[4 * j + 1] = a1.lo;
+    pl[4 * j + 2] = a2.lo;
+    pl[4 * j + 3] = a3.lo;
+  }
+}
+
+// T: fp32, or bf16 (widened as it is staged: its lo planes are zeros;
+// rounded as it is stored).  A cluster of CL = ceil(D / 128) CTAs per 64
+// query rows; CTA `rank` holds columns [128 rank, 128 rank + 128) of d.
+template <typename T, int CL>
+__global__ void __launch_bounds__(NT, 1)
+fa_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
+               int causal, int window) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(sm);
+  unsigned char* const Qs = sm + Q_OFF;
+  unsigned char* const Ks = sm + K_OFF;
+  unsigned char* const Vs = sm + V_OFF;
+  float* const X = reinterpret_cast<float*>(sm + X_OFF);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+
+  // the cluster's rows, the longest causal rows first; its keys
+  Geo geo;
+  geo.q0 = ((int)(gridDim.x / CL) - 1 - (int)(blockIdx.x / CL)) * BQ;
+  geo.d0 = rank * DS;
+  geo.off = Skv - Sq;
+  geo.kv_lo = window > 0 ? max(0, geo.q0 + geo.off - window + 1) / BKV * BKV : 0;
+  geo.kv_hi = causal ? min(Skv, min(geo.q0 + BQ, Sq) + geo.off) : Skv;
+  const int ntiles = geo.kv_hi > geo.kv_lo ? (geo.kv_hi - geo.kv_lo + BKV - 1) / BKV : 0;
+
+  const int bh = blockIdx.z;
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const T* Q = q + (size_t)bh * Sq * D;
+  const T* K = k + (size_t)kvh * Skv * D;
+  const T* V = v + (size_t)kvh * Skv * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    tc::mbar_init(&bar[kQFull], 128);
+    tc::mbar_init(&bar[kKFull], 128);
+    tc::mbar_init(&bar[kVFull], 128);
+    tc::mbar_init(&bar[kKEmpty], 4);
+    tc::mbar_init(&bar[kVEmpty], 4);
+    for (int b = 0; b < 2; ++b) {
+      tc::mbar_init(&bar[kXFull + b], 4 * CL);
+      tc::mbar_init(&bar[kSFull + b], 4 * CL);
+      tc::mbar_init(&bar[kXEmpty + b], 4 * CL);
+    }
+    tc::mbar_init_fence();
+  }
+  cluster.sync();                            // every CTA's barriers, before any arrives
+
+  if (warp < 4) {
+    // -- the producer: Q's slice once; then K's slice and V's columns,
+    // split hi/lo and stored as their buffers free.  K runs a tile ahead
+    // of V, as the consumer's S does: step it stores K(it + 1) once S(it)
+    // is done and V(it) once P V(it - 1) is (K(ntiles), past the keys,
+    // feeds the consumer's last S, which it drops).  Each buffer's next
+    // tile is loaded into registers as soon as its last one is stored, so
+    // a load has a whole step to arrive.
+    float4 x[16];
+    // V: this thread's column quad vq, key groups vg and vg + 4 of a tile
+    float4 y[2][8];
+    const int vq = tid & 31, vg = tid >> 5;
+    auto load_v = [&](int kv) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        load_v_group(y[h], V, kv + 8 * (vg + 4 * h), Skv, geo.d0 + 4 * vq, D);
+    };
+    auto store_v = [&]() {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) store_v_group(Vs, VPLANE, y[h], vq, vg + 4 * h, lane);
+    };
+    load_tile(x, Q, geo.q0, Sq, geo.d0, D, tid);
+    store_tile(Qs, QPLANE, x, tid);
+    tc::fence_proxy_async();                 // for the wgmmas that read it
+    tc::mbar_arrive(&bar[kQFull]);
+    if (ntiles > 0) {
+      load_tile(x, K, geo.kv_lo, Skv, geo.d0, D, tid);
+      store_tile(Ks, KPLANE, x, tid);
+      tc::fence_proxy_async();
+      tc::mbar_arrive(&bar[kKFull]);
+      load_tile(x, K, geo.kv_lo + BKV, Skv, geo.d0, D, tid);
+      load_v(geo.kv_lo);
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int kv0 = geo.kv_lo + it * BKV;
+      tc::mbar_wait(&bar[kKEmpty], it & 1);
+      store_tile(Ks, KPLANE, x, tid);        // K(it + 1)
+      tc::fence_proxy_async();
+      tc::mbar_arrive(&bar[kKFull]);
+      if (it + 2 <= ntiles) load_tile(x, K, kv0 + 2 * BKV, Skv, geo.d0, D, tid);
+      if (it > 0) tc::mbar_wait(&bar[kVEmpty], (it - 1) & 1);
+      store_v();                             // V(it)
+      tc::fence_proxy_async();
+      tc::mbar_arrive(&bar[kVFull]);
+      if (it + 1 < ntiles) load_v(kv0 + BKV);
+    }
+  } else {
+    // -- the consumer warpgroup: 64 rows x this CTA's 128 output columns.
+    // S runs a tile ahead of the softmax and P V: S(it + 1) is issued
+    // while S(it) is gathered, and its part is published and reduced
+    // before the next step gathers it.  No wgmma is issued conditionally,
+    // and no register of one in flight is touched (either makes ptxas
+    // serialise every wgmma of the kernel).
+    const int ct = tid - 128, wq = warp - 4, g = lane / 4, t = lane % 4;
+    const int r0 = 16 * wq + g;              // the thread's rows r0, r0 + 8
+    const float scale2 = scale * LOG2E;
+    float acc[DS / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DS / 2; ++i) acc[i] = 0.f;
+    // descriptors of the planes' first bytes (hi; lo a plane on); a k8
+    // slice is two 4-column groups (or slot groups) on
+    const uint64_t qd = tc::make_desc(Qs, QKG, 128), kd = tc::make_desc(Ks, KKG, 128);
+    const uint64_t vd = tc::make_desc(Vs, VSG, 128);
+
+    // this CTA's part of S = Q K^T (its 128 columns of d): one chain of 48
+    // products in a fresh accumulator, committed as one group
+    auto s_part = [&](float* d) {
+      tc::fence_regs<32>(d);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DS / 8; ++kk) {
+        const uint64_t a = qd + (uint64_t)((2 * kk * QKG) >> 4);
+        const uint64_t b = kd + (uint64_t)((2 * kk * KKG) >> 4);
+        tc::wgmma_m64n64k8_tf32_ss(d, a + (QPLANE >> 4), b, kk > 0);
+        tc::wgmma_m64n64k8_tf32_ss(d, a, b + (KPLANE >> 4), 1);
+        tc::wgmma_m64n64k8_tf32_ss(d, a, b, 1);
+      }
+      tc::wgmma_commit();
+    };
+    // The exchange of tile i's parts of S, through buffer i % 2 of every
+    // CTA, as a reduce-scatter then an all-gather (a CTA reads half the
+    // remote bytes it would read to sum every part itself).  Unit u (0..31)
+    // of a buffer is the 16 bytes a thread of warp u / 8 holds of its
+    // fragment's float4 u % 8, at float 512 (u % 8) + 128 (u / 8) + 4 lane;
+    // CTA u % CL keeps its sum.
+    //   publish: this CTA's part into its buffer (once every CTA has
+    //     gathered the tile there before), announced to every CTA;
+    //   reduce: the units this CTA keeps, summed over the CTAs' parts in
+    //     rank order, written over its own part there, announced;
+    //   gather: this warp's 8 units from the CTAs that keep them.
+    // All of them hold the same bits of S.
+    auto unit_off = [&](int u) { return 512 * (u & 7) + 128 * (u >> 3) + 4 * lane; };
+    auto part_of = [&](float* xs, int r) -> const float* {
+      return r == rank ? xs : cluster.map_shared_rank(xs, r);
+    };
+    auto publish = [&](const float* d, int i) {
+      float* const xs = X + (i & 1) * XF;
+      if (i >= 2) tc::mbar_wait_cluster(&bar[kXEmpty + (i & 1)], ((i >> 1) - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float4*>(xs + unit_off(8 * wq + j)) =
+            make_float4(d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3]);
+      __syncwarp();
+      if (lane < CL) tc::mbar_arrive_rank(&bar[kXFull + (i & 1)], lane);
+    };
+    constexpr int KEPT = (32 + CL - 1) / CL, UPW = (KEPT + 3) / 4;   // units a CTA, a warp
+    // a warp's loads of the reduce are issued before P V runs when they
+    // fit in 32 registers (CL = 2, 4, 8), else issued and summed after it
+    constexpr bool EARLY = UPW * CL <= 8;
+    float4 rv[UPW][CL];
+    auto reduce_load = [&](int i) {
+      float* const xs = X + (i & 1) * XF;
+      tc::mbar_wait_cluster(&bar[kXFull + (i & 1)], (i >> 1) & 1);
+#pragma unroll
+      for (int n = 0; n < UPW; ++n) {
+        const int u = rank + CL * (wq + 4 * n);
+        if (u < 32)
+#pragma unroll
+          for (int r = 0; r < CL; ++r)
+            rv[n][r] = *reinterpret_cast<const float4*>(part_of(xs, r) + unit_off(u));
+      }
+    };
+    auto reduce_finish = [&](int i) {
+      float* const xs = X + (i & 1) * XF;
+#pragma unroll
+      for (int n = 0; n < UPW; ++n) {
+        const int u = rank + CL * (wq + 4 * n);
+        if (u >= 32) continue;
+        float4 a = rv[n][0];
+#pragma unroll
+        for (int r = 1; r < CL; ++r) {
+          a.x += rv[n][r].x;
+          a.y += rv[n][r].y;
+          a.z += rv[n][r].z;
+          a.w += rv[n][r].w;
+        }
+        *reinterpret_cast<float4*>(xs + unit_off(u)) = a;
+      }
+      __syncwarp();
+      if (lane < CL) tc::mbar_arrive_rank(&bar[kSFull + (i & 1)], lane);
+    };
+    float s[32], sn[32];
+    if (ntiles > 0) {
+      tc::mbar_wait(&bar[kQFull], 0);
+      tc::mbar_wait(&bar[kKFull], 0);
+      s_part(s);
+      tc::wgmma_wait<0>();
+      tc::fence_regs<32>(s);
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(&bar[kKEmpty]);
+      publish(s, 0);
+      reduce_load(0);
+      reduce_finish(0);
+    }
+
+    for (int it = 0; it < ntiles; ++it) {
+      const int kv0 = geo.kv_lo + it * BKV, xb = it & 1;
+
+      // -- the whole S(it), gathered while S(it + 1) is issued (a
+      // warpgroup's wgmma issue stalls until the tensor core takes it)
+      {
+        float* const xs = X + xb * XF;
+        tc::mbar_wait_cluster(&bar[kSFull + xb], (it >> 1) & 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int u = 8 * wq + j;
+          const float4 a = *reinterpret_cast<const float4*>(part_of(xs, u % CL) + unit_off(u));
+          s[4 * j] = a.x;
+          s[4 * j + 1] = a.y;
+          s[4 * j + 2] = a.z;
+          s[4 * j + 3] = a.w;
+        }
+      }
+      tc::mbar_wait(&bar[kKFull], (it + 1) & 1);
+      s_part(sn);                            // S(it + 1), in flight
+      __syncwarp();
+      if (lane < CL) tc::mbar_arrive_rank(&bar[kXEmpty + xb], lane);
+
+      // -- S(it + 1) is done: its part goes out before this step's softmax
+      // and P V, so the other CTAs have it well before they reduce it
+      tc::wgmma_wait<0>();
+      tc::fence_regs<32>(sn);
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(&bar[kKEmpty]);
+      if (it + 1 < ntiles) publish(sn, it + 1);
+
+      // -- online softmax; P split in registers as P V's A operand
+      const float2 corr = softmax_tile(s, m, l, geo.q0 + r0 + geo.off, kv0, t,
+                                       geo.masked(kv0, geo.q0, BQ, Skv, causal, window), Skv,
+                                       causal, window, scale2);
+      uint32_t ph[32], pl[32];
+      split_p<8>(s, ph, pl);
+
+      // -- O = O * corr + P V over this CTA's 128 columns, as two chains of
+      // 24 products (64 columns each) in fresh accumulators, each added with
+      // round-to-nearest
+      tc::mbar_wait(&bar[kVFull], it & 1);
+      if (EARLY && it + 1 < ntiles) reduce_load(it + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float pv[32];
+        tc::fence_regs<32>(pv);
+        tc::fence_regs<32>(ph);
+        tc::fence_regs<32>(pl);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+          const uint64_t vb = vd + (uint64_t)((2 * j * VSG + 64 * h * 16) >> 4);
+          tc::wgmma_m64n64k8_tf32_rs(pv, pl + 4 * j, vb, j > 0);
+          tc::wgmma_m64n64k8_tf32_rs(pv, ph + 4 * j, vb + (VPLANE >> 4), 1);
+          tc::wgmma_m64n64k8_tf32_rs(pv, ph + 4 * j, vb, 1);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_regs<32>(pv);
+        tc::fence_regs<32>(ph);
+        tc::fence_regs<32>(pl);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          acc[32 * h + i] = fmaf(acc[32 * h + i], (i & 2) ? corr.y : corr.x, pv[i]);
+      }
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(&bar[kVEmpty]);
+      if (it + 1 < ntiles) {
+        if (!EARLY) reduce_load(it + 1);
+        reduce_finish(it + 1);
+      }
+    }
+    store_rows<T, DS / 8>(o, acc, l, (size_t)bh * Sq, geo.q0, r0, Sq, D, geo.d0, t);
+  }
+  cluster.sync();                            // no CTA leaves while others read its parts
+}
+
+// One wgmma of each of the kernel's two products through its operand
+// layouts, on TF32-exact inputs (each used as its hi, lo being 0): o [64 x
+// 128] = p [64 x 8] v [8 x 128] as two 64-column halves, p from registers
+// in S's accumulator layout through split_p and v through store_v_group's
+// key slots; and s [64 x 64] = q [64 x 8] k [64 x 8]^T with q and k in Q's
+// and K's planes.  One block of 128 threads.
+__global__ void __launch_bounds__(128) wide_probe_kernel(const float* p, const float* v,
+                                                         const float* q, const float* kk,
+                                                         float* o, float* s) {
+  __shared__ __align__(128) unsigned char qs[2 * QKG];     // 8 columns: two groups
+  __shared__ __align__(128) unsigned char ks[2 * KKG];
+  __shared__ __align__(128) unsigned char vs[2 * 2 * VSG];  // 8 keys: hi, lo
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  for (int e = tid; e < 64 * 8; e += 128) {
+    const int r = e / 8, c = e % 8;
+    *reinterpret_cast<uint32_t*>(qs + kmaj(r, c, QKG)) = __float_as_uint(q[e]);
+    *reinterpret_cast<uint32_t*>(ks + kmaj(r, c, KKG)) = __float_as_uint(kk[e]);
+  }
+  if (tid < 32) {
+    float4 y[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) y[i] = *reinterpret_cast<const float4*>(v + i * DS + 4 * tid);
+    store_v_group(vs, 2 * VSG, y, tid, 0, tid);
+  }
+  tc::fence_proxy_async();
+  __syncthreads();
+  const int r = 16 * w + g;
+  const float pf[4] = {p[r * 8 + 2 * t], p[r * 8 + 2 * t + 1], p[(r + 8) * 8 + 2 * t],
+                       p[(r + 8) * 8 + 2 * t + 1]};
+  uint32_t ph[4], pl[4];
+  split_p<1>(pf, ph, pl);
+  float sv[32], ov[64];
+  tc::fence_regs<32>(sv);
+  tc::fence_regs<64>(ov);
+  tc::fence_regs<4>(ph);
+  tc::wgmma_fence();
+  tc::wgmma_m64n64k8_tf32_ss(sv, tc::make_desc(qs, QKG, 128), tc::make_desc(ks, KKG, 128), 0);
+  tc::wgmma_m64n64k8_tf32_rs(ov, ph, tc::make_desc(vs, VSG, 128), 0);
+  tc::wgmma_m64n64k8_tf32_rs(ov + 32, ph, tc::make_desc(vs + 64 * 16, VSG, 128), 0);
+  tc::wgmma_commit();
+  tc::wgmma_wait<0>();
+  tc::fence_regs<32>(sv);
+  tc::fence_regs<64>(ov);
+  tc::fence_regs<4>(ph);
+  for (int j = 0; j < 16; ++j)                      // o's halves: columns 0-63, 64-127
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+      o[row * DS + col] = ov[4 * j + e];
+      if (j < 8) s[row * 64 + col] = sv[4 * j + e];
+    }
+}
+
+}  // namespace wide
+
+// ===========================================================================
 // launch
 // ===========================================================================
 
@@ -556,6 +1075,42 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int N, int 
                                     stream);
 }
 
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int N, int Hq, int Hkv,
+                int Sq, int Skv, int D, float scale, int causal, int window, cudaStream_t stream) {
+  const int cl = (D + wide::DS - 1) / wide::DS;
+  const long long bx = (long long)cl * ((Sq + wide::BQ - 1) / wide::BQ);
+  if (bx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int, int, float, int, int) =
+      cl == 2   ? wide::fa_wide_kernel<T, 2>
+      : cl == 3 ? wide::fa_wide_kernel<T, 3>
+      : cl == 4 ? wide::fa_wide_kernel<T, 4>
+      : cl == 5 ? wide::fa_wide_kernel<T, 5>
+      : cl == 6 ? wide::fa_wide_kernel<T, 6>
+      : cl == 7 ? wide::fa_wide_kernel<T, 7>
+                : wide::fa_wide_kernel<T, 8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wide::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)bx, 1, N * Hq);
+  cfg.blockDim = dim3(wide::NT);
+  cfg.dynamicSmemBytes = wide::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, D,
+                           scale, causal, window);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q [N, Hq, Sq, D], k/v [N, Hkv, Skv, D], o [N, Hq, Sq, D], contiguous, all
@@ -568,7 +1123,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       D % 4 != 0 || N * Hq > 65535)
     return (int)cudaErrorInvalidValue;
 #define FA(F, ...) F<__VA_ARGS__>(q, k, v, o, N, Hq, Hkv, Sq, Skv, D, scale, causal, window, stream)
-  if (dtype == 0) return D <= 64 ? FA(launch_f32, float, 64) : FA(launch_f32, float, 128);
+  if (dtype == 0) {
+    if (D <= 64) return FA(launch_f32, float, 64);
+    if (D <= 128) return FA(launch_f32, float, 128);
+    if (D <= wide::MAX_D) return FA(launch_wide, float);
+    return FA(launch_f32, float, 128);
+  }
   if (dtype == 1) {
     // the head dim padded to the MMA's 16
     if (D <= 16) return FA(launch_bf16, 16);
@@ -576,8 +1136,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     if (D <= 64) return FA(launch_bf16, 64);
     if (D <= 80) return FA(launch_bf16, 80);
     if (D <= 128) return FA(launch_bf16, 128);
+    if (D <= wide::MAX_D) return FA(launch_wide, __nv_bfloat16);
     return FA(launch_f32, __nv_bfloat16, 128);
   }
 #undef FA
   return (int)cudaErrorInvalidValue;
+}
+
+// One wgmma of each product of the fp32 wide kernel through its operand
+// layouts: p [64, 8], v [8, 128], q [64, 8], k [64, 8] fp32 on the card
+// (TF32-exact values) -> o = p v [64, 128], s = q k^T [64, 64]
+extern "C" int flash_wide_probe_launch(const float* p, const float* v, const float* q,
+                                       const float* k, float* o, float* s, cudaStream_t stream) {
+  wide::wide_probe_kernel<<<1, 128, 0, stream>>>(p, v, q, k, o, s);
+  return (int)cudaGetLastError();
 }

@@ -1,12 +1,13 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the attention
 // and convolution kernels: the warpgroup products (wgmma) that read a bf16
 // A operand from registers and B from shared memory through a matrix
-// descriptor, and the TF32 one with both operands in shared memory (the
-// decode's conv tile, wg_conv_tile.cuh); the warp-level TF32 product
+// descriptor, and the TF32 ones with both operands in shared memory (the
+// decode's conv tile, wg_conv_tile.cuh; the fp32 wide attention's q k^T)
+// or A from registers (its P V); the warp-level TF32 product
 // (mma.sync.m16n8k8) with the hi/lo split of 3xTF32, the bf16 one
 // (mma.sync.m16n8k16) with ldmatrix; the cp.async copies that stage tiles
 // in shared memory, and the mbarriers that order a producer's stages
-// before their consumers.
+// before their consumers, within a CTA or across a cluster's CTAs.
 //
 // Shared-memory operands of wgmma use the layout without swizzle: the unit
 // is a "core matrix" stored as 128 contiguous bytes, eight rows of 16
@@ -101,6 +102,17 @@ struct Split {
 __device__ __forceinline__ Split split_tf32(float x) {
   const uint32_t hi = tf32(x);
   return {hi, tf32(x - __uint_as_float(hi))};
+}
+
+// fp32 bits -> tf32 bits as cvt.rna.tf32.f32 rounds them (to nearest, ties
+// away from zero, on the magnitude; 13 low bits cleared), for a finite
+// value, in two integer instructions (the conversion unit's cvt issues at
+// a fraction of their rate): for the producers that split whole tiles
+__device__ __forceinline__ uint32_t rna(uint32_t u) { return (u + 0x1000u) & 0xFFFFE000u; }
+
+__device__ __forceinline__ Split split_rna(float x) {
+  const uint32_t hi = rna(__float_as_uint(x));
+  return {hi, rna(__float_as_uint(x - __uint_as_float(hi)))};
 }
 
 // c[16 x 8] += a[16 x 8] b[8 x 8]; a: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
@@ -282,6 +294,51 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float* d, uint64_t da, u
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] in TF32, both K-major from shared
+// memory through descriptors, as wgmma_m64n128k8_tf32_ss (the fp32 wide
+// attention's q k^T over a 64-key tile)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float* d, uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[8 x 64] in TF32, A from registers (the
+// m16n8k8 TF32 A fragment of each warp's 16 rows: a0 (g, t), a1 (g+8, t),
+// a2 (g, t+4), a3 (g+8, t+4)), B K-major from shared memory (the fp32
+// wide attention's P V, P split in registers)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float* d, const uint32_t* a, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // a warpgroup's registers a thread, lowered or raised (setmaxnreg): the
 // whole warpgroup runs it; a raise waits until others' lowering frees them
 template <int N>
@@ -324,6 +381,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "WAIT_AGAIN:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1, %2;\n"
       "@!done bra WAIT_AGAIN;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "r"(0x989680)
+      : "memory");
+}
+
+// The same across the CTAs of a cluster: arrive on the barrier at `bar`'s
+// offset in the shared memory of CTA `rank` (release at cluster scope:
+// this thread's earlier reads and writes, and those ordered before them,
+// come first), and wait on a local barrier that other CTAs arrive on
+// (acquire at cluster scope: their writes before the arrive are then seen)
+__device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT_CLUSTER:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1, %2;\n"
+      "@!done bra WAIT_CLUSTER;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity), "r"(0x989680)
       : "memory");
 }

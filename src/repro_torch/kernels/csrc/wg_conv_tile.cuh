@@ -144,17 +144,6 @@ __device__ __forceinline__ uint64_t slice_desc(const unsigned char* plane, int k
   return tc::make_desc(plane + slot_off(0, k0), 128, SBO);
 }
 
-// fp32 bits -> tf32 bits as cvt.rna.tf32.f32 rounds them (to nearest, ties
-// away from zero, on the magnitude; 13 low bits cleared), for a finite
-// value, in two integer instructions (the conversion unit's cvt issues at
-// a fraction of their rate, and every weight of a block is split)
-__device__ __forceinline__ uint32_t rna(uint32_t u) { return (u + 0x1000u) & 0xFFFFE000u; }
-
-__device__ __forceinline__ tc::Split split(float x) {
-  const uint32_t hi = rna(__float_as_uint(x));
-  return {hi, rna(__float_as_uint(x - __uint_as_float(hi)))};
-}
-
 template <class WT>
 struct Smem {
   static constexpr bool F32 = sizeof(WT) == 4;
@@ -312,8 +301,8 @@ wg_conv_kernel(rt::ConvArgs a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if constexpr (F32) {
-          const tc::Split s0 = split(v[0][j]), s1 = split(v[1][j]);
-          const tc::Split s2 = split(v[2][j]), s3 = split(v[3][j]);
+          const tc::Split s0 = tc::split_rna(v[0][j]), s1 = tc::split_rna(v[1][j]);
+          const tc::Split s2 = tc::split_rna(v[2][j]), s3 = tc::split_rna(v[3][j]);
           *reinterpret_cast<uint4*>(slot + slot_off_j[j]) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
           *reinterpret_cast<uint4*>(slot + BPLANE + slot_off_j[j]) =
               make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
@@ -433,7 +422,8 @@ wg_conv_kernel(rt::ConvArgs a) {
           };
           v = make_float4(act(v.x, 0), act(v.y, 1), act(v.z, 2), act(v.w, 3));
         }
-        const tc::Split s0 = split(v.x), s1 = split(v.y), s2 = split(v.z), s3 = split(v.w);
+        const tc::Split s0 = tc::split_rna(v.x), s1 = tc::split_rna(v.y), s2 = tc::split_rna(v.z),
+                        s3 = tc::split_rna(v.w);
         *reinterpret_cast<uint4*>(buf + p * 16) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
         *reinterpret_cast<uint4*>(buf + PLANE_BYTES + p * 16) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
       }

@@ -3,8 +3,10 @@
 LM prefill's causal, sliding-window, grouped-query attention.
 
 On CUDA: ``csrc/flash_attention.cu`` on the tensor cores (bf16 up to
-head dim 128 on ``wgmma`` with P rounded to bf16 before P V; fp32, and
-bf16 above 128, in 3xTF32 on ``mma.sync``), fp32 softmax and
+head dim 128 on ``wgmma`` with P rounded to bf16 before P V; fp32 in
+3xTF32, up to head dim 128 on ``mma.sync``, above it, with bf16 above
+128, on ``wgmma`` with one S per 64-row block and key tile, summed over
+a thread block cluster that splits the head dim), fp32 softmax and
 accumulation, output in ``q.dtype``.  On the CPU: the plain version,
 ``ref.flash_attention_ref``.
 
@@ -103,3 +105,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.stream_of(q)), "flash_attention")
     launches += 1
     return out
+
+
+def wide_probe(p: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
+               k: torch.Tensor):
+    """One ``wgmma`` of each product of the fp32 kernel above head dim 128
+    on the card, through its operand layouts: ``p [64, 8] @ v [8, 128]``
+    with P from registers in the accumulator layout of S and V in its
+    transposed, key-permuted plane, and ``q [64, 8] @ k [64, 8]^T`` with q
+    and k in their K-major planes; each input used as its TF32 bits.
+    Returns (o [64, 128], s [64, 64]) fp32: a check of the layouts against
+    products on the CPU, not a wrapper of the main path, so it counts no
+    launch."""
+    build.require("flash_wide_probe", p=p, v=v, q=q, k=k)
+    shapes = tuple(tuple(t.shape) for t in (p, v, q, k))
+    if shapes != ((64, 8), (8, 128), (64, 8), (64, 8)):
+        raise ValueError(f"flash_wide_probe: p [64, 8], v [8, 128], q and k "
+                         f"[64, 8], got {shapes}")
+    o = torch.empty((64, 128), dtype=torch.float32, device=p.device)
+    s = torch.empty((64, 64), dtype=torch.float32, device=p.device)
+    build.check(build.lib("flash_attention").flash_wide_probe_launch(
+        p.data_ptr(), v.data_ptr(), q.data_ptr(), k.data_ptr(), o.data_ptr(),
+        s.data_ptr(), build.stream_of(p)), "flash_wide_probe")
+    return o, s

@@ -1777,3 +1777,78 @@ def test_trainer_on_card_matches_cpu(dev, tmp_path):
     restored, step = gt.ckpt.restore({"params": gpu.params})
     assert step == 2 and restored["params"]["embed"].is_cuda
     assert torch.equal(restored["params"]["embed"], gpu.params["embed"])
+
+
+# ---------------------------------------------------------------------------
+# flash_attention above head dim 128 (the VAE's d = 512): the wide kernel,
+# a thread block cluster of ceil(d / 128) CTAs per 64 query rows on wgmma
+# ---------------------------------------------------------------------------
+
+# ragged sq and skv (not multiples of 64 or 128); d 132, 256, 260 and 512
+# (clusters of 2, 2, 3 and 4 CTAs; 132 and 260 leave a CTA's slice mostly
+# zero columns); n * hq > 1 with grouped heads; causal with sq < skv and
+# sq > skv (the first rows have no key and give 0), windows, and d 1024
+# (a cluster of 8)
+WIDE_ATTENTION = [(1, 1, 1, 200, 333, 512, False, None),
+                  (2, 3, 1, 130, 257, 260, False, None),
+                  (1, 4, 2, 70, 190, 132, True, None),
+                  (2, 2, 2, 257, 100, 256, True, None),
+                  (1, 2, 1, 300, 70, 512, True, None),
+                  (1, 2, 2, 190, 190, 512, True, 100),
+                  (3, 1, 1, 65, 129, 512, False, None),
+                  (1, 2, 1, 100, 100, 1024, True, 30)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", WIDE_ATTENTION)
+def test_flash_attention_wide(dev, n, hq, hkv, sq, skv, d, causal, window,
+                              dtype):
+    q, k, v = (a.to(dtype) for a in randn(
+        dev, 70, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d)))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert max_err(got, want) <= tol * float(want.abs().max().float())
+    if causal and sq > skv:
+        # rows before the first key have none: 0, as the plain version
+        assert not got[:, :, :sq - skv].float().abs().max()
+
+
+def test_flash_attention_wide_batch_invariant(dev):
+    """Each image of an [8, 1, 1000, 512] call bit-identical to its own
+    [1, 1, 1000, 512] call: every sum of a row has one order, whatever
+    shares the launch."""
+    q, k, v = randn(dev, 71, *[(8, 1, 1000, 512)] * 3)
+    batch = ops.flash_attention(q, k, v)
+    for i in range(8):
+        one = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert torch.equal(batch[i:i + 1], one)
+
+
+def test_flash_attention_wide_counts_one_launch_per_call(dev):
+    q, k, v = randn(dev, 72, *[(2, 1, 130, 512)] * 3)
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, v)
+    ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert sum(counts.values()) == 2
+
+
+def test_wide_attention_wgmma_layouts_against_cpu(dev):
+    """One wgmma of each product of the wide kernel through its operand
+    layouts, on TF32-exact inputs: P V with P from registers in the
+    accumulator layout of S and V transposed with its keys permuted, and
+    q k^T with q and k K-major.  Each is the float64 product up to the
+    fp32 sum of eight terms."""
+    from repro_torch.kernels.flash_attention import wide_probe
+    g = torch.Generator().manual_seed(73)
+    p, v, q, k = (tf32_rna(torch.randn(*s, generator=g))
+                  for s in ((64, 8), (8, 128), (64, 8), (64, 8)))
+    o, s = wide_probe(p.to(dev), v.to(dev), q.to(dev), k.to(dev))
+    for got, a, b in ((o, p, v), (s, q, k.T)):
+        want = a.double() @ b.double()
+        scale = (a.double().abs() @ b.double().abs()).max()
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 8 * 2.0 ** -23 * scale
