@@ -417,8 +417,19 @@ DESIGN = {
                        "ring, one barrier a chunk, GN + SiLU once per halo "
                        "element, CUDA-core fp32 products, packed "
                        "uint8 stores",
-    "flash_attention": "bf16 up to d 128: wgmma m64n64k16, Q and P from "
-                       "registers; fp32 up to d 128: 3xTF32 mma.sync; fp32 "
+    "flash_attention": "bf16 up to d 128, two routes by shape and alignment "
+                       "(each kernel line's route): bf16_tma (d % 8 == 0, "
+                       "16-byte-aligned operands: every model) a persistent "
+                       "CTA an SM drawing 128-row blocks from a counter, a "
+                       "TMA producer warp, 128 x 128 tiles in a 3-stage "
+                       "128-byte-swizzled ring, two consumer warpgroups on "
+                       "wgmma m64n128k16 (S, both operands in shared "
+                       "memory) and m64ndk16 (P V, P from registers), S of "
+                       "the next tile issued before P V, the consumers "
+                       "taking the tensor cores in turns; bf16_cp_async "
+                       "(the rest) wgmma m64n64k16 with Q and P from "
+                       "registers, cp.async 64-key tiles; fp32 up to d 128: "
+                       "3xTF32 mma.sync; fp32 "
                        "(and bf16) above d 128: 3xTF32 wgmma TF32, a CTA "
                        "cluster of d/128 per 64 query rows, one S per "
                        "(row block, 64-key tile) from parts over 128-column "
@@ -965,12 +976,42 @@ def flash_wide_probe_check(torch, log):
              f"{err} > {tol}")
 
 
+#: head dims of the bf16 TMA probe: each of the kernel's instantiations
+#: (64 also stands for d 8 and 32, 96 for 88)
+BF16_PROBE_DIMS = (128, 112, 96, 80, 64, 32)
+
+
+def flash_bf16_probe_check(torch, log):
+    """One ``q k^T`` and one ``P V`` of ``flash_attention``'s ``bf16_tma``
+    kernel through its TMA boxes, 128-byte swizzle and operand layouts, at
+    each head dim of ``BF16_PROBE_DIMS``, on bf16-exact inputs (and so
+    TF32-exact: multiples of 1/8 up to 1): every product is exact, so each
+    sum is the float64 product up to its fp32 roundings."""
+    from repro_torch.kernels.flash_attention import bf16_probe
+    g = torch.Generator().manual_seed(79)
+    for d in BF16_PROBE_DIMS:
+        q, k, p, v = (torch.randint(-8, 9, s_, generator=g).float() / 8
+                      for s_ in ((64, d), (128, d), (64, 128), (128, d)))
+        s, o = bf16_probe(*(t.bfloat16().cuda() for t in (q, k, p, v)))
+        for name, got, a, b in (("q_kT", s, q, k.T), ("p_v", o, p, v)):
+            want = a.double() @ b.double()
+            err = float((got.cpu().double() - want).abs().max())
+            tol = a.shape[1] * 2.0 ** -24 * float(
+                (a.double().abs() @ b.double().abs()).max())
+            emit(log, "wgmma_probe", kernel="flash_attention bf16_tma",
+                 product=name, d=d, shape=list(got.shape) + [a.shape[1]],
+                 max_abs_err=err, tol=tol)
+            need(err <= tol, f"flash_attention bf16 probe {name} at d {d}: "
+                 f"max error {err} > {tol}")
+
+
 def phase_kernels(torch, log, state):
     from repro_torch.vae.model import SD35_VAE
     image_hw = 8 * LATENT_HW
     byte_peak = state["peaks"][1]
     wgmma_probe_check(torch, log)
     flash_wide_probe_check(torch, log)
+    flash_bf16_probe_check(torch, log)
     totals, max_err, kernel_alone = vae_kernel_checks(torch, log, state)
     lm_attention_checks(torch, log, state, totals, max_err)
     rwkv6_checks(torch, log, state, totals, max_err)
@@ -1090,6 +1131,10 @@ def lm_attention_cases(get_config):
                       dict(n=n, hq=hq, hkv=hkv, s=LM_MAX_LEN, d=d,
                            lengths=list(DECODE_LENGTHS)), dt,
                       {"lm_decode_step": cfg.n_layers} if main else {}))
+    # a training step's attention forward (TRAIN_ATTENTION), in no pass
+    cases.append((LM_ARCH, "flash_attention",
+                  dict(prefill, n=TRAIN_ATTENTION[0][0], window=None),
+                  "bfloat16", {}))
     zc = get_config(HYBRID_ARCH)
     napp = zc.n_layers // zc.attn_every
     n, hq, hkv, d = LM_BATCH, zc.n_heads, zc.n_kv_heads, zc.head_dim
@@ -1166,6 +1211,7 @@ def lm_attention_checks(torch, log, state, totals, max_err):
     version and ``F.scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     byte_peak = state["peaks"][1]
     gen = torch.Generator(device="cuda").manual_seed(2024)
@@ -1228,6 +1274,8 @@ def lm_attention_checks(torch, log, state, totals, max_err):
                 need(e <= t, f"{label}: sequence {i} (length "
                      f"{shape['lengths'][i]}) max error {e} > {t}")
             per_seq = dict(seq_max_abs_err=seq_err, seq_tol=seq_tol)
+        else:
+            per_seq = flash_block_errors(torch, F, label, got, want, rel)
         # a decode call's kernels take tens of microseconds, less than the
         # host needs to issue the wrapper, so CUDA events around one call
         # time the host; the profiler's device time is the kernels' own
@@ -1244,6 +1292,13 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         flops, nbytes = attention_work(kernel, shape, q.element_size())
         row = dict(times, flops=flops, ops_ms=ops_ms(state, kernel, flops, dt),
                    bytes=nbytes)
+        # the flash route that ran (a checkout older than the routes has
+        # none), and the kernel's time over SDPA's
+        route = getattr(fa, "route", None) if kernel == "flash_attention" \
+            else None
+        extra = {"route": route(q, k, v)} if route else {}
+        if times["library_ms"]:
+            extra["over_library"] = times["ms"] / times["library_ms"]
         cold = {}
         if kernel == "decode_attention":
             cold = cold_decode_times(torch, q, k, v, lens, mask)
@@ -1252,13 +1307,16 @@ def lm_attention_checks(torch, log, state, totals, max_err):
                 t[key] = t.get(key, 0.0) + sum(per_pass.values()) * (
                     cold[key] or 0.0)
         emit(log, "kernel", name=kernel, design=DESIGN[kernel], arch=arch,
-             dtype=dt, shape=shape, **cold, **per_seq,
+             dtype=dt, shape=shape, **extra, **cold, **per_seq,
              calls=per_pass, max_abs_err=err, tol=tol,
              tol_reason=(f"{rel:g} relative to the output's max: fp32 "
                          "softmax and sums in another order"
                          + ("; bf16 output rounding" if rel > 1e-4 else "")
                          + ("; seq_tol: the same, each sequence against its "
-                            "own max" if per_seq else "")),
+                            "own max" if "seq_tol" in per_seq else "")
+                         + ("; block_tol: the same, each (sequence, head, "
+                            "128-row block) against its own max"
+                            if "block_tol" in per_seq else "")),
              **row, timing="device time (torch.profiler), per call",
              event_times=event,
              bound_ms=with_bound(dict(row), byte_peak)["bound_ms"],
@@ -1269,6 +1327,35 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         add_to_totals(totals, kernel, per_pass, row)
         del q, k, v, got, want
         torch.cuda.empty_cache()
+
+
+def flash_block_errors(torch, F, label, got, want, rel, rows=128):
+    """Hold each (sequence, head, block of ``rows`` query rows) of a flash
+    attention output to ``rel`` of that block's own largest output: a
+    causal row's outputs shrink as its keys grow, so the first rows' max
+    sets a tolerance about as large as a long row's typical output, under
+    which a wrong key tile in a long row would hide.  A block with no key
+    (max 0) must be exactly 0.  Returns the worst block for the log."""
+    n, h, sq, _ = got.shape
+    nb = -(-sq // rows)
+    pad = (0, nb * rows - sq)
+    err = F.pad((got.float() - want.float()).abs().amax(-1), pad)
+    big = F.pad(want.float().abs().amax(-1), pad)
+    err = err.view(n, h, nb, rows).amax(-1)
+    tol = rel * big.view(n, h, nb, rows).amax(-1)
+    bad = err > tol
+    ratio = torch.where(tol > 0, err / tol.clamp_min(1e-30),
+                        bad.float() * float("inf"))
+    worst = int(ratio.argmax())
+    i, hb, b = worst // (h * nb), worst // nb % h, worst % nb
+    e, t = float(err[i, hb, b]), float(tol[i, hb, b])
+    need(not bool(bad.any()), f"{label}: {int(bad.sum())} of {bad.numel()} "
+         f"blocks of {rows} rows over {rel:g} of their max; the worst "
+         f"(sequence {i}, head {hb}, rows from {b * rows}) {e} > {t}")
+    return dict(block_rows=rows, blocks=bad.numel(),
+                block_worst=dict(seq=i, head=hb, row=b * rows,
+                                 max_abs_err=e, tol=t),
+                block_tol=float(tol.min()))
 
 
 def cold_decode_times(torch, q, k, v, lens, mask):
@@ -3543,11 +3630,14 @@ def train_attention_check(torch, state):
         torch.autograd.grad(y, sq, do)
 
     sdpa_ms = cuda_ms(torch, sdpa, REPS)
+    sdpa_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), REPS)
     n, hq, s, d = qs
     causal_flops = 2.0 * n * hq * s * s * d       # Q K^T and P V, half
     return {"q": list(qs), "kv": list(kvs), "dtype": "bfloat16",
             "causal": True, "rel_err": errs, "tol": tol, "tol_reason": why,
-            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "forward_ms": fwd_ms, "forward_route": fa.route(q, k, v),
+            "sdpa_forward_ms": sdpa_fwd_ms, "backward_ms": bwd_ms,
             "sdpa_fwd_bwd_ms": sdpa_ms,
             "forward_bound_ms": ops_ms(state, "flash_attention",
                                        causal_flops, "bfloat16"),

@@ -49,8 +49,8 @@ SIGNATURES = {
                                                  I, I, I, I, I, I, I, I, P]),
     "upsample_conv": ("upsample_conv3x3_launch", [P, P, P, P, P,
                                                    I, I, I, I, I, I, I, P]),
-    "flash_attention": ("flash_attention_launch", [P, P, P, P, I, I, I, I,
-                                                    I, I, F, I, I, I, P]),
+    "flash_attention": ("flash_attention_launch", [P, P, P, P, P, I, I, I,
+                                                    I, I, I, F, I, I, I, P]),
     "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
     "decode_attention": ("decode_attention_launch", [P, P, P, P, P,
                                                      I, I, I, I, I, F, I,
@@ -66,7 +66,9 @@ MORE_SIGNATURES = {
     "decode_attention": [("decode_attention_partial_launch",
                           [P, P, P, P, P, P, I, I, I, I, I, F, I, P])],
     "gn_silu_conv": [("wgmma_tf32_probe_launch", [P, P, P, P])],
-    "flash_attention": [("flash_wide_probe_launch", [P, P, P, P, P, P, P])],
+    "flash_attention": [("flash_wide_probe_launch", [P, P, P, P, P, P, P]),
+                        ("flash_attention_route", [P, P, P, P, I, I]),
+                        ("flash_bf16_probe_launch", [P, P, P, P, P, P, I, P])],
 }
 
 
@@ -125,13 +127,15 @@ def build_all(names=SOURCES) -> Dict[str, float]:
 
 
 def ptxas_report(name: str) -> List[str]:
-    """The ``ptxas -v`` lines (registers, shared memory, spills) of the
-    last build of ``name`` in this checkout."""
+    """The ``ptxas -v`` lines (each kernel's mangled name, then its
+    registers, shared memory and spills) of the last build of ``name`` in
+    this checkout."""
     log = BUILD_DIR / f"{name}.log"
     if not log.exists():
         return []
     return [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln
+            or "Compiling entry function" in ln]
 
 
 def lib(name: str) -> ctypes.CDLL:

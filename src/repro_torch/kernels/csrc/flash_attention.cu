@@ -18,16 +18,40 @@
 // TFLOP/s in fp32 on the CUDA cores, 495 TFLOP/s in TF32 and 989 TFLOP/s in
 // bf16 on the tensor cores.  Every path runs on the tensor cores:
 //
-// bf16 (the LM prefill): a block of three warpgroups owns 192 queries, each
-// warpgroup 64 of them, with its rows of Q held in registers.  S = Q K^T is
-// wgmma.m64n64k16 with Q from registers and the K tile from shared memory;
-// P is rescaled in registers, rounded to bf16 and fed back from registers
-// as the A operand of O += P V (the accumulator fragment of S is the A
-// fragment of P), with V read from shared memory through the descriptor's
-// transpose (MN-major), so neither P nor a transposed V is ever written.
-// K/V tiles of 64 keys, shared by the warpgroups, arrive by cp.async into a
-// ring of two stages, so the next tile's copy overlaps this tile's
-// products.  The head dim is padded with zeros to the MMA depth (16).
+// bf16 up to d = 128 (the LM prefill) has two routes, chosen in the
+// launcher from the head dim and the operands' alignment alone (route_of),
+// never as a retry of the other:
+//
+// bf16_tma (d % 8 == 0, 16-byte-aligned q, k, v and o: every model; the
+// namespace tma), FlashAttention-3's shape.  A persistent CTA an SM of
+// three warpgroups draws units (a q head's block of 128 rows) from a
+// counter.  The producer's one thread loads a unit's Q and its K and V
+// tiles of 128 keys by TMA (3-D maps: head dim, position, head, so rows
+// past Sq or Skv arrive as zeros) in boxes of 64 columns with the 128-byte
+// swizzle, into a 3-stage ring with full and empty mbarriers.  Two consumer
+// warpgroups of 64 rows: S = Q K^T as wgmma.m64n128k16 with both operands
+// in shared memory, the online softmax with the scale inside one FFMA a
+// value, P rounded to bf16 as the register A operand of O += P V
+// (wgmma.m64nNk16, N = d rounded up to 64, 80, 96, 112 or 128: no padded
+// lane at d 80 or 112), V MN-major through the descriptor.  Tile it's S is
+// issued before P V of tile it - 1 and its softmax runs under that
+// product; the two warpgroups take the tensor cores in turns (named
+// barriers), so one's softmax runs under the other's products; a unit's Q
+// is freed after its last S, so the next unit's loads run under the last
+// products and the stores.
+//
+// bf16_cp_async (d % 8 == 4, or 8-byte-aligned operands): a block of
+// three warpgroups owns 192 queries, each warpgroup 64 of them, with its
+// rows of Q held in registers.  S = Q K^T is wgmma.m64n64k16 with Q from
+// registers and the K tile from shared memory; P is rescaled in
+// registers, rounded to bf16 and fed back from registers as the A operand
+// of O += P V (the accumulator fragment of S is the A fragment of P), with
+// V read from shared memory through the descriptor's transpose (MN-major),
+// so neither P nor a transposed V is ever written.  K/V tiles of 64 keys,
+// shared by the warpgroups, arrive by cp.async into a ring of two stages,
+// so the next tile's copy overlaps this tile's products.  The head dim is
+// padded with zeros to the MMA depth (16).
+//
 // Above d = 128, which no model uses, bf16 runs through the fp32 kernels
 // below: their loads widen bf16 exactly and their output rounds to bf16,
 // and 3xTF32 with an fp32 P is the more accurate of the two paths.
@@ -89,12 +113,14 @@
 // than 8 CTAs a cluster; no model) the mma.sync kernel runs.
 //
 // Every path: the longest causal rows first, so the short ones fill the
-// tail; the kv loop is bounded by the causal diagonal and the window, and
-// only tiles that cross the diagonal, the window's edge or Skv are masked.
-// Every row is reduced in a fixed order by the same threads, so the result
-// does not depend on how many images or sequences share the launch.
+// tail (bf16_tma: within each section of heads); the kv loop is bounded by
+// the causal diagonal and the window, and only tiles that cross the
+// diagonal, the window's edge or Skv are masked.  Every row is reduced in
+// a fixed order by the same threads, so the result does not depend on how
+// many images or sequences share the launch.
 
 #include <cooperative_groups.h>
+#include <cuda.h>                       // CUtensorMap and its enums (no -lcuda)
 
 #include "attn_common.cuh"
 #include "hopper_mma.cuh"
@@ -115,9 +141,10 @@ __device__ __forceinline__ float ex2(float x) {
 
 struct Geo {
   int q0, d0, kv_lo, kv_hi, off;
-  // whether the `rows` rows from qlo need the mask on the tile at kv0
+  // whether the `rows` rows from qlo need the mask on the TILE keys at kv0
+  template <int TILE = BKV>
   __device__ bool masked(int kv0, int qlo, int rows, int Skv, int causal, int window) const {
-    return kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > qlo + off) ||
+    return kv0 + TILE > Skv || (causal && kv0 + TILE - 1 > qlo + off) ||
            (window > 0 && kv0 <= qlo + rows - 1 + off - window);
   }
 };
@@ -248,11 +275,13 @@ __device__ __forceinline__ int mnmajor_off(int kv, int n, int dv) {
 
 // rows x dqk of a [nrows, D] bf16 matrix (from row0) into K-major core
 // matrices by NT threads; rows >= nrows and columns >= D are zeros.
-// 16-byte copies when D % 8 == 0, else 8-byte ones (D % 4 == 0).
+// 16-byte copies when `v16` (D % 8 == 0 and 16-byte-aligned k and v),
+// else 8-byte ones (D % 4 == 0, 8-byte-aligned).
 template <int NT>
 __device__ __forceinline__ void stage_kmajor(unsigned char* dst, const __nv_bfloat16* src,
-                                             int rows, int row0, int nrows, int D, int dqk) {
-  if ((D & 7) == 0) {
+                                             int rows, int row0, int nrows, int D, int dqk,
+                                             bool v16) {
+  if (v16) {
     const int per_row = dqk / 8;
     for (int e = threadIdx.x; e < rows * per_row; e += NT) {
       const int r = e / per_row, k = (e % per_row) * 8;
@@ -272,8 +301,8 @@ __device__ __forceinline__ void stage_kmajor(unsigned char* dst, const __nv_bflo
 // 64 keys x DV columns (from d0) of v into MN-major core matrices
 template <int NT, int DV>
 __device__ __forceinline__ void stage_v(unsigned char* dst, const __nv_bfloat16* src, int row0,
-                                        int nrows, int D, int d0) {
-  if ((D & 7) == 0) {
+                                        int nrows, int D, int d0, bool v16) {
+  if (v16) {
     constexpr int per_row = DV / 8;
     for (int e = threadIdx.x; e < BKV * per_row; e += NT) {
       const int r = e / per_row, n = (e % per_row) * 8;
@@ -323,6 +352,8 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const __nv_bfloat16* V = v + (size_t)kvh * Skv * D;
   const float scale2 = scale * LOG2E;
   const int ntiles = geo.kv_hi > geo.kv_lo ? (geo.kv_hi - geo.kv_lo + BKV - 1) / BKV : 0;
+  const bool v16 = (D & 7) == 0 && ((reinterpret_cast<uintptr_t>(k) |
+                                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
 
   constexpr int NC = DP / 8;                 // 8-column chunks of the output
   float acc[4 * NC], s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -348,8 +379,8 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   // geo.d0 is 0 here (one output slice); a literal 0 in its place leads
   // ptxas to spill a register in the d = 128 kernel, which runs slower
   if (ntiles > 0) {
-    stage_kmajor<NT>(Ks, K, BKV, geo.kv_lo, Skv, D, DP);
-    stage_v<NT, DP>(Vs, V, geo.kv_lo, Skv, D, geo.d0);
+    stage_kmajor<NT>(Ks, K, BKV, geo.kv_lo, Skv, D, DP, v16);
+    stage_v<NT, DP>(Vs, V, geo.kv_lo, Skv, D, geo.d0, v16);
     tc::cp_async_commit();
   }
 
@@ -361,8 +392,8 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     tc::fence_proxy_async();
     __syncthreads();                         // everyone's; and tile it-1 is done
     if (it + 1 < ntiles) {                   // the next tile's copy overlaps this tile
-      stage_kmajor<NT>(Ks + (st ^ 1) * BKV * DP * 2, K, BKV, kv0 + BKV, Skv, D, DP);
-      stage_v<NT, DP>(Vs + (st ^ 1) * BKV * DP * 2, V, kv0 + BKV, Skv, D, geo.d0);
+      stage_kmajor<NT>(Ks + (st ^ 1) * BKV * DP * 2, K, BKV, kv0 + BKV, Skv, D, DP, v16);
+      stage_v<NT, DP>(Vs + (st ^ 1) * BKV * DP * 2, V, kv0 + BKV, Skv, D, geo.d0, v16);
       tc::cp_async_commit();
     }
 
@@ -417,6 +448,421 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   store_rows<__nv_bfloat16, NC>(o, acc, l, (size_t)bh * Sq, geo.q0, r0, Sq, D, geo.d0, t);
 }
+
+// ===========================================================================
+// bf16 up to d = 128: TMA and wgmma, warp-specialised (namespace tma)
+// ===========================================================================
+
+namespace tma {
+
+constexpr int BQ = 128;                  // query rows a CTA: two consumer warpgroups of 64
+constexpr int BN = 128;                  // keys a tile
+constexpr int NT = 384;                  // a producer and two consumer warpgroups
+constexpr int BOX_COLS = 64;             // head-dim columns of a TMA box: 128 bytes a row
+constexpr int BOX = 128 * BOX_COLS * 2;  // a box of 128 rows: 16 KB
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int SMEM_MAX = 232448;
+constexpr long SECTION_BYTES = 4L << 20;   // the K and V a section's kv heads may hold
+
+// DN: the head dim the products run at (a multiple of 16; d <= DN, the
+// columns past d zero-filled by TMA): q k^T is DN / 16 steps deep, P V is
+// m64nDNk16 (d 80, 96, 112 and 128 with no padded output lane).  Shared
+// memory, from a 1024-aligned base: Q [128 x NB boxes], then 3 K tiles and
+// 3 V tiles [128 keys x NB boxes], then the barriers: 224 KB at d 128.
+template <int DN>
+struct Cfg {
+  static constexpr int NB = (DN + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int TILE = NB * BOX;
+  static constexpr int STAGES = 3;
+  static constexpr int K_OFF = TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
+  static constexpr int BYTES = 1024 + BAR_OFF + 256;   // 1024: room to align the base
+  static_assert(DN % 16 == 0 && DN <= 128, "the instantiated head dims");
+  static_assert(BYTES <= SMEM_MAX, "one block an SM");
+};
+
+// the dynamic shared memory's first 1024-aligned byte: a swizzle atom's
+// pattern follows the address bits, so every box starts 1024-aligned
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (tc::smem_u32(p) & 1023u)) & 1023u);
+}
+
+// S [64 x 128] = Q K^T over DN / 16 steps of 16 head-dim columns: q (64
+// rows) and k (128 keys) K-major, 128-byte-swizzled boxes of 64 columns;
+// step ks reads 32 bytes on within box ks / 4.  One commit group.
+template <int DN>
+__device__ __forceinline__ void issue_s(float* s, uint64_t qd, uint64_t kd) {
+  tc::fence_regs<64>(s);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DN / 16; ++ks) {
+    const uint32_t off = ((ks >> 2) * BOX + (ks & 3) * 32) >> 4;
+    tc::wgmma_m64n128k16_ss(s, qd + off, kd + off, ks > 0);
+  }
+  tc::wgmma_commit();
+}
+
+// O [64 x DN] += P V over 8 steps of 16 keys: P from registers (step j's A
+// fragment at pa + 4 j), V MN-major (16 keys a step, 2,048 bytes on; the
+// second box of 64 columns `BOX` bytes on).  One commit group.
+template <int DN>
+__device__ __forceinline__ void issue_pv(float* acc, uint32_t* pa, uint64_t vd) {
+  tc::fence_regs<32>(pa);
+  tc::fence_regs<DN / 2>(acc);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) tc::wgmma_pv_bf16<DN>(acc, pa + 4 * j, vd + ((j * 2048) >> 4), 1);
+  tc::wgmma_commit();
+}
+
+// P (the accumulator fragment of S, rounded to bf16 to nearest-even, two
+// at a time) as the A fragments of P V: step j's keys 16 j .. 16 j + 15 at
+// pa[4 j .. 4 j + 3]
+__device__ __forceinline__ void pack_p(uint32_t* pa, const float* s) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
+    pa[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// Online softmax over a 128-key tile for the two rows (qpos, qpos + 8) a
+// thread holds, in softmax_tile's layout and with its m and l, the scale
+// kept inside the exponent: the row's extreme of the raw s (its max, or
+// its min when scale2 < 0) times scale2 is m's candidate, the same bits as
+// the max of the scaled values (rounding keeps the order of a value's
+// multiples), and p = 2^(s scale2 - m) is one FFMA and one ex2.  On a
+// masked tile a hidden key's s is set to the extreme that never wins
+// (-inf, or +inf when scale2 < 0) and its p to 0; no key kept yet makes
+// m's candidate -inf (or NaN at scale 0, which fmaxf drops), and then
+// every p is 0, as softmax_tile gives.
+template <bool MASKED>
+__device__ __forceinline__ float2 softmax_128(float* s, float* m, float* l, int qpos, int kv0,
+                                              int t, int Skv, int causal, int window,
+                                              float scale2) {
+  const bool up = scale2 >= 0.f;
+  const float hide = up ? -INFINITY : INFINITY;
+  if (MASKED) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int kp = kv0 + 8 * (i >> 2) + 2 * t + (i & 1), qp = qpos + 8 * ((i >> 1) & 1);
+      const bool keep = kp < Skv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+      s[i] = keep ? s[i] : hide;
+    }
+  }
+  float mx[2] = {hide, hide};
+  if (up) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fminf(mx[(i >> 1) & 1], s[i]);
+  }
+  float corr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float a = __shfl_xor_sync(0xffffffffu, mx[h], 1);
+    mx[h] = up ? fmaxf(mx[h], a) : fminf(mx[h], a);
+    const float b = __shfl_xor_sync(0xffffffffu, mx[h], 2);
+    mx[h] = (up ? fmaxf(mx[h], b) : fminf(mx[h], b)) * scale2;
+    const float m_new = fmaxf(m[h], mx[h]);
+    // no key kept yet: exponentiate against 0, so every p is 2^-inf = 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    corr[h] = ex2(m[h] - m_use);
+    m[h] = m_new;
+    mx[h] = -m_use;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = ex2(fmaf(s[i], scale2, mx[h]));
+    if (MASKED) p = s[i] == hide ? 0.f : p;
+    s[i] = p;
+    rs[h] += p;
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+  return make_float2(corr[0], corr[1]);
+}
+
+template <int DN>
+__device__ __forceinline__ void rescale(float* acc, float2 corr) {
+#pragma unroll
+  for (int c = 0; c < DN / 8; ++c) {
+    acc[4 * c] *= corr.x;
+    acc[4 * c + 1] *= corr.x;
+    acc[4 * c + 2] *= corr.y;
+    acc[4 * c + 3] *= corr.y;
+  }
+}
+
+// The unit u of a call's nbh x nqb (q head, block of 128 rows): sections
+// of `hs` consecutive q heads, each walked block by block from the longest
+// causal block down, so the units in flight share few kv heads (their K
+// and V stay in L2) and the last units drawn are the shortest.  Its head,
+// first row and keys:
+struct Unit {
+  int bh;
+  Geo geo;
+  int ntiles;
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int nbh, int nqb, int hs, int Sq, int Skv,
+                                        int causal, int window) {
+  const int sec = u / (hs * nqb), r = u - sec * hs * nqb;
+  const int h = min(hs, nbh - sec * hs);         // heads of this section
+  Unit w;
+  w.bh = sec * hs + r % h;
+  Geo& g = w.geo;
+  g.q0 = (nqb - 1 - r / h) * BQ;
+  g.d0 = 0;
+  g.off = Skv - Sq;
+  g.kv_lo = window > 0 ? max(0, g.q0 + g.off - window + 1) / BN * BN : 0;
+  g.kv_hi = causal ? min(Skv, min(g.q0 + BQ, Sq) + g.off) : Skv;
+  w.ntiles = g.kv_hi > g.kv_lo ? (g.kv_hi - g.kv_lo + BN - 1) / BN : 0;
+  return w;
+}
+
+// A persistent CTA an SM.  Warpgroup 0 is the producer: one thread draws
+// the CTA's next unit from `counter` (zeroed before the launch) once both
+// consumers are done with the last one's Q, hands it over in shared memory
+// on Q's barrier, and loads the unit's Q and its K and V tiles of 128 keys
+// by TMA into a ring of STAGES that runs on across units, each tile's K
+// and V on full barriers of their own, reloading a stage once both
+// consumers have freed it; a draw past the last unit ends the CTA.  So a
+// unit's loads run under the last one's products and stores.  Warpgroups
+// 1 and 2 are the consumers, 64 rows each: S = Q K^T from shared memory,
+// the online softmax in registers, P rounded to bf16 as the A operand of
+// O += P V, the rows stored from registers.  The maps are 3-D (head dim,
+// position, head): rows past Sq or Skv arrive as zeros, never another
+// head's.  A unit's result does not depend on which CTA draws it.
+template <int DN>
+__global__ void __launch_bounds__(NT, 1)
+fa_bf16_tma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
+                   int* __restrict__ counter, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
+                   int causal, int window, int nbh, int nqb, int hs) {
+  using C = Cfg<DN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  unsigned char* const Qs = sm;
+  unsigned char* const Ks = sm + C::K_OFF;
+  unsigned char* const Vs = sm + C::V_OFF;
+  uint64_t* const full_k = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* const full_v = full_k + C::STAGES;
+  uint64_t* const empty = full_v + C::STAGES;
+  uint64_t* const full_q = empty + C::STAGES;
+  uint64_t* const empty_q = full_q + 1;
+  int* const slot = reinterpret_cast<int*>(empty_q + 1);   // the unit handed over
+  const int units = nqb * nbh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int st = 0; st < C::STAGES; ++st) {
+      tc::mbar_init(&full_k[st], 1);
+      tc::mbar_init(&full_v[st], 1);
+      tc::mbar_init(&empty[st], 8);          // a warp of each consumer warpgroup
+    }
+    tc::mbar_init(full_q, 1);
+    tc::mbar_init(empty_q, 8);
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // -- the producer: one thread draws the units and issues every load -----
+    tc::regs_lower<PRODUCER_REGS>();
+    if (tid == 0) {
+      tc::prefetch_tensormap(&mq);
+      tc::prefetch_tensormap(&mk);
+      tc::prefetch_tensormap(&mv);
+      for (int j = 0, kt = 0;; ++j) {        // j: units drawn, kt: tiles loaded
+        if (j > 0) tc::mbar_wait(empty_q, (j - 1) & 1);
+        const int u = atomicAdd(counter, 1);
+        *slot = u;
+        if (u >= units) {
+          tc::mbar_arrive(full_q);
+          break;
+        }
+        const Unit w = unit_of(u, nbh, nqb, hs, Sq, Skv, causal, window);
+        if (w.ntiles == 0) {
+          tc::mbar_arrive(full_q);
+          continue;
+        }
+        const int kvh = (w.bh / Hq) * Hkv + (w.bh % Hq) / (Hq / Hkv);
+        tc::mbar_arrive_expect_tx(full_q, C::TILE);
+#pragma unroll
+        for (int b = 0; b < C::NB; ++b)
+          tc::tma_load_3d(Qs + b * BOX, &mq, b * BOX_COLS, w.geo.q0, w.bh, full_q);
+        for (int it = 0; it < w.ntiles; ++it, ++kt) {
+          const int st = kt % C::STAGES, kv0 = w.geo.kv_lo + it * BN;
+          if (kt >= C::STAGES) tc::mbar_wait(&empty[st], (kt / C::STAGES - 1) & 1);
+          tc::mbar_arrive_expect_tx(&full_k[st], C::TILE);
+#pragma unroll
+          for (int b = 0; b < C::NB; ++b)
+            tc::tma_load_3d(Ks + st * C::TILE + b * BOX, &mk, b * BOX_COLS, kv0, kvh, &full_k[st]);
+          tc::mbar_arrive_expect_tx(&full_v[st], C::TILE);
+#pragma unroll
+          for (int b = 0; b < C::NB; ++b)
+            tc::tma_load_3d(Vs + st * C::TILE + b * BOX, &mv, b * BOX_COLS, kv0, kvh, &full_v[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- the consumers: warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64) ----
+  tc::regs_raise<CONSUMER_REGS>();
+  const int wg = warp / 4 - 1, g = lane / 4, t = lane % 4;
+  const int r0 = 64 * wg + 16 * (warp % 4) + g;   // the thread's rows r0, r0 + 8 of a block
+  const float scale2 = scale * LOG2E;
+  float acc[DN / 2], s[64], m[2], l[2];
+  uint32_t pa[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i] = 0u;
+  // descriptors of this warpgroup's Q rows and of stage 0's K and V tiles;
+  // stage st is st tiles on
+  const uint64_t qd = tc::make_desc_sw128(Qs + wg * 64 * 128, 16, 1024);
+  const uint64_t kd = tc::make_desc_sw128(Ks, 16, 1024);
+  const uint64_t vd = tc::make_desc_sw128(Vs, BOX, 1024);
+  auto stage_off = [](int kt) { return (uint64_t)(((kt % C::STAGES) * C::TILE) >> 4); };
+  auto parity = [](int kt) { return (kt / C::STAGES) & 1; };
+  // the tensor cores taken in turns, so one warpgroup's softmax runs under
+  // the other's products: warpgroup 0 first (warpgroup 1 arrives once
+  // ahead); each waits on its own barrier and hands over after issuing
+  auto turn_take = [&]() { tc::named_bar_sync(1 + wg, 256); };
+  auto turn_give = [&]() { tc::named_bar_arrive(2 - wg, 256); };
+  // a warp of each warpgroup frees a stage (or Q) once its products are
+  // done
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(bar);
+  };
+  if (wg == 1) tc::named_bar_arrive(1, 256);
+
+  for (int j = 0, kt = 0;; ++j) {            // as the producer counts them
+    tc::mbar_wait(full_q, j & 1);
+    const int u = *slot;
+    if (u >= units) break;
+    const Unit w = unit_of(u, nbh, nqb, hs, Sq, Skv, causal, window);
+    const Geo& geo = w.geo;
+    const int ntiles = w.ntiles, qlo = geo.q0 + 64 * wg, qpos = geo.q0 + r0 + geo.off;
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    auto softmax = [&](int it) {
+      const int kv0 = geo.kv_lo + it * BN;
+      return geo.masked<BN>(kv0, qlo, 64, Skv, causal, window)
+                 ? softmax_128<true>(s, m, l, qpos, kv0, t, Skv, causal, window, scale2)
+                 : softmax_128<false>(s, m, l, qpos, kv0, t, Skv, causal, window, scale2);
+    };
+    if (ntiles > 0) {
+      turn_take();
+      tc::mbar_wait(&full_k[kt % C::STAGES], parity(kt));
+      issue_s<DN>(s, qd, kd + stage_off(kt));
+      turn_give();
+      tc::wgmma_wait<0>();
+      tc::fence_regs<64>(s);
+      if (ntiles == 1) release(empty_q);     // the unit's last S is done: Q is free
+      float2 corr = softmax(0);
+      pack_p(pa, s);
+      for (int it = 1; it < ntiles; ++it) {
+        const int kc = kt + it;
+        turn_take();
+        tc::mbar_wait(&full_k[kc % C::STAGES], parity(kc));
+        issue_s<DN>(s, qd, kd + stage_off(kc));            // S(it)
+        rescale<DN>(acc, corr);                            // ... under S(it)
+        tc::mbar_wait(&full_v[(kc - 1) % C::STAGES], parity(kc - 1));
+        issue_pv<DN>(acc, pa, vd + stage_off(kc - 1));     // P V(it - 1)
+        turn_give();
+        tc::wgmma_wait<1>();                               // S(it) done
+        tc::fence_regs<64>(s);
+        if (it == ntiles - 1) release(empty_q);
+        corr = softmax(it);                                // ... under P V(it - 1)
+        tc::wgmma_wait<0>();
+        tc::fence_regs<DN / 2>(acc);
+        tc::fence_regs<32>(pa);
+        release(&empty[(kc - 1) % C::STAGES]);
+        pack_p(pa, s);
+      }
+      const int kl = kt + ntiles - 1;
+      rescale<DN>(acc, corr);
+      turn_take();
+      tc::mbar_wait(&full_v[kl % C::STAGES], parity(kl));
+      issue_pv<DN>(acc, pa, vd + stage_off(kl));
+      turn_give();
+      tc::wgmma_wait<0>();
+      tc::fence_regs<DN / 2>(acc);
+      tc::fence_regs<32>(pa);
+      release(&empty[kl % C::STAGES]);
+      kt += ntiles;
+    } else {
+      release(empty_q);
+    }
+    store_rows<__nv_bfloat16, DN / 8>(o, acc, l, (size_t)w.bh * Sq, geo.q0, r0, Sq, D, 0, t);
+  }
+}
+
+// One S and one P V through the kernel's TMA boxes, swizzle and operand
+// layouts: s [64 x 128] = q [64 x d] k [128 x d]^T and o [64 x d] = p [64 x
+// 128] v [128 x d], p entering in S's accumulator layout; q's box reaches
+// past its 64 rows (zeros).  One warpgroup, one block.
+template <int DN>
+__global__ void __launch_bounds__(128)
+bf16_probe_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __nv_bfloat16* __restrict__ p,
+                  float* __restrict__ s_out, float* __restrict__ o_out, int D) {
+  using C = Cfg<DN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(sm + 3 * C::TILE);
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  if (tid == 0) {
+    tc::mbar_init(bar, 1);
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tc::mbar_arrive_expect_tx(bar, 3 * C::TILE);
+    for (int b = 0; b < C::NB; ++b) {
+      tc::tma_load_3d(sm + b * BOX, &mq, b * BOX_COLS, 0, 0, bar);
+      tc::tma_load_3d(sm + C::TILE + b * BOX, &mk, b * BOX_COLS, 0, 0, bar);
+      tc::tma_load_3d(sm + 2 * C::TILE + b * BOX, &mv, b * BOX_COLS, 0, 0, bar);
+    }
+  }
+  tc::mbar_wait(bar, 0);
+  const int r = 16 * w + g;
+  float s[64], acc[DN / 2];
+  uint32_t pa[32];
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * c + e] = __bfloat162float(p[(r + 8 * (e >> 1)) * 128 + 8 * c + 2 * t + (e & 1)]);
+  pack_p(pa, s);
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+  issue_s<DN>(s, tc::make_desc_sw128(sm, 16, 1024), tc::make_desc_sw128(sm + C::TILE, 16, 1024));
+  issue_pv<DN>(acc, pa, tc::make_desc_sw128(sm + 2 * C::TILE, BOX, 1024));
+  tc::wgmma_wait<0>();
+  tc::fence_regs<64>(s);
+  tc::fence_regs<DN / 2>(acc);
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + 8 * (e >> 1), col = 8 * c + 2 * t + (e & 1);
+      s_out[row * 128 + col] = s[4 * c + e];
+      if (c < DN / 8 && col < D) o_out[row * D + col] = acc[4 * c + e];
+    }
+}
+
+}  // namespace tma
 
 // ===========================================================================
 // fp32: 3xTF32 on mma.sync
@@ -1050,6 +1496,121 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int N, int
                        Hkv, Sq, Skv, D, scale, causal, window);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime (nothing links
+// libcuda); null where the entry point is not found
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                     : nullptr;
+  }();
+  return fn;
+}
+
+// a 3-D map of a contiguous bf16 [heads, rows, D] tensor, boxes of 64
+// columns x 128 rows x 1 head in the 128-byte swizzle; elements outside
+// the tensor load as zeros
+int make_map(CUtensorMap* map, const void* base, int D, int rows, int heads) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {tma::BOX_COLS, 128, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DN>
+int launch_tma(const void* q, const void* k, const void* v, void* o, int* counter, int N, int Hq,
+               int Hkv, int Sq, int Skv, int D, float scale, int causal, int window,
+               cudaStream_t stream) {
+  using C = tma::Cfg<DN>;
+  const int nqb = (Sq + tma::BQ - 1) / tma::BQ, nbh = N * Hq;
+  if ((long long)nqb * nbh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int sms = tc::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  // a section: the q heads of as many kv heads as SECTION_BYTES of K and V
+  // hold (at least one)
+  const long kv_heads = tma::SECTION_BYTES / (4L * Skv * D);
+  const long hs_want = (kv_heads > 0 ? kv_heads : 1) * (Hq / Hkv);
+  const int hs = hs_want < nbh ? (int)hs_want : nbh;
+  if (counter == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = tma::fa_bf16_tma_kernel<DN>;
+  // once an instantiation (the process's device, as sm_count): the
+  // shared-memory opt-in, and setmaxnreg's check.  setmaxnreg moves
+  // registers between the warpgroups within the block's allocation:
+  // unless it holds the raised total, a consumer's raise waits forever
+  static const int ready = [] {
+    auto kern = tma::fa_bf16_tma_kernel<DN>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return (int)e;
+    return fa.numRegs * tma::NT < 128 * (tma::PRODUCER_REGS + 2 * tma::CONSUMER_REGS)
+               ? (int)cudaErrorInvalidConfiguration
+               : 0;
+  }();
+  if (ready != 0) return ready;
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, D, Sq, N * Hq);
+  if (err == 0) err = make_map(&mk, k, D, Skv, N * Hkv);
+  if (err == 0) err = make_map(&mv, v, D, Skv, N * Hkv);
+  if (err != 0) return err;
+  cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<nqb * nbh < sms ? nqb * nbh : sms, tma::NT, C::BYTES, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), counter, Hq, Hkv, Sq, Skv, D, scale, causal,
+      window, nbh, nqb, hs);
+  return (int)cudaGetLastError();
+}
+
+template <int DN>
+int launch_bf16_probe(const void* q, const void* k, const void* p, const void* v, float* s,
+                      float* o, int D, cudaStream_t stream) {
+  using C = tma::Cfg<DN>;
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, D, 64, 1);
+  if (err == 0) err = make_map(&mk, k, D, 128, 1);
+  if (err == 0) err = make_map(&mv, v, D, 128, 1);
+  if (err != 0) return err;
+  constexpr int bytes = 1024 + 3 * C::TILE + 64;
+  auto kernel = tma::bf16_probe_kernel<DN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<1, 128, bytes, stream>>>(mq, mk, mv, static_cast<const __nv_bfloat16*>(p), s, o, D);
+  return (int)cudaGetLastError();
+}
+
+// The routes of flash_attention_launch, decided by shape, type and
+// alignment alone before the launch (never a retry of another)
+enum Route { kF32Mma = 0, kWide = 1, kBf16CpAsync = 2, kBf16Tma = 3 };
+
+int route_of(const void* q, const void* k, const void* v, const void* o, int D, int dtype) {
+  if (D > 128) return D <= wide::MAX_D ? kWide : kF32Mma;
+  if (dtype == 0) return kF32Mma;
+  // TMA: 16-byte row strides and base addresses
+  const uintptr_t a = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  return D % 8 == 0 && a % 16 == 0 ? kBf16Tma : kBf16CpAsync;
+}
+
 template <typename T, int DV, int WARPS>
 int launch_f32_warps(const void* q, const void* k, const void* v, void* o, int N, int Hq, int Hkv,
                      int Sq, int Skv, int D, float scale, int causal, int window,
@@ -1115,10 +1676,13 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int N, int
 
 // q [N, Hq, Sq, D], k/v [N, Hkv, Skv, D], o [N, Hq, Sq, D], contiguous, all
 // of one type: dtype 0 = fp32, 1 = bf16.  D % 4 == 0, Hq % Hkv == 0;
-// window <= 0 means none.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int N,
-                                      int Hq, int Hkv, int Sq, int Skv, int D, float scale,
-                                      int causal, int window, int dtype, cudaStream_t stream) {
+// window <= 0 means none.  counter: one int of device scratch, the bf16
+// TMA route's unit counter (cleared on the stream before its launch;
+// that route refuses a null one, the others never read it).
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                                      int* counter, int N, int Hq, int Hkv, int Sq, int Skv, int D,
+                                      float scale, int causal, int window, int dtype,
+                                      cudaStream_t stream) {
   if (N <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || D <= 0 ||
       D % 4 != 0 || N * Hq > 65535)
     return (int)cudaErrorInvalidValue;
@@ -1129,7 +1693,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     if (D <= wide::MAX_D) return FA(launch_wide, float);
     return FA(launch_f32, float, 128);
   }
+  if (dtype == 1 && route_of(q, k, v, o, D, dtype) == kBf16Tma) {
+#define TMA(DN) launch_tma<DN>(q, k, v, o, counter, N, Hq, Hkv, Sq, Skv, D, scale, causal, window, stream)
+    if (D <= 64) return TMA(64);
+    if (D <= 80) return TMA(80);
+    if (D <= 96) return TMA(96);
+    if (D <= 112) return TMA(112);
+    return TMA(128);
+#undef TMA
+  }
   if (dtype == 1) {
+    // PR 15's cp.async kernel (d % 8 == 4, or 8-byte-aligned operands):
     // the head dim padded to the MMA's 16
     if (D <= 16) return FA(launch_bf16, 16);
     if (D <= 32) return FA(launch_bf16, 32);
@@ -1141,6 +1715,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
 #undef FA
   return (int)cudaErrorInvalidValue;
+}
+
+// The route flash_attention_launch takes for these operands (Route):
+// 0 fp32 mma.sync, 1 the wide cluster kernel, 2 bf16 cp.async, 3 bf16 TMA
+extern "C" int flash_attention_route(const void* q, const void* k, const void* v, const void* o,
+                                     int D, int dtype) {
+  return route_of(q, k, v, o, D, dtype);
+}
+
+// One q k^T and one P V of the bf16 TMA kernel through its boxes, swizzle
+// and operand layouts: q [64, D], k and v [128, D], p [64, 128] bf16 on the
+// card, D % 8 == 0 and D <= 128, 16-byte aligned -> s = q k^T [64, 128],
+// o = p v [64, D] fp32
+extern "C" int flash_bf16_probe_launch(const void* q, const void* k, const void* p, const void* v,
+                                       float* s, float* o, int D, cudaStream_t stream) {
+  if (D <= 0 || D > 128 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+#define PROBE(DN) launch_bf16_probe<DN>(q, k, p, v, s, o, D, stream)
+  if (D <= 64) return PROBE(64);
+  if (D <= 80) return PROBE(80);
+  if (D <= 96) return PROBE(96);
+  if (D <= 112) return PROBE(112);
+  return PROBE(128);
+#undef PROBE
 }
 
 // One wgmma of each product of the fp32 wide kernel through its operand

@@ -1852,3 +1852,120 @@ def test_wide_attention_wgmma_layouts_against_cpu(dev):
         scale = (a.double().abs() @ b.double().abs()).max()
         err = float((got.cpu().double() - want).abs().max())
         assert err <= 8 * 2.0 ** -23 * scale
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's bf16_tma route (bf16, d % 8 == 0, d <= 128, 16-byte
+# aligned operands): a TMA producer warp, two consumer warpgroups of 64
+# rows, 128 x 128 tiles
+# ---------------------------------------------------------------------------
+
+# the tile's edges: sq and skv of 127, 128, 129 and 257; d 64, 80, 96, 112
+# and 128 (each instantiation); rep 1, 4 and 8; windows of 1, 33 and 200;
+# sq > skv (rows with no key: a whole first block at 257 over 129)
+TMA_ATTENTION = [(1, 4, 1, 127, 127, 128, True, None),
+                 (1, 8, 1, 128, 128, 112, True, None),
+                 (2, 2, 2, 129, 129, 80, True, None),
+                 (1, 8, 2, 257, 257, 96, True, 200),
+                 (1, 4, 4, 257, 129, 64, True, None),
+                 (1, 8, 1, 127, 257, 128, True, 33),
+                 (1, 4, 1, 129, 128, 112, True, 1),
+                 (2, 4, 4, 128, 257, 80, False, None),
+                 (1, 4, 1, 257, 127, 96, False, None),
+                 (1, 2, 2, 129, 129, 64, False, 33),
+                 (1, 8, 8, 257, 257, 128, True, 1)]
+
+
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", TMA_ATTENTION)
+def test_flash_attention_bf16_tma_edges(dev, n, hq, hkv, sq, skv, d, causal,
+                                        window):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (a.bfloat16() for a in randn(
+        dev, 74, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d)))
+    assert fa.route(q, k, v) == "bf16_tma"
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert max_err(got, want) <= 1e-2 * float(want.abs().max().float())
+    if causal and sq > skv:
+        # rows before the first key have none: 0, as the plain version
+        assert not got[:, :, :sq - skv].float().abs().max()
+
+
+@pytest.mark.parametrize("d", [128, 112])
+def test_flash_attention_bf16_batch_invariant(dev, d):
+    """Each sequence of an [8, 8, 300, d] causal call over one kv head
+    bit-identical to its own [1, 8, 300, d] call: every row's sums have
+    one order, whatever shares the launch."""
+    q, k, v = (a.bfloat16() for a in randn(
+        dev, 75, (8, 8, 300, d), (8, 1, 300, d), (8, 1, 300, d)))
+    batch = ops.flash_attention(q, k, v, causal=True)
+    for i in range(8):
+        one = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                  causal=True)
+        assert torch.equal(batch[i:i + 1], one)
+
+
+def flash_kernels_run(call):
+    """The device kernels whose names hold ``fa_`` that ``call()`` ran,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "fa_" in e.key}
+
+
+def test_flash_attention_routes_by_shape_and_alignment(dev):
+    """d 128 with 16-byte-aligned operands runs the TMA kernel; d 36 (not a
+    multiple of 8) and d 128 from an 8-byte-aligned view run PR 15's
+    cp.async kernel; fp32 the mma.sync one.  ``route`` names what ran, and
+    each call agrees with the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    flat = torch.randn(3 * 4 * 130 * 128 + 4, device=dev).bfloat16()
+    view = flat[4:].view(3, 4, 130, 128)        # 8 bytes past an aligned base
+    assert view.data_ptr() % 16 == 8
+    (x36,) = randn(dev, 76, (3, 4, 130, 36))
+    (x128,) = randn(dev, 77, (3, 4, 130, 128))
+    cases = [(x128.bfloat16(), "bf16_tma", "fa_bf16_tma_kernel"),
+             (x36.bfloat16(), "bf16_cp_async", "fa_bf16_kernel"),
+             (view, "bf16_cp_async", "fa_bf16_kernel"),
+             (x128, "fp32_mma_sync", "fa_f32_kernel")]
+    for x, route, kernel in cases:
+        assert fa.route(x, x, x) == route
+        names = flash_kernels_run(lambda: ops.flash_attention(
+            x, x, x, causal=True))
+        assert len(names) == 1 and kernel in next(iter(names)), names
+        got = ops.flash_attention(x, x, x, causal=True)
+        want = ref.flash_attention_ref(x, x, x, causal=True)
+        tol = 2e-5 if x.dtype == torch.float32 else 1e-2
+        assert max_err(got, want) <= tol * float(want.abs().max().float())
+
+
+def test_flash_attention_counts_one_launch_on_each_route(dev):
+    (x,) = randn(dev, 78, (2, 4, 70, 128))
+    (y,) = randn(dev, 79, (2, 4, 70, 36))
+    ops.reset_launch_counts()
+    ops.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    ops.flash_attention(y.bfloat16(), y.bfloat16(), y.bfloat16(), causal=True)
+    assert ops.launch_counts()["flash_attention"] == 2
+    ops.flash_attention(x, x, x, causal=True)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 3
+    assert sum(counts.values()) == 3
+
+
+@pytest.mark.parametrize("d", [128, 112, 96, 80, 64, 32, 8])
+def test_bf16_tma_layouts_against_cpu(dev, d):
+    """One q k^T and one P V of the TMA kernel through its boxes, 128-byte
+    swizzle and operand layouts, on bf16-exact (and so TF32-exact) inputs,
+    multiples of 1/8 up to 1: every product and every sum is exact in fp32,
+    so both equal the float64 products."""
+    from repro_torch.kernels.flash_attention import bf16_probe
+    g = torch.Generator().manual_seed(80 + d)
+    q, k, p, v = (torch.randint(-8, 9, s, generator=g).float() / 8
+                  for s in ((64, d), (128, d), (64, 128), (128, d)))
+    s, o = bf16_probe(*(t.bfloat16().to(dev) for t in (q, k, p, v)))
+    assert torch.equal(s.cpu().double(), q.double() @ k.double().T)
+    assert torch.equal(o.cpu().double(), p.double() @ v.double())
