@@ -52,8 +52,11 @@ wall seconds (any failure exits non-zero):
                 product through the conv tile's operand layouts, and one
                 of each product of ``flash_attention``'s fp32 kernel above
                 head dim 128 (P V with P from registers and V transposed;
-                q k^T), against the float64 products (``wgmma_probe``
-                lines).  The
+                q k^T), of its bf16 TMA kernel at each head dim, and of
+                the two product forms of its backward (``a b^T`` with both
+                operands in shared memory, ``P c`` with P from registers)
+                at head dims 128, 112, 80, 64 and 32, against the float64
+                products (``wgmma_probe`` lines).  The
                 four conv kernels' bf16 and int8 weight cases at every
                 decode shape, each
                 against its plain version at the fp32 tolerance, with
@@ -224,12 +227,14 @@ wall seconds (any failure exits non-zero):
 20. train       training on one card: a CUDA wrapper with no backward
                 (``conv3x3``) refuses an input that requires grad, and
                 ``rwkv6_scan`` under grad launches once through
-                ``RWKV6Scan`` (f); ``FlashAttention`` forward (the kernel)
-                and backward (``flash_attention_bwd_ref``) at a training
-                call's shapes, q [2, 28, 2048, 128] and k, v [2, 4, 2048,
-                128] bf16 causal, against fp32 autograd through the plain
-                version (a), with the forward's, the backward's and SDPA's
-                forward plus backward ms; small fp32 dense, RWKV-6, MoE
+                ``RWKV6Scan`` (f); ``FlashAttention`` forward and backward
+                (both kernels) at a training call's shapes, q [2, 28,
+                2048, 128] and k, v [2, 4, 2048, 128] bf16 causal, against
+                fp32 autograd through the plain version and the backward
+                kernel against ``flash_attention_bwd_ref`` on the same
+                tensors, two backward calls bit for bit (a), with the
+                forward's, the backward's, the plain backward's and SDPA's
+                forward plus backward ms beside the bounds; small fp32 dense, RWKV-6, MoE
                 (capacity factor E / k), VLM, hybrid and enc-dec models'
                 loss and every gradient leaf on the card against the CPU
                 (b; RWKV-6's ill-conditioned gradients at their own
@@ -384,6 +389,11 @@ KERNELS = {
                         "src/repro/kernels/output_epilogue.py:82"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
+    # the gradient of that kernel: the JAX package has no Pallas backward
+    # (jax.grad differentiates its XLA reference)
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                            "flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:78"),
     "group_norm_silu": ("src/repro_torch/kernels/csrc/gn_silu.cu",
                         "src/repro/kernels/gn_silu.py:63"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -437,6 +447,22 @@ DESIGN = {
                        "all-gather in rank order, P V with P from registers, "
                        "a producer warpgroup splitting Q once and K/V per "
                        "tile",
+    "flash_attention_bwd": "FlashAttention-2's backward in three launches "
+                           "and a sum, fixed order, no atomics: the rows' "
+                           "lse and rowsum(dO O) recomputed (a block per "
+                           "128 query rows over 64-key tiles); dK and dV a "
+                           "block per 128 keys (two consumer warpgroups of "
+                           "64) over the kv head's q-head group and its "
+                           "64-row query tiles, dealt to parts where the "
+                           "grid is short, fp32 partials summed in order; "
+                           "dQ a block per 128 rows; bf16 on wgmma "
+                           "m64n64k16 (S, S^T, dP, dP^T with both operands "
+                           "in shared memory) and m64ndk16 (dV, dK, dQ with "
+                           "P or dS from registers, rounded to bf16), "
+                           "tiles by TMA (64 x 64 boxes, 128-byte swizzle) "
+                           "into mbarrier rings, masks only on the tiles "
+                           "that cross an edge, the warpgroups issuing in "
+                           "turns; fp32 in 3xTF32 on mma.sync",
     "group_norm_silu": "coalesced GN statistics pass (gn_stats.cu), then a "
                        "float4 apply with four loads in flight a thread "
                        "(CUDA-core fp32; streaming stores above 32 MB)",
@@ -457,7 +483,7 @@ DESIGN = {
 #: bound counts three TF32 products per fp32 one at the TF32 peak (a conv
 #: with Cout <= CUDA_CORE_COUT runs on the CUDA cores, at the fp32 peak)
 TENSOR_CORE = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
-               "flash_attention", "rwkv6_scan")
+               "flash_attention", "flash_attention_bwd", "rwkv6_scan")
 CUDA_CORE_COUT = 4
 #: the conv kernels that take quantized weights, and the storage dtypes
 QUANT_KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
@@ -1005,6 +1031,36 @@ def flash_bf16_probe_check(torch, log):
                  f"max error {err} > {tol}")
 
 
+#: head dims of the backward's probe: each of its instantiations (DP 128,
+#: 80, 64) and the zero-padded lanes of d 112 and 32
+BWD_PROBE_DIMS = (128, 112, 80, 64, 32)
+
+
+def flash_bwd_probe_check(torch, log):
+    """One product of each form of ``flash_attention``'s bf16 backward
+    through its layouts and helpers, at each head dim of
+    ``BWD_PROBE_DIMS``, on bf16-exact inputs (multiples of 1/8 up to 1):
+    ``a [64, d] b [64, d]^T`` with both operands K-major in shared memory
+    (the form of S = Q K^T, S^T = K Q^T, dP = dO V^T and dP^T = V dO^T),
+    and ``p [64, 64] c [64, d]`` with p from registers in S's accumulator
+    layout and c MN-major (the form of dV += P^T dO, dK += dS^T Q and
+    dQ += dS K).  Every product and sum is exact in fp32."""
+    from repro_torch.kernels.flash_attention_bwd import probe as bwd_probe
+    g = torch.Generator().manual_seed(80)
+    for d in BWD_PROBE_DIMS:
+        a, b, p, c = (torch.randint(-8, 9, s_, generator=g).float() / 8
+                      for s_ in ((64, d), (64, d), (64, 64), (64, d)))
+        s, o = bwd_probe(*(t.bfloat16().cuda() for t in (a, b, p, c)))
+        for name, got, x, y in (("a_bT", s, a, b.T), ("p_c", o, p, c)):
+            want = x.double() @ y.double()
+            err = float((got.cpu().double() - want).abs().max())
+            emit(log, "wgmma_probe", kernel="flash_attention_bwd",
+                 product=name, d=d, shape=list(got.shape) + [x.shape[1]],
+                 max_abs_err=err, tol=0.0)
+            need(err == 0.0, f"flash_attention_bwd probe {name} at d {d}: "
+                 f"max error {err}, not exact")
+
+
 def phase_kernels(torch, log, state):
     from repro_torch.vae.model import SD35_VAE
     image_hw = 8 * LATENT_HW
@@ -1012,6 +1068,7 @@ def phase_kernels(torch, log, state):
     wgmma_probe_check(torch, log)
     flash_wide_probe_check(torch, log)
     flash_bf16_probe_check(torch, log)
+    flash_bwd_probe_check(torch, log)
     totals, max_err, kernel_alone = vae_kernel_checks(torch, log, state)
     lm_attention_checks(torch, log, state, totals, max_err)
     rwkv6_checks(torch, log, state, totals, max_err)
@@ -3544,6 +3601,9 @@ TRAIN_ATTENTION_TOL = (
           "autograd through flash_attention_ref; the kernel's P is rounded "
           "to bf16 before P V, and the backward's row sums D read the bf16 "
           "output; relative to each gradient's max |value|")
+#: (a)'s fp32 backward (3xTF32) against the plain one (TF32 off), of each
+#: gradient's and each 128-row or 128-key block's max, as the card tests
+TRAIN_FP32_TOL = 1e-4
 #: (b)'s families: small fp32 models whose loss reaches attention or
 #: RWKV-6's scan
 TRAIN_CROSS = (LM_ARCH, SSM_ARCH, MOE_ARCH, VLM_ARCH, HYBRID_ARCH,
@@ -3593,21 +3653,46 @@ def grad_rel_errs(got, want):
             for k, g in got.items()}
 
 
+def grad_block_errors(torch, F, label, got, want, rel):
+    """``flash_block_errors`` of each attention gradient: dq by (sequence,
+    q head, 128 rows), dk and dv by (sequence, kv head, 128 keys), each
+    block within ``rel`` of its own max (a block of no row or key exactly
+    0).  A causal call's gradients shrink with position (dv of key j as
+    about sqrt(e / j), dq of row i as 1 / sqrt(i)), so the first blocks'
+    max sets a global tolerance above a later block's typical value."""
+    return {name: flash_block_errors(torch, F, f"{label} {name}", g, w, rel)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
 def train_attention_check(torch, state):
     """(a): ``FlashAttention`` forward and backward at a training call's
     shapes in bf16, causal, against autograd through
-    ``flash_attention_ref`` in fp32 on the card; the forward (the kernel),
-    the PyTorch backward and SDPA's forward plus backward timed."""
+    ``flash_attention_ref`` in fp32 on the card; the backward kernel
+    against ``ref.flash_attention_bwd_ref`` on the same tensors and
+    against itself (two calls bit for bit); each check on the whole
+    gradient and on each 128-row (dq) or 128-key (dk, dv) block; the
+    forward and backward kernels, the plain backward, SDPA's backward
+    alone and its forward plus backward timed; the fp32 backward (3xTF32)
+    checked against the plain one and both timed at the same shapes.
+    Sets ``flash_attention_bwd``'s row of the ``kernels`` line (this one
+    call: its ms, plain ms, bound of the gradient's five products, SDPA's
+    backward as the library call; the forward plus backward of the port
+    and of SDPA beside them)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(43)
     qs, kvs = TRAIN_ATTENTION
     q, k, v, do = (torch.randn(s, generator=gen, device="cuda")
                    .to(torch.bfloat16) for s in (qs, kvs, kvs, qs))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=True)
+    before = ops.launch_counts()["flash_attention_bwd"]
     got = torch.autograd.grad(out, leaves, do)
+    need(ops.launch_counts()["flash_attention_bwd"] == before + 1,
+         "FlashAttention's backward did not launch its kernel once")
+    torch.backends.cuda.matmul.allow_tf32 = False
     ref_in = [t.float().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(
         ref.flash_attention_ref(*ref_in, causal=True), ref_in, do.float())
@@ -3617,11 +3702,31 @@ def train_attention_check(torch, state):
         errs[name] = float((g.float() - w).abs().max() / w.abs().max())
         need(g.dtype == torch.bfloat16 and errs[name] <= tol,
              f"FlashAttention {name} differs by {errs[name]} > {tol}")
+    blocks = grad_block_errors(torch, F, "FlashAttention", got, want, tol)
+    del got, want, ref_in, leaves, out
+    scale = qs[-1] ** -0.5
     o = fa.flash_attention(q, k, v, causal=True)
+    kernel = lambda: fab.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, do, True, scale, None)
+    plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, o, do, causal=True)
+    first, again, want_plain = kernel(), kernel(), plain()
+    need(all(torch.equal(a, b) for a, b in zip(first, again)),
+         "two backward calls differ")
+    plain_errs, max_abs = {}, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), first, want_plain):
+        diff = float((g.float() - w.float()).abs().max())
+        max_abs = max(max_abs, diff)
+        plain_errs[name] = diff / float(w.float().abs().max())
+        need(plain_errs[name] <= tol, f"the backward kernel's {name} "
+             f"differs from the plain backward's by {plain_errs[name]}")
+    plain_blocks = grad_block_errors(torch, F, "backward kernel vs plain",
+                                     first, want_plain, tol)
+    del first, again, want_plain
     fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
                      REPS)
-    bwd_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
-        q, k, v, o, do, causal=True), REPS)
+    bwd_ms = cuda_ms(torch, kernel, REPS)
+    plain_ms = cuda_ms(torch, plain, REPS)
     sq = [t.clone().requires_grad_(True) for t in (q, k, v)]
 
     def sdpa():
@@ -3630,20 +3735,77 @@ def train_attention_check(torch, state):
         torch.autograd.grad(y, sq, do)
 
     sdpa_ms = cuda_ms(torch, sdpa, REPS)
+    # SDPA's backward alone: its forward once, outside the timed calls
+    y = F.scaled_dot_product_attention(*sq, is_causal=True, enable_gqa=True)
+    sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        y, sq, do, retain_graph=True), REPS)
+    del y, sq
     sdpa_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), REPS)
+    fp32 = train_attention_fp32(torch, F, q, k, v, do, scale)
     n, hq, s, d = qs
     causal_flops = 2.0 * n * hq * s * s * d       # Q K^T and P V, half
+    # the backward reads q, k, v, o, dO and writes dq, dk, dv once
+    bwd_bytes = 2.0 * (3 * q.numel() + 2 * k.numel()) \
+        + 2.0 * (q.numel() + 2 * k.numel())
+    row = with_bound({"ops_ms": ops_ms(state, "flash_attention_bwd",
+                                       2.5 * causal_flops, "bfloat16"),
+                      "bytes": bwd_bytes}, state["peaks"][1])
+    row.update(max_abs_err=max_abs, ms=bwd_ms, plain_ms=plain_ms,
+               library_ms=sdpa_bwd_ms, fwd_bwd_ms=fwd_ms + bwd_ms,
+               library_fwd_bwd_ms=sdpa_ms, fp32_ms=fp32["backward_ms"],
+               fp32_plain_ms=fp32["plain_backward_ms"],
+               library_what="SDPA's backward alone (enable_gqa; "
+                            "autograd.grad through a retained graph); "
+                            "library_fwd_bwd_ms is its forward + backward, "
+                            "against fwd_bwd_ms, the port's")
+    state.setdefault("kernel_totals", {})["flash_attention_bwd"] = row
     return {"q": list(qs), "kv": list(kvs), "dtype": "bfloat16",
             "causal": True, "rel_err": errs, "tol": tol, "tol_reason": why,
+            "blocks": blocks, "kernel_vs_plain_rel_err": plain_errs,
+            "kernel_vs_plain_blocks": plain_blocks,
+            "kernel_vs_plain_max_abs_err": max_abs, "bit_identical": True,
+            "bwd_parts": fab.parts(
+                n, kvs[1], s, torch.bfloat16,
+                torch.cuda.get_device_properties(0).multi_processor_count),
             "forward_ms": fwd_ms, "forward_route": fa.route(q, k, v),
             "sdpa_forward_ms": sdpa_fwd_ms, "backward_ms": bwd_ms,
-            "sdpa_fwd_bwd_ms": sdpa_ms,
+            "plain_backward_ms": plain_ms, "sdpa_backward_ms": sdpa_bwd_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms, "fwd_bwd_ms": fwd_ms + bwd_ms,
             "forward_bound_ms": ops_ms(state, "flash_attention",
                                        causal_flops, "bfloat16"),
-            "backward_bound_ms": ops_ms(state, "flash_attention",
-                                        2.5 * causal_flops, "bfloat16"),
-            "bwd_block_rows": ref.BWD_BLOCK_ROWS}
+            "backward_bound_ms": row["bound_ms"],
+            "fwd_bwd_bound_ms": ops_ms(state, "flash_attention",
+                                       3.5 * causal_flops, "bfloat16"),
+            "plain_bwd_block_rows": ref.BWD_BLOCK_ROWS, "fp32": fp32}
+
+
+def train_attention_fp32(torch, F, q, k, v, do, scale):
+    """(a)'s fp32 half: the 3xTF32 backward kernel against the plain
+    backward (TF32 off) on fp32 copies of the same tensors, within 1e-4
+    of each gradient's and each block's max, and both timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    o = fa.flash_attention(q, k, v, causal=True)
+    kernel = lambda: fab.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, do, True, scale, None)
+    plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, o, do, causal=True)
+    got, want = kernel(), plain()
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((g - w).abs().max() / w.abs().max())
+        need(g.dtype == torch.float32 and errs[name] <= TRAIN_FP32_TOL,
+             f"the fp32 backward kernel's {name} differs from the plain "
+             f"backward's by {errs[name]} > {TRAIN_FP32_TOL}")
+    blocks = grad_block_errors(torch, F, "fp32 backward kernel vs plain",
+                               got, want, TRAIN_FP32_TOL)
+    del got, want
+    return {"rel_err": errs, "tol": TRAIN_FP32_TOL, "blocks": blocks,
+            "backward_ms": cuda_ms(torch, kernel, REPS),
+            "plain_backward_ms": cuda_ms(torch, plain, REPS)}
 
 
 def train_cross_check(torch, state, arch):
@@ -3737,10 +3899,21 @@ def train_guard_check(torch):
     return seen
 
 
+#: device kernels of ``flash_attention``'s forward (every route) and of
+#: its backward, by a part of their names
+FLASH_FORWARD_KERNELS = ("fa_bf16_kernel", "fa_bf16_tma_kernel",
+                         "fa_f32_kernel", "fa_wide_kernel")
+FLASH_BACKWARD_KERNELS = ("bwd_rows_kernel", "bwd_dkdv_kernel",
+                          "sum_parts_kernel")
+
+
 def train_profile(torch, step):
     """One train step under ``torch.profiler``: device ms of the
-    ``flash_attention`` kernels, of the ``flash_attention_bwd`` and
-    ``adamw`` ranges, of the other GEMMs, and the rest."""
+    ``flash_attention`` forward kernels and of its backward (each by its
+    kernels' names: the profiler does not attribute a ``ctypes`` launch
+    to the ``record_function`` range around it, so the backward's range
+    adds only the PyTorch kernels it launches, ``do.contiguous()``'s
+    copy), of the ``adamw`` range, of the other GEMMs, and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3757,8 +3930,10 @@ def train_profile(torch, step):
                and not e.is_user_annotation]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     flash = sum(e.self_device_time_total for e in kernels
-                if "fa_bf16_kernel" in e.name or "fa_f32_kernel" in e.name
-                ) / 1e3
+                if any(n in e.name for n in FLASH_FORWARD_KERNELS)) / 1e3
+    flash_bwd = sum(e.self_device_time_total for e in kernels
+                    if any(n in e.name for n in FLASH_BACKWARD_KERNELS)
+                    ) / 1e3
     gemm_all = sum(e.self_device_time_total for e in kernels
                    if is_gemm(e.name)) / 1e3
 
@@ -3773,18 +3948,22 @@ def train_profile(torch, step):
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name in ranges:
             ranges[e.name] += launched(e)
-    bwd = sum(us for _, us in ranges["flash_attention_bwd"]) / 1e3
-    bwd_gemm = sum(us for n, us in ranges["flash_attention_bwd"]
-                   if is_gemm(n)) / 1e3
+    in_range = [(n, us) for n, us in ranges["flash_attention_bwd"]
+                if not any(k in n for k in FLASH_BACKWARD_KERNELS)]
+    bwd_torch = sum(us for _, us in in_range) / 1e3
+    bwd_gemm = sum(us for n, us in in_range if is_gemm(n)) / 1e3
     opt = sum(us for _, us in ranges["adamw"]) / 1e3
     split = {"flash_attention_forward_ms": flash,
-             "attention_backward_ms": bwd,
+             "attention_backward_ms": flash_bwd + bwd_torch,
              "other_gemm_ms": gemm_all - bwd_gemm, "optimizer_ms": opt}
     split["rest_ms"] = total - sum(split.values())
     by_name = Counter()
     for e in kernels:
         by_name[e.name[:90]] += e.self_device_time_total / 1e3
-    return {"device_ms": total, **split, "device_kernels": len(kernels),
+    return {"device_ms": total, **split,
+            "attention_backward_kernels_ms": flash_bwd,
+            "attention_backward_torch_ms": bwd_torch,
+            "device_kernels": len(kernels),
             "top": [{"kernel": k, "ms": ms, "gemm": is_gemm(k)}
                     for k, ms in by_name.most_common(12)]}
 
@@ -3827,6 +4006,7 @@ def phase_train(torch, log, state):
                                       global_batch=TRAIN_BATCH))
     per_step = {k: 0 for k in KERNELS}
     per_step["flash_attention"] = cfg.n_layers * TRAIN_MICROBATCHES * 2
+    per_step["flash_attention_bwd"] = cfg.n_layers * TRAIN_MICROBATCHES
     # two 20 GB checkpoints: under the checkout's ignored build/, on the
     # disk that holds the kernels' build, not in OUT_DIR (copied back)
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3901,6 +4081,9 @@ def phase_train(torch, log, state):
         batch = data.batch(TRAIN_STEPS)
         prof = train_profile(torch, lambda: step(model.params, opt_state,
                                                  None, batch))
+        need(prof["flash_attention_forward_ms"] > 0
+             and prof["attention_backward_kernels_ms"] > 0,
+             f"the profiled step shows no flash attention kernel: {prof}")
         del opt_state
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -4153,10 +4336,9 @@ def dist_mesh_step(torch, state):
               if not torch.equal(p, q.full_tensor())]
     need(not differ, f"mesh parameters differ from the unsharded step's "
          f"at {differ[:4]} ({len(differ)} leaves)")
-    need(a["launches"]["flash_attention"] ==
-         b["launches"]["flash_attention"] > 0,
-         f"flash_attention launches {b['launches']} against "
-         f"{a['launches']}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        need(a["launches"][name] == b["launches"][name] > 0,
+             f"{name} launches {b['launches']} against {a['launches']}")
     out = {"arch": LM_ARCH, **model_shape(cfg), "dtype": "bfloat16",
            "reduced": dict(layers=[cfg.n_layers,
                                    get_config(LM_ARCH).n_layers],
@@ -4544,7 +4726,10 @@ def main() -> int:
                 if k in GN_KERNELS else {}),
              "library_ms": (None if k in NO_LIBRARY
                             else totals[k]["library_ms"]),
-             "design": DESIGN[k], **state["cold"].get(k, {})}
+             "design": DESIGN[k], **state["cold"].get(k, {}),
+             **{f: totals[k][f] for f in (
+                 "fwd_bwd_ms", "library_fwd_bwd_ms", "fp32_ms",
+                 "fp32_plain_ms", "library_what") if f in totals[k]}}
             for k, (src, rep) in KERNELS.items()]})
         print(line, flush=True)
         log.write(line + "\n")

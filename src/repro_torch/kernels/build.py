@@ -25,8 +25,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gn_stats", "conv3x3", "gn_silu_conv", "upsample_conv",
-           "flash_attention", "gn_silu", "decode_attention", "rwkv6_scan",
-           "output_epilogue")
+           "flash_attention", "flash_attention_bwd", "gn_silu",
+           "decode_attention", "rwkv6_scan", "output_epilogue")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +51,9 @@ SIGNATURES = {
                                                    I, I, I, I, I, I, I, P]),
     "flash_attention": ("flash_attention_launch", [P, P, P, P, P, I, I, I,
                                                     I, I, I, F, I, I, I, P]),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F,
+                             I, I, I, I, P]),
     "gn_silu": ("gn_silu_launch", [P, P, P, P, P, I, I, I, I, P]),
     "decode_attention": ("decode_attention_launch", [P, P, P, P, P,
                                                      I, I, I, I, I, F, I,
@@ -69,6 +72,8 @@ MORE_SIGNATURES = {
     "flash_attention": [("flash_wide_probe_launch", [P, P, P, P, P, P, P]),
                         ("flash_attention_route", [P, P, P, P, I, I]),
                         ("flash_bf16_probe_launch", [P, P, P, P, P, P, I, P])],
+    "flash_attention_bwd": [("flash_bwd_probe_launch",
+                             [P, P, P, P, P, P, I, P])],
 }
 
 

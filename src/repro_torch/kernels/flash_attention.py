@@ -25,11 +25,11 @@ is retried on another route):
 On the CPU: the plain version, ``ref.flash_attention_ref``.
 
 :func:`flash_attention` goes through :class:`FlashAttention`, so the
-output stays in the autograd graph on both devices: the forward is the
-kernel (or the plain version on the CPU), the backward
-``ref.flash_attention_bwd_ref``, PyTorch arithmetic as the JAX package's
-backward is XLA's (no TPU kernel had a backward).  Under
-``torch.inference_mode()`` the launch and its bits are the same.
+output stays in the autograd graph on both devices.  Its backward is
+:mod:`repro_torch.kernels.flash_attention_bwd` (kernels on CUDA, the
+plain ``ref.flash_attention_bwd_ref`` on the CPU).  Under
+``torch.inference_mode()`` the forward's launch and its bits are the
+same.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
 #: kernel launches of :func:`flash_attention` in this process
 launches = 0
@@ -52,9 +53,9 @@ ROUTES = {0: "fp32_mma_sync", 1: "wide_cluster", 2: "bf16_cp_async",
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with the kernel's forward and a plain backward: saves q,
-    k, v and the output, and hands the output's gradient to
-    ``ref.flash_attention_bwd_ref``.  Under remat the forward (and so the
+    """Attention with the kernels' forward and backward: saves q, k, v
+    and the output, and hands the output's gradient to
+    :func:`flash_attention_bwd`.  Under remat the forward (and so the
     kernel) runs again in the backward pass, and counts again."""
 
     @staticmethod
@@ -68,9 +69,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         with torch.profiler.record_function("flash_attention_bwd"):
-            dq, dk, dv = ref.flash_attention_bwd_ref(
-                q, k, v, o, do.contiguous(), causal=ctx.causal,
-                scale=ctx.scale, window=ctx.window)
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                             ctx.causal, ctx.scale,
+                                             ctx.window)
         return dq, dk, dv, None, None, None
 
 

@@ -31,6 +31,7 @@ import torch
 from repro_torch.kernels import conv3x3 as _conv3x3
 from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels import gn_silu as _gn_silu
 from repro_torch.kernels import gn_silu_conv as _gn_silu_conv
 from repro_torch.kernels import output_epilogue as _output_epilogue
@@ -152,6 +153,7 @@ KERNEL_MODULES = {
     "upsample_conv3x3": _upsample_conv,
     "output_epilogue": _output_epilogue,
     "flash_attention": _flash_attention,
+    "flash_attention_bwd": _flash_attention_bwd,
     "group_norm_silu": _gn_silu,
     "decode_attention": _decode_attention,
     "rwkv6_scan": _rwkv6_scan,

@@ -1643,15 +1643,46 @@ ATTENTION_GRAD = [(2, 4, 2, 70, 70, 128, True, None),
                   (1, 8, 2, 600, 600, 128, True, 257)]
 
 
+def _grad_blocks(label, got, want, tol):
+    """``chip_smoke.grad_block_errors``: each 128-row block of dq and
+    128-key block of dk and dv within ``tol`` of its own max (a causal
+    call's later rows and keys have gradients far below the first ones',
+    under a tolerance of the whole gradient's max)."""
+    import importlib.util
+    from pathlib import Path
+    import torch.nn.functional as F
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cs.grad_block_errors(torch, F, label, got, want, tol)
+
+
+def _no_plain_backward_on_card(monkeypatch):
+    """Make ``ref.flash_attention_bwd_ref`` raise on a CUDA tensor."""
+    plain = ref.flash_attention_bwd_ref
+
+    def refuse(q, *args, **kwargs):
+        if q.is_cuda:
+            raise AssertionError("the plain backward ran on the card")
+        return plain(q, *args, **kwargs)
+
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", refuse)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", ATTENTION_GRAD)
-def test_flash_attention_gradients_on_card(dev, n, hq, hkv, sq, skv, d,
-                                           causal, window, dtype):
-    """``ops.flash_attention`` (the kernel's forward, the plain backward)
-    against autograd through the plain version in fp32 on the same
-    tensors: 1e-4 of each gradient's max in fp32 (3xTF32 against TF32
-    off), 2e-2 in bf16 (bf16 inputs and gradients; the kernel's P in
-    bf16 before P V, which the backward's row sums read)."""
+def test_flash_attention_gradients_on_card(dev, monkeypatch, n, hq, hkv, sq,
+                                           skv, d, causal, window, dtype):
+    """``ops.flash_attention`` (the forward and backward kernels) against
+    autograd through the plain version in fp32 on the same tensors: 1e-4
+    of each gradient's max in fp32 (3xTF32 against TF32 off), 2e-2 in
+    bf16 (bf16 inputs and gradients; the kernel's P in bf16 before P V,
+    which the backward's row sums read; P and dS in bf16 before the
+    backward's products), of the whole gradient and of each 128-row or
+    128-key block.  The backward launches its kernels once, and the plain
+    backward never runs on the card."""
+    _no_plain_backward_on_card(monkeypatch)
     q, k, v, do = (a.to(dtype) for a in randn(
         dev, 61, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d),
         (n, hq, sq, d)))
@@ -1660,7 +1691,9 @@ def test_flash_attention_gradients_on_card(dev, n, hq, hkv, sq, skv, d,
     out = ops.flash_attention(*leaves, causal=causal, window=window)
     assert out.grad_fn is not None
     assert ops.launch_counts()["flash_attention"] == before + 1
+    before_bwd = ops.launch_counts()["flash_attention_bwd"]
     got = torch.autograd.grad(out, leaves, do)
+    assert ops.launch_counts()["flash_attention_bwd"] == before_bwd + 1
     plain = [t.float().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(ref.flash_attention_ref(
         *plain, causal=causal, window=window), plain, do.float())
@@ -1668,6 +1701,110 @@ def test_flash_attention_gradients_on_card(dev, n, hq, hkv, sq, skv, d,
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert max_err(g.float(), w) <= tol * float(w.abs().max())
+    _grad_blocks("autograd", got, want, tol)
+
+
+def _backward_inputs(dev, dtype, n, hq, hkv, sq, skv, d, causal, window,
+                     seed=62):
+    """q, k, v, dO in ``dtype`` and the forward kernel's output."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = (a.to(dtype) for a in randn(
+        dev, seed, (n, hq, sq, d), (n, hkv, skv, d), (n, hkv, skv, d),
+        (n, hq, sq, d)))
+    o = fa._forward(q, k, v, causal, d ** -0.5, window)
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window", ATTENTION_GRAD)
+def test_flash_attention_backward_kernel_matches_plain(dev, n, hq, hkv, sq,
+                                                       skv, d, causal,
+                                                       window, dtype):
+    """The backward kernels against ``ref.flash_attention_bwd_ref`` on the
+    same CUDA tensors (the forward kernel's output): 1e-4 of each
+    gradient's (and each 128-row or 128-key block's) max in fp32, 2e-2
+    in bf16 (P and dS rounded to bf16 before the kernels' products, the
+    plain version's in fp32)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, o, do = _backward_inputs(dev, dtype, n, hq, hkv, sq, skv, d,
+                                      causal, window)
+    got = fab.flash_attention_bwd(q, k, v, o, do, causal, d ** -0.5, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        assert max_err(g.float(), w.float()) <= tol * float(
+            w.float().abs().max())
+    _grad_blocks("kernel vs plain", got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window",
+                         [ATTENTION_GRAD[0], ATTENTION_GRAD[4],
+                          (2, 28, 4, 512, 512, 128, True, None)])
+def test_flash_attention_backward_is_deterministic(dev, n, hq, hkv, sq, skv,
+                                                   d, causal, window, dtype):
+    """Two backward calls on the same tensors give the same bits: every
+    sum runs in a fixed order, with no atomics (the last shape splits
+    each key block's tiles over parts)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, o, do = _backward_inputs(dev, dtype, n, hq, hkv, sq, skv, d,
+                                      causal, window)
+    a = fab.flash_attention_bwd(q, k, v, o, do, causal, d ** -0.5, window)
+    b = fab.flash_attention_bwd(q, k, v, o, do, causal, d ** -0.5, window)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_backward_rows_with_no_key(dev):
+    """Causal, 200 queries over 72 keys: the first 128 rows keep no key, so
+    their dq is 0 and the kernel's dk and dv are those of the other rows
+    alone, within the bf16 tolerance of the plain backward."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, o, do = _backward_inputs(dev, torch.bfloat16, 1, 4, 2, 200, 72,
+                                      64, True, None)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, o, do, True, 0.125, None)
+    assert not dq[:, :, :128].float().abs().max()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    for g, w in zip((dq, dk, dv), want):
+        assert max_err(g.float(), w.float()) <= 2e-2 * float(
+            w.float().abs().max())
+    _grad_blocks("no key", (dq, dk, dv), want, 2e-2)
+
+
+def test_flash_attention_backward_limits(dev):
+    """The backward raises ``ValueError`` naming its limit: a head dim
+    above 128, one that is not a multiple of 8 in bf16 (4 in fp32), a
+    q that is not 16-byte aligned."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    for dtype, d in ((torch.bfloat16, 136), (torch.bfloat16, 36),
+                     (torch.float32, 132), (torch.float32, 6)):
+        q, k, v, do = (a.to(dtype) for a in randn(
+            dev, 63, (1, 2, 16, d), (1, 2, 16, d), (1, 2, 16, d),
+            (1, 2, 16, d)))
+        with pytest.raises(ValueError, match="head dim"):
+            fab.flash_attention_bwd(q, k, v, q, do, True, 0.1, None)
+    buf = randn(dev, 64, (2 * 16 * 64 + 4,))[0].bfloat16()
+    q = buf[4:].view(1, 2, 16, 64)           # 8 bytes past an aligned base
+    k = buf[:-4].view(1, 2, 16, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fab.flash_attention_bwd(q, k, k, k, k, True, 0.1, None)
+
+
+@pytest.mark.parametrize("d", [128, 112, 80, 64, 32])
+def test_flash_attention_backward_probe_is_exact(dev, d):
+    """One product of each form of the bf16 backward (``a b^T`` with both
+    operands K-major in shared memory; ``p c`` with p from registers in
+    S's accumulator layout and c MN-major) on bf16-exact inputs: every
+    product and sum is exact in fp32."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    g = torch.Generator().manual_seed(81 + d)
+    a, b, p, c = (torch.randint(-8, 9, s_, generator=g).float() / 8
+                  for s_ in ((64, d), (64, d), (64, 64), (64, d)))
+    s, o = fab.probe(*(t.bfloat16().to(dev) for t in (a, b, p, c)))
+    assert torch.equal(s.cpu().double(), a.double() @ b.double().T)
+    assert torch.equal(o.cpu().double(), p.double() @ c.double())
 
 
 def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):

@@ -223,6 +223,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
     ops.reset_launch_counts()
     x, s, gb, wt, b = arrs(10, (1, 4, 4, 8), (8,), (8,), (3, 3, 8, 8), (8,))
     q = t(x).reshape(1, 1, 16, 8)
+    qg = q.clone().requires_grad_(True)
     calls = {
         "conv3x3": lambda: ops.conv3x3(t(x), t(wt), t(b)),
         "gn_silu_conv3x3": lambda: ops.gn_silu_conv3x3(
@@ -231,6 +232,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
         "output_epilogue": lambda: ops.output_epilogue(
             t(x), t(s), t(gb), t(wt), t(b), groups=2),
         "flash_attention": lambda: ops.flash_attention(q, q, q),
+        "flash_attention_bwd": lambda: torch.autograd.grad(
+            ops.flash_attention(qg, q, q).sum(), qg),
         "group_norm_silu": lambda: ops.group_norm_silu(t(x), t(s), t(gb),
                                                        groups=2),
         "decode_attention": lambda: ops.decode_attention(

@@ -226,6 +226,38 @@ def test_flash_attention_bwd_ref_matches_autograd(n, hq, hkv, sq, skv, d,
             1.0, float(b.abs().max()))
 
 
+@pytest.mark.parametrize("n,hq,hkv,sq,skv,d,causal,window",
+                         [c for c in BWD_CASES
+                          if not (c[6] and c[3] > c[4])])
+def test_flash_attention_bwd_ref_matches_jax_grad(n, hq, hkv, sq, skv, d,
+                                                  causal, window):
+    """The plain backward against ``jax.grad`` of the JAX package's
+    ``flash_attention_ref`` on the same seeded numpy inputs, fp32 on both
+    sides: 1e-5 of each gradient's max.  (Rows with no key, where the JAX
+    reference's softmax gives NaN, are left to the float64 case above.)"""
+    from repro.kernels import ref as jref
+    r = np.random.default_rng(sq * 31 + skv)
+    q, k, v, do = (r.standard_normal(s).astype(np.float32)
+                   for s in ((n, hq, sq, d), (n, hkv, skv, d),
+                             (n, hkv, skv, d), (n, hq, sq, d)))
+
+    def loss(q_, k_, v_):
+        out = jref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                       window=window)
+        return jnp.sum(out * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    o = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    got = ref.flash_attention_bwd_ref(qt, kt, vt, o, dot, causal=causal,
+                                      window=window)
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert float(np.abs(a.numpy() - b).max()) <= 1e-5 * float(
+            np.abs(b).max())
+
+
 def test_flash_attention_bwd_ref_keeps_each_dtype():
     g = torch.Generator().manual_seed(5)
     q = torch.randn((1, 4, 10, 8), generator=g).to(torch.bfloat16)
