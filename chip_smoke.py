@@ -198,10 +198,17 @@ wall seconds (any failure exits non-zero):
                 unsharded step's; (a) rwkv6-7b at full width, 2 of 32
                 layers, bf16, 3 AdamW steps of 2 x 512 tokens (finite
                 losses, ``rwkv6_scan`` launches per step = layers x 2
-                with remat), and ``RWKV6Scan`` at the training shape, r,
-                k, v [2, 64, 512, 64] bf16: its gradients against fp32
-                autograd through the sequential plain scan, the forward
-                kernel's and the backward's ms; (b) Qwen2-7B at full
+                with remat, ``rwkv6_scan_bwd`` launches = layers; each
+                step's device ms and one step's profile: the backward
+                kernels' device ms), and ``RWKV6Scan`` at the training
+                shape, r, k, v [2, 64, 512, 64] bf16: its gradients
+                (the backward kernel of ``csrc/rwkv6_scan_bwd.cu``)
+                against fp32 autograd through the sequential plain scan,
+                the kernel against ``ref.rwkv6_scan_bwd_ref`` on the same
+                tensors, each 64-token block of dr, dk, dv and dw within
+                the tolerance of its own max, two backward calls bit for
+                bit; the forward kernel's, the backward kernel's and the
+                plain backward's ms beside the bound; (b) Qwen2-7B at full
                 width, 2 of 28 layers, 2 steps of 2 microbatches,
                 unsharded and then on the (1, 1) NCCL mesh with ZeRO-1
                 moments and the "local" gradient plan: losses and
@@ -400,6 +407,11 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:62"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:55"),
+    # the gradient of that kernel: the JAX package has no Pallas backward
+    # (jax.grad differentiates its chunked XLA form, models/ssm.py's
+    # rwkv6_chunked)
+    "rwkv6_scan_bwd": ("src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                       "src/repro/kernels/rwkv6_scan.py:55"),
 }
 #: kernel -> what its CUDA source runs on
 DESIGN = {
@@ -478,12 +490,28 @@ DESIGN = {
                   "cp.async staging; decode: the whole state in the "
                   "registers of 8 warps, 16-byte loads, fixed-order "
                   "shuffles (CUDA-core fp32)",
+    "rwkv6_scan_bwd": "three launches, fixed order, no atomics: the "
+                      "forward's own chunked walk writes the state at "
+                      "every 16-token sub-chunk's start (n h (t/16 + 1) d^2 "
+                      "fp32 scratch); a block per (sequence, head, value "
+                      "columns: d up to 64 in one) walks the sub-chunks "
+                      "from last to first with dS^T resident in fp32 "
+                      "registers, the stored state staged by cp.async a "
+                      "sub-chunk ahead, dv = dS^T (k E)^T + dO^T A, X = dO "
+                      "S0^T, Y = v dS and the update dS^T D_16 + dO^T (r D) "
+                      "in 3xTF32 on mma.sync (bf16 dO and v exact: two "
+                      "products), the pairwise decays, B = dO v^T, the "
+                      "intra sums, the u terms and the dw carry (restarted "
+                      "from rowsum(S dS) at each sub-chunk's end) on the "
+                      "CUDA cores; a pass sums du over the sequences (and "
+                      "value-column tiles above d 64)",
 }
 #: kernels whose fp32 work runs in 3xTF32 on the tensor cores: their
 #: bound counts three TF32 products per fp32 one at the TF32 peak (a conv
 #: with Cout <= CUDA_CORE_COUT runs on the CUDA cores, at the fp32 peak)
 TENSOR_CORE = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
-               "flash_attention", "flash_attention_bwd", "rwkv6_scan")
+               "flash_attention", "flash_attention_bwd", "rwkv6_scan",
+               "rwkv6_scan_bwd")
 CUDA_CORE_COUT = 4
 #: the conv kernels that take quantized weights, and the storage dtypes
 QUANT_KERNELS = ("conv3x3", "gn_silu_conv3x3", "upsample_conv3x3",
@@ -493,7 +521,9 @@ WEIGHT_DTYPES = ("float32", "bfloat16", "int8")
 GN_KERNELS = ("gn_silu_conv3x3", "output_epilogue", "group_norm_silu")
 #: kernels no single PyTorch call computes (``library_ms`` null)
 NO_LIBRARY = {"rwkv6_scan": "no single PyTorch call computes the RWKV-6 "
-                            "recurrence"}
+                            "recurrence",
+              "rwkv6_scan_bwd": "no single PyTorch call computes RWKV-6's "
+                                "backward"}
 
 
 class SmokeFailure(RuntimeError):
@@ -4144,19 +4174,46 @@ DEPTH_CUT["dist_mesh"] = (
        "the embedding and the untied head are 1.56 B parameters, 25 GB of "
        "moments for both runs")
 DIST_RWKV_TOL = (
-    2e-2, "bf16 r, k, v and their gradients (2^-9 relative each) against "
-          "fp32 autograd through the sequential rwkv6_scan_ref on the same "
-          "inputs; w, u and the state's gradients are fp32 from the same "
-          "bf16 inputs, the chunked form's sums in another order; relative "
-          "to each gradient's max |value|")
+    2e-2, "bf16 r, k, v, dO and the gradients dr, dk, dv (2^-9 relative "
+          "each) against fp32 autograd through the sequential "
+          "rwkv6_scan_ref on the same inputs, and against "
+          "ref.rwkv6_scan_bwd_ref on the same tensors (fp32 sums each "
+          "rounded to bf16 once); dw and du are fp32 from the same bf16 "
+          "inputs, the kernel's products in 3xTF32 and its sums in another "
+          "order; relative to each gradient's max |value|, and each 64-token "
+          "block of dr, dk, dv and dw to its own max")
+#: tokens a block of (a)'s per-block check holds to its own max
+RWKV_BLOCK = 64
+
+
+def rwkv6_bwd_work(shape, elt):
+    """(FLOPs, bytes) of one ``rwkv6_scan_bwd`` call at r [n, h, t, d] in
+    ``elt`` bytes with no state and no state cotangent: its d^2 products,
+    10 d^2 per (sequence, head, token) -- the states' recompute (2 d^2),
+    X = dO S0^T, Y = v dS, dv's inter term and the cotangent's update (2
+    d^2 each) -- at the TF32 rate, three products each (``ops_ms``); r, k,
+    v and dO (``elt``), w and u (fp32) read once, dr, dk, dv (``elt``),
+    dw and du (fp32) written once.  The state scratch is the kernel's own
+    choice and not counted."""
+    n, h, t, d = shape
+    elems = n * h * t * d
+    nbytes = (4 * elt + 4) * elems + (3 * elt + 4) * elems + 2 * 4 * h * d
+    return float(10 * elems * d), float(nbytes)
 
 
 def dist_rwkv6_scan_check(torch, state):
     """(a)'s kernel check at the training shape, r, k, v [2, 64, 512, 64]
-    bf16: ``RWKV6Scan``'s gradients (the chunked plain backward) against
-    autograd through the sequential plain scan in fp32, and the forward
-    kernel's, the backward's and the plain forward plus backward's ms."""
+    bf16: ``RWKV6Scan``'s backward launches ``rwkv6_scan_bwd`` once and
+    nothing else; its gradients against autograd through the sequential
+    plain scan in fp32, and the kernel against ``ref.rwkv6_scan_bwd_ref``
+    on the same tensors, each also per 64-token block of dr, dk, dv and
+    dw against that block's max; two kernel calls bit for bit; the
+    forward kernel's, the backward kernel's (its wrapper, and the whole
+    autograd backward) and the plain backward's ms.  Sets
+    ``rwkv6_scan_bwd``'s row of the ``kernels`` line."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan_bwd as krb
     cfg = state["dist_rwkv_cfg"]
     h, d = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
     shape = (DIST_RWKV["batch"], h, DIST_RWKV["seq"], d)
@@ -4168,39 +4225,149 @@ def dist_rwkv6_scan_check(torch, state):
     u = torch.randn((h, d), generator=gen, device="cuda") * 0.1
     leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
     out, _ = ops.rwkv6_scan(*leaves)
+    before = ops.launch_counts()
     got = torch.autograd.grad(out, leaves, do, retain_graph=True)
-    ref_in = [t.float().requires_grad_(True) for t in (r, k, v, w, u)]
+    after = ops.launch_counts()
+    launched = {k_: after[k_] - before[k_] for k_ in after
+                if after[k_] != before[k_]}
+    need(launched == {"rwkv6_scan_bwd": 1},
+         f"RWKV6Scan's backward launched {launched}")
+    ref_in = [t.detach().float().requires_grad_(True)
+              for t in (r, k, v, w, u)]
     want = torch.autograd.grad(ref.rwkv6_scan_ref(*ref_in)[0], ref_in,
                                do.float())
     tol, why = DIST_RWKV_TOL
+    names = ("dr", "dk", "dv", "dw", "du")
     errs = {}
-    for name, g, wt in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+    for name, g, wt in zip(names, got, want):
         errs[name] = float((g.float() - wt).abs().max() / wt.abs().max())
         need(bool(torch.isfinite(g.float()).all()) and errs[name] <= tol,
              f"RWKV6Scan {name} differs by {errs[name]} > {tol}")
+
+    def blocks(label, ours, theirs):
+        out_ = {}
+        for name, g, wt in zip(names[:4], ours, theirs):
+            b = flash_block_errors(torch, F, f"{label} {name}", g, wt, tol,
+                                   rows=RWKV_BLOCK)
+            w_ = b["block_worst"]
+            b["worst_share"] = w_["max_abs_err"] / w_["tol"]
+            out_[name] = b
+        return out_
+
+    grad_blocks = blocks("RWKV6Scan", got, want)
+    del got, want, ref_in
+    kernel = lambda: krb.rwkv6_scan_bwd(  # noqa: E731
+        r, k, v, w, u, None, do, None)
+    plain = lambda: ref.rwkv6_scan_bwd_ref(  # noqa: E731
+        r, k, v, w, u, None, do, None)
+    first, again, want_plain = kernel(), kernel(), plain()
+    need(all(torch.equal(a, b) for a, b in zip(first[:5], again[:5])),
+         "two rwkv6_scan_bwd calls differ")
+    plain_errs, max_abs = {}, 0.0
+    for name, g, wt in zip(names, first, want_plain):
+        diff = float((g.float() - wt.float()).abs().max())
+        max_abs = max(max_abs, diff)
+        plain_errs[name] = diff / float(wt.float().abs().max())
+        need(g.dtype == (r.dtype if name in ("dr", "dk", "dv")
+                         else torch.float32) and plain_errs[name] <= tol,
+             f"the backward kernel's {name} differs from the plain "
+             f"backward's by {plain_errs[name]}")
+    plain_blocks = blocks("rwkv6_scan_bwd vs plain", first, want_plain)
+    del first, again, want_plain
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w, u), REPS)
-    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+    bwd_ms = cuda_ms(torch, kernel, REPS)
+    autograd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True), REPS)
-    plain = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
-
-    def plain_fwd_bwd():
-        y, _ = ref.rwkv6_chunked_ref(*plain)
-        torch.autograd.grad(y, plain, do)
-
-    plain_ms = cuda_ms(torch, plain_fwd_bwd, 3)
+    plain_ms = cuda_ms(torch, plain, 3)
+    flops, nbytes = rwkv6_bwd_work(shape, 2)
+    row = with_bound({"ops_ms": ops_ms(state, "rwkv6_scan_bwd", flops),
+                      "bytes": nbytes}, state["peaks"][1])
+    row.update(max_abs_err=max_abs, ms=bwd_ms, plain_ms=plain_ms,
+               library_ms=None)
+    state.setdefault("kernel_totals", {})["rwkv6_scan_bwd"] = row
+    nc = -(-shape[2] // ref.RWKV_CHUNK)
     return {"r": list(shape), "dtype": "bfloat16", "rel_err": errs,
-            "tol": tol, "tol_reason": why, "forward_ms": fwd_ms,
-            "backward_ms": bwd_ms, "plain_chunked_fwd_bwd_ms": plain_ms,
-            "backward": "ref.rwkv6_chunked_ref under autograd, 32-token "
-                        "chunks"}
+            "tol": tol, "tol_reason": why, "blocks": grad_blocks,
+            "kernel_vs_plain_rel_err": plain_errs,
+            "kernel_vs_plain_blocks": plain_blocks,
+            "kernel_vs_plain_max_abs_err": max_abs, "bit_identical": True,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "autograd_backward_ms": autograd_ms,
+            "plain_backward_ms": plain_ms, "backward_bound_ms":
+            row["bound_ms"], "backward_bound_by": row["bound_by"],
+            "backward_flops": flops, "backward_bytes": nbytes,
+            "state_scratch_bytes": 4 * shape[0] * h * (nc + 1) * d * d,
+            "backward": "rwkv6_scan_bwd: the kernel of "
+                        "csrc/rwkv6_scan_bwd.cu (states recomputed by the "
+                        "forward's walk, a reverse walk of 16-token "
+                        "sub-chunks, du summed in order)"}
+
+
+#: device kernels of ``rwkv6_scan_bwd`` by a part of their names; its
+#: states' recompute is the forward's ``rwkv6_chunk_kernel`` instantiated
+#: with SAVE = true (a name that also holds "true")
+RWKV_BACKWARD_KERNELS = ("rwkv6_bwd_kernel", "rwkv6_bwd_du",
+                         "rwkv6_bwd_sum_tiles")
+
+
+def rwkv6_profile(torch, step):
+    """One rwkv6-7b train step under ``torch.profiler``: its device ms,
+    the ``rwkv6_scan_bwd`` kernels' (by their names: the profiler does not
+    attribute a ``ctypes`` launch to the ``record_function`` range around
+    it, so the range adds only the PyTorch kernels it launches itself),
+    the forward scan kernels', and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+
+    def is_bwd(name):
+        return any(n in name for n in RWKV_BACKWARD_KERNELS) or (
+            "rwkv6_chunk_kernel" in name and "true" in name)
+
+    def is_fwd(name):
+        return not is_bwd(name) and ("rwkv6_chunk_kernel" in name
+                                     or "rwkv6_decode_kernel" in name)
+
+    def launched(ev):
+        out = [(kk.name, kk.duration) for kk in getattr(ev, "kernels", [])]
+        for ch in ev.cpu_children:
+            out += launched(ch)
+        return out
+
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    bwd = sum(e.self_device_time_total for e in kernels
+              if is_bwd(e.name)) / 1e3
+    fwd = sum(e.self_device_time_total for e in kernels
+              if is_fwd(e.name)) / 1e3
+    in_range = [us for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name == "rwkv6_scan_bwd"
+                for n, us in launched(e) if not is_bwd(n)]
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name[:90]] += e.self_device_time_total / 1e3
+    return {"device_ms": total, "rwkv6_scan_bwd_kernels_ms": bwd,
+            "rwkv6_scan_bwd_torch_ms": sum(in_range) / 1e3,
+            "rwkv6_scan_forward_ms": fwd,
+            "rest_ms": total - bwd - fwd - sum(in_range) / 1e3,
+            "device_kernels": len(kernels),
+            "top": [{"kernel": k, "ms": ms}
+                    for k, ms in by_name.most_common(8)]}
 
 
 def dist_rwkv6_train(torch, state):
     """(a): rwkv6-7b at full width, 2 of 32 layers, bf16, 3 AdamW steps
     of 2 x 512 Zipf tokens: finite losses, ``rwkv6_scan`` launches per
-    step = layers x (2 with remat, its forward again in the backward);
-    step device ms."""
+    step = layers x (2 with remat, its forward again in the backward),
+    ``rwkv6_scan_bwd`` launches = layers; each step's device ms; then a
+    fourth step under ``torch.profiler`` (``rwkv6_profile``)."""
     import dataclasses
     np = state["np"]
     from repro_torch.configs import build_model, get_config
@@ -4220,6 +4387,7 @@ def dist_rwkv6_train(torch, state):
     opt_state = opt.init(model.params)
     per_step = {k: 0 for k in KERNELS}
     per_step["rwkv6_scan"] = cfg.n_layers * (2 if cfg.remat else 1)
+    per_step["rwkv6_scan_bwd"] = cfg.n_layers
     losses, dev_ms, step_launches = [], [], []
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4236,6 +4404,14 @@ def dist_rwkv6_train(torch, state):
         after = ops.launch_counts()
         step_launches.append({k: after[k] - before[k] for k in KERNELS})
         losses.append(float(met["loss"]))
+    holder = {"opt_state": opt_state}
+
+    def profiled_step():
+        holder["opt_state"] = step(model.params, holder["opt_state"], None,
+                                   data.batch(DIST_RWKV["steps"]))[1]
+
+    prof = rwkv6_profile(torch, profiled_step)
+    opt_state = holder["opt_state"]
     launches = ops.launch_counts()
     state["launches"]["dist_rwkv6"] = launches
     need(all(map(np.isfinite, losses)), f"rwkv6 train losses {losses}")
@@ -4249,6 +4425,8 @@ def dist_rwkv6_train(torch, state):
                                                 DIST_RWKV["seq"]],
            "remat": cfg.remat, "losses": losses, "step_device_ms": dev_ms,
            "launches": launches, "launches_per_step": per_step,
+           "rwkv6_scan_bwd_launches_per_step": per_step["rwkv6_scan_bwd"],
+           "profile_step": prof,
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     del model, opt_state
     gc.collect()

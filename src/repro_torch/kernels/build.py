@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gn_stats", "conv3x3", "gn_silu_conv", "upsample_conv",
            "flash_attention", "flash_attention_bwd", "gn_silu",
-           "decode_attention", "rwkv6_scan", "output_epilogue")
+           "decode_attention", "rwkv6_scan", "rwkv6_scan_bwd",
+           "output_epilogue")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -60,6 +61,7 @@ SIGNATURES = {
                                                      P]),
     "rwkv6_scan": ("rwkv6_scan_launch", [P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, I, P]),
+    "rwkv6_scan_bwd": ("rwkv6_scan_bwd_launch", [P] * 17 + [I] * 5 + [P]),
     "output_epilogue": ("output_epilogue_launch", [P, P, P, P, P, P, P, P,
                                                    I, I, I, I, I, I, I, I,
                                                    P]),
@@ -167,12 +169,16 @@ def check(err: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 #: why a kernel's launch may not see a tensor that requires grad, where
-#: the reason is not that the JAX package never differentiates it
+#: the reason is not that the JAX package never differentiates it: the
+#: kernels with a backward are differentiated by an autograd Function,
+#: which launches the forward with grad off and the backward kernel itself
 NO_BACKWARD = {
     "flash_attention": "its gradient goes through "
-                       "kernels.flash_attention.FlashAttention",
+                       "kernels.flash_attention.FlashAttention (backward: "
+                       "kernels.flash_attention_bwd)",
     "rwkv6_scan": "its gradient goes through "
-                  "kernels.rwkv6_scan.RWKV6Scan",
+                  "kernels.rwkv6_scan.RWKV6Scan (backward: "
+                  "kernels.rwkv6_scan_bwd)",
 }
 
 
@@ -190,8 +196,8 @@ def forward_only(what: str, **tensors) -> None:
             why = NO_BACKWARD.get(what, "the JAX package never "
                                         "differentiates it")
             raise NotImplementedError(
-                f"{what}: {name} requires grad, and the CUDA kernel has no "
-                f"backward: {why}; call it under torch.no_grad() or "
+                f"{what}: {name} requires grad, and the launch's output "
+                f"has no backward: {why}; call it under torch.no_grad() or "
                 "torch.inference_mode()")
 
 

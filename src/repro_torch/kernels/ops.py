@@ -36,6 +36,7 @@ from repro_torch.kernels import gn_silu as _gn_silu
 from repro_torch.kernels import gn_silu_conv as _gn_silu_conv
 from repro_torch.kernels import output_epilogue as _output_epilogue
 from repro_torch.kernels import rwkv6_scan as _rwkv6_scan
+from repro_torch.kernels import rwkv6_scan_bwd as _rwkv6_scan_bwd
 from repro_torch.kernels import upsample_conv as _upsample_conv
 
 group_norm_silu = _gn_silu.group_norm_silu
@@ -157,6 +158,7 @@ KERNEL_MODULES = {
     "group_norm_silu": _gn_silu,
     "decode_attention": _decode_attention,
     "rwkv6_scan": _rwkv6_scan,
+    "rwkv6_scan_bwd": _rwkv6_scan_bwd,
 }
 
 

@@ -324,13 +324,16 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out_t = r_t . (S + u (x) (k_t (x) v_t))
         S     = diag(exp(-exp(w_t))) S + k_t (x) v_t
 
-    Returns (out [n, h, t, d] in r's dtype, final state fp32)."""
+    Returns (out [n, h, t, d] in r's dtype, final state fp32).  float64
+    inputs are computed, and their state returned, in float64 (the
+    tests' exact reference for the backward)."""
     n, h, t, d = r.shape
-    s = (torch.zeros((n, h, d, d), dtype=torch.float32, device=r.device)
-         if state is None else state.float())
-    rf, kf, vf = r.float(), k.float(), v.float()
-    decay = torch.exp(-torch.exp(w.float()))
-    uf = u.float()[None, :, :, None]
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    s = (torch.zeros((n, h, d, d), dtype=ct, device=r.device)
+         if state is None else state.to(ct))
+    rf, kf, vf = r.to(ct), k.to(ct), v.to(ct)
+    decay = torch.exp(-torch.exp(w.to(ct)))
+    uf = u.to(ct)[None, :, :, None]
     outs = []
     for i in range(t):
         kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]        # [n,h,d,d]
@@ -353,7 +356,10 @@ def rwkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the forward or in its gradient.  Same arguments and results as
     :func:`rwkv6_scan_ref`.  Only the d x d state crosses chunks: every
     other term is computed for all chunks in one batched op each, and a
-    Python loop of two ops a chunk carries the state where JAX scans."""
+    Python loop of two ops a chunk carries the state where JAX scans.  No
+    path of the port calls it (``RWKV6Scan``'s backward is
+    :func:`rwkv6_scan_bwd_ref` on the CPU): it is the JAX form's
+    counterpart for the tests."""
     b, h, t, d = r.shape
     chunk = min(chunk, t)
     while t % chunk:
@@ -394,3 +400,116 @@ def rwkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ys = y_inter + y_intra + sdiag[..., None] * vs
     out = ys.reshape(b, h, t, d)
     return out.to(r.dtype), S
+
+
+#: tokens per sub-chunk of the RWKV-6 kernels (``C`` in
+#: ``csrc/rwkv6_chunk.cuh``), the backward's unit of work
+RWKV_CHUNK = 16
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       state: Optional[torch.Tensor] = None,
+                       dout: Optional[torch.Tensor] = None,
+                       dstate: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dr, dk, dv, dw, du, dstate0) of
+    :func:`rwkv6_scan_ref` at (r, k, v, w, u, state) against the
+    cotangents ``dout`` of its output and ``dstate`` of its final state
+    (either None: zero), in closed form with no autograd, chunked as
+    ``csrc/rwkv6_scan_bwd.cu`` walks it.  With S_t the state after token
+    t, dec = exp(lw), lw = -exp(w), and dS_t the cotangent of S_t
+    (dS_T = dstate)::
+
+        dS_{t-1} = diag(dec_t) dS_t + r_t dO_t^T        (dS_0: dstate0)
+        dr^_t = S_{t-1} dO_t,   dk^_t = dS_t v_t,   c_t = dO_t . v_t
+        dr_t = dr^_t + u (.) k_t c_t,   dk_t = dk^_t + u (.) r_t c_t
+        dv_t = dS_t^T k_t + dO_t (r_t . (u (.) k_t))
+        du   = sum over n, t of r_t (.) k_t c_t
+        dlw_t = Phi + sum_{m>t} r_m (.) dr^_m - sum_{m>=t} k_m (.) dk^_m
+        dw_t = dlw_t (.) lw_t
+
+    where, per sub-chunk of ``RWKV_CHUNK`` tokens (t padded with r = k =
+    v = dO = 0 and dec = 1), Phi = rowsum(S (.) dS) at the sub-chunk's
+    end and the sums run over its tokens: the dw carry restarts from the
+    state at each sub-chunk's end, so no running sum spans more than 16
+    tokens.  Inside a sub-chunk S_{t-1} and dS_t are the carried states
+    decayed by exp(Lp_t) and exp(L_last - L_t) (Lp, L: exclusive and
+    inclusive sums of lw over the sub-chunk) plus the pairs between its
+    tokens, decayed by exp(min(Lp_t - L_s, 0)) <= 1, as in
+    :func:`rwkv6_chunked_ref`.  dr, dk, dv come back in r's dtype, dw,
+    du and dstate0 in fp32 (float64 for float64 inputs)."""
+    n, h, t, d = r.shape
+    C = RWKV_CHUNK
+    nc = -(-t // C)
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    dev = r.device
+
+    def chunks(x):                        # [n, h, t, d] -> [n, h, nc, C, d]
+        x = F.pad(x.to(ct), (0, 0, 0, nc * C - t))
+        return x.reshape(n, h, nc, C, x.shape[-1])
+
+    lw = -torch.exp(w.to(ct))
+    rs, ks, vs, lws = (chunks(x) for x in (r, k, v, lw))
+    dos = (torch.zeros_like(rs) if dout is None else chunks(dout))
+    L = torch.cumsum(lws, dim=3)                          # inclusive
+    Lp = L - lws
+    Llast = L[:, :, :, -1:, :]
+    dec_start = torch.exp(Lp)                             # D_t
+    dec_end = torch.exp(torch.clamp(Llast - L, max=0.0))  # E_t
+    d16 = torch.exp(Llast[:, :, :, 0])                    # [n, h, nc, d]
+    lower = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev),
+                       diagonal=-1)
+    pair = torch.exp(torch.clamp(Lp[:, :, :, :, None, :]
+                                 - L[:, :, :, None, :, :], max=0.0))
+    pair = pair * lower[:, :, None]                       # [.., t, s, d]
+    kr = ks * dec_end
+    rd = rs * dec_start
+    # the states at each sub-chunk's start (and S_T), then the cotangents
+    # at each sub-chunk's end, walking back from dS_T
+    kv = torch.einsum("bhnsi,bhnsj->bhnij", kr, vs)
+    S = (torch.zeros((n, h, d, d), dtype=ct, device=dev) if state is None
+         else state.to(ct))
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = d16[:, :, c, :, None] * S + kv[:, :, c]
+    s_end = torch.stack(starts[1:] + [S], dim=2)
+    s_start = torch.stack(starts, dim=2)
+    rdo = torch.einsum("bhnti,bhntj->bhnij", rd, dos)
+    dS = (torch.zeros((n, h, d, d), dtype=ct, device=dev) if dstate is None
+          else dstate.to(ct))
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = dS
+        dS = d16[:, :, c, :, None] * dS + rdo[:, :, c]
+    ds_end = torch.stack(ends, dim=2)
+    # every sub-chunk at once: B_ts = dO_t . v_s, A_ts of the forward
+    B = torch.einsum("bhntj,bhnsj->bhnts", dos, vs)
+    cdiag = torch.diagonal(B, dim1=-2, dim2=-1)           # c_t
+    bl = B * lower
+    drh = dec_start * torch.einsum("bhntj,bhnij->bhnti", dos, s_start) \
+        + torch.einsum("bhnts,bhnsi,bhntsi->bhnti", bl, ks, pair)
+    dkh = dec_end * torch.einsum("bhntj,bhnij->bhnti", vs, ds_end) \
+        + torch.einsum("bhnts,bhnti,bhntsi->bhnsi", bl, rs, pair)
+    uf = u.to(ct)[None, :, None, None, :]
+    A = torch.einsum("bhnti,bhnsi,bhntsi->bhnts", rs, ks, pair) \
+        + torch.diag_embed((rs * uf * ks).sum(-1))
+    dv = torch.einsum("bhnti,bhnij->bhntj", kr, ds_end) \
+        + torch.einsum("bhnmt,bhnmj->bhntj", A, dos)
+    bonus = cdiag[..., None]
+    dr = drh + uf * ks * bonus
+    dk = dkh + uf * rs * bonus
+    du = (rs * ks * bonus).sum(dim=(0, 2, 3))
+    phi = (s_end * ds_end).sum(-1)                        # [n, h, nc, d]
+    a, b = rs * drh, ks * dkh
+    tail_a = torch.flip(torch.cumsum(torch.flip(a, [3]), 3), [3]) - a
+    tail_b = torch.flip(torch.cumsum(torch.flip(b, [3]), 3), [3])
+    dw = (phi[:, :, :, None] + tail_a - tail_b) * lws
+
+    def unchunk(x, dtype):
+        return x.reshape(n, h, nc * C, d)[:, :, :t].to(dtype)
+
+    out_t = ct if r.dtype == torch.float64 else r.dtype
+    return (unchunk(dr, out_t), unchunk(dk, out_t), unchunk(dv, out_t),
+            unchunk(dw, ct), du, dS)

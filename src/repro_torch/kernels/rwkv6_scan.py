@@ -20,10 +20,12 @@ at a time.
 
 Under autograd (grad mode on and an input that requires grad) the call
 goes through :class:`RWKV6Scan`: the forward is the kernel (or the plain
-version on the CPU), the backward differentiates the JAX package's
-chunked form, ``ref.rwkv6_chunked_ref``, recomputed from the saved
-inputs, as the JAX package's RWKV-6 block differentiates
-``rwkv6_chunked`` (no TPU kernel had a backward).
+version on the CPU), the backward the kernel of ``csrc/rwkv6_scan_bwd.cu``
+(:mod:`repro_torch.kernels.rwkv6_scan_bwd`; on the CPU its plain version,
+``ref.rwkv6_scan_bwd_ref``), from the saved inputs.  No TPU kernel had a
+backward: the JAX package's RWKV-6 block differentiates its chunked form,
+``rwkv6_chunked``, which ``tests/test_torch_rwkv_bwd.py`` holds the
+plain backward to.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from torch.profiler import record_function
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.rwkv6_scan_bwd import rwkv6_scan_bwd
 
 #: kernel launches of :func:`rwkv6_scan` in this process
 launches = 0
@@ -50,11 +53,13 @@ DECODE_MAX_T = 4
 
 
 class RWKV6Scan(torch.autograd.Function):
-    """The recurrence with the kernel's forward and a plain backward:
-    saves the inputs and, in the backward pass, differentiates
-    ``ref.rwkv6_chunked_ref`` at them (32-token chunks, where the
-    kernel walks sub-chunks of 16: only the function has to agree).
-    Returns (out, final state); either may go unused."""
+    """The recurrence with the kernel's forward and the backward kernel:
+    saves the inputs and, in the backward pass, calls
+    :func:`~repro_torch.kernels.rwkv6_scan_bwd.rwkv6_scan_bwd` on them
+    (one launch of ``rwkv6_scan_bwd`` on the card, which recomputes the
+    forward's states itself; ``ref.rwkv6_scan_bwd_ref`` on the CPU).
+    Returns (out, final state); either may go unused, and its cotangent
+    is then None (zero)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
@@ -65,28 +70,12 @@ class RWKV6Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dstate):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        ins = [None if t is None else t.detach().requires_grad_(n)
-               for t, n in zip(saved, needs)]
-        outs, grads_out = [], []
-        with torch.enable_grad(), record_function("rwkv6_scan_bwd"):
-            out, final = ref.rwkv6_chunked_ref(*ins)
-            for y, g in ((out, dout), (final, dstate)):
-                if g is not None:
-                    outs.append(y)
-                    grads_out.append(g)
-            want = [t for t in ins if t is not None and t.requires_grad]
-            got = iter(torch.autograd.grad(outs, want, grads_out,
-                                           allow_unused=True)
-                       if outs and want else ())
-        grads = []
-        for t in ins:
-            g = next(got) if t is not None and t.requires_grad else None
-            if g is None and t is not None and t.requires_grad:
-                g = torch.zeros_like(t)
-            grads.append(g)
-        return tuple(grads)
+        saved = [None if t is None else t.detach()
+                 for t in ctx.saved_tensors]
+        with record_function("rwkv6_scan_bwd"):
+            grads = rwkv6_scan_bwd(*saved, dout, dstate)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

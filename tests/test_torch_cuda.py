@@ -1811,8 +1811,9 @@ def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
     """Every wrapper with no backward raises before its launch when an
     input requires grad under grad mode; serving modes launch.
     ``rwkv6_scan`` has one (:class:`RWKV6Scan`): under grad it launches
-    its kernel once and its output is in the graph, and it refuses to
-    write a state in place there."""
+    its kernel once and its output is in the graph, its backward launches
+    ``rwkv6_scan_bwd`` once and the forward kernel not again, and it
+    refuses to write a state in place there."""
     x, w4, s4, wt = randn(dev, 67, (1, 8, 8, 16), (3, 3, 16, 16), (16,),
                           (3, 3, 16, 3))
     q, kc = randn(dev, 68, (2, 4, 32), (2, 2, 40, 32))
@@ -1843,8 +1844,10 @@ def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
     out, _ = ops.rwkv6_scan(r, r, r.clone().requires_grad_(True), r, u)
     assert type(out.grad_fn).__name__ == "RWKV6ScanBackward"
     assert ops.launch_counts()["rwkv6_scan"] == before + 1
-    out.sum().backward()                        # no launch in the backward
+    before_bwd = ops.launch_counts()["rwkv6_scan_bwd"]
+    out.sum().backward()
     assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    assert ops.launch_counts()["rwkv6_scan_bwd"] == before_bwd + 1
     s0 = torch.zeros((1, 2, 16, 16), device=dev)
     with pytest.raises(ValueError, match="out_state"):
         ops.rwkv6_scan(r.clone().requires_grad_(True), r, r, r, u, s0,
@@ -1855,12 +1858,13 @@ def test_cuda_wrappers_refuse_inputs_that_require_grad(dev):
 @pytest.mark.parametrize("n,h,t,d", [(2, 3, 37, 16), (1, 2, 45, 64),
                                      (2, 2, 20, 80), (1, 3, 1, 32)])
 def test_rwkv6_scan_backward_at_ragged_shapes(dev, n, h, t, d, dtype):
-    """``RWKV6Scan`` (the kernel's forward, the chunked plain backward) at
-    t not a multiple of 16 from a non-zero initial state, both outputs
-    weighted by random cotangents: the gradients of r, k, v, w, u and
-    the state against autograd through the sequential plain scan on the
-    same CUDA tensors, fp32 1e-4 of each gradient's max |value| (sums in
-    another order), bf16 r/k/v 2e-2 (their gradients round to bf16)."""
+    """``RWKV6Scan`` (the forward kernel, and the backward kernel of
+    ``csrc/rwkv6_scan_bwd.cu``) at t not a multiple of 16 from a non-zero
+    initial state, both outputs weighted by random cotangents: the
+    gradients of r, k, v, w, u and the state against autograd through
+    the sequential plain scan on the same CUDA tensors, fp32 1e-4 of each
+    gradient's max |value| (sums in another order), bf16 r/k/v 2e-2
+    (their gradients round to bf16)."""
     args = rwkv_inputs(dev, 90 + t, n, h, t, d, dtype, with_state=True)
     go, gs = randn(dev, 91, (n, h, t, d), (n, h, d, d))
     grads = []
@@ -1875,6 +1879,155 @@ def test_rwkv6_scan_backward_at_ragged_shapes(dev, n, h, t, d, dtype):
         tol = 2e-2 if i < 3 and dtype == torch.bfloat16 else 1e-4
         assert max_err(g.float(), w.float()) <= \
             tol * float(w.float().abs().max()), i
+
+
+def _no_plain_rwkv_backward_on_card(monkeypatch):
+    """Make the plain RWKV-6 backwards raise on a CUDA tensor."""
+    for name in ("rwkv6_scan_bwd_ref", "rwkv6_chunked_ref"):
+        plain = getattr(ref, name)
+
+        def refuse(r, *args, _plain=plain, **kwargs):
+            if r.is_cuda:
+                raise AssertionError("a plain backward ran on the card")
+            return _plain(r, *args, **kwargs)
+
+        monkeypatch.setattr(ref, name, refuse)
+
+
+# the backward kernel at ragged shapes: t at the sub-chunk's edges and
+# past them, d from 3 to 128 (d 80 and 128 take value-column tiles of 32,
+# summed in a second pass), with and without an initial state
+RWKV_BWD = [(2, 3, 37, 16, True), (1, 2, 45, 64, True), (2, 2, 20, 80, False),
+            (1, 3, 1, 32, True), (2, 2, 17, 3, True), (1, 1, 29, 128, True),
+            (2, 3, 16, 64, False), (1, 2, 64, 8, True), (1, 2, 33, 128, False)]
+
+
+def rwkv_bwd_inputs(dev, seed, n, h, t, d, dtype, with_state, w_range=None):
+    args = rwkv_inputs(dev, seed, n, h, t, d, dtype, with_state, w_range)
+    do, ds = randn(dev, seed + 1, (n, h, t, d), (n, h, d, d))
+    return args + [do.to(dtype), ds]
+
+
+def check_rwkv_bwd(got, want, dtype, with_state, dw_vanishes=False):
+    """The backward kernel against ``ref.rwkv6_scan_bwd_ref`` on the same
+    CUDA tensors: fp32 1e-4 of each gradient's max |value| (3xTF32
+    products and another order of sums; 1e-6 measured); bf16 dr, dk, dv
+    1e-2 (each rounded to bf16 from its fp32 sum), dw, du and dstate0
+    fp32 at 1e-4.  Where the true dw vanishes (w = 4 everywhere) both
+    return the rounding of their dw carries, and dw is held to 1e-4 of
+    max |dr|."""
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    assert (got[5] is None) == (not with_state)
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        if i == 5 and not with_state:
+            continue
+        assert g.dtype == (dtype if i < 3 else torch.float32), name
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        tol = 1e-2 if i < 3 and dtype == torch.bfloat16 else 1e-4
+        scale = float((want[0] if i == 3 and dw_vanishes else w)
+                      .float().abs().max())
+        assert max_err(g.float(), w.float()) <= tol * scale, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,t,d,with_state", RWKV_BWD)
+def test_rwkv6_scan_bwd_kernel_against_plain(dev, n, h, t, d, with_state,
+                                             dtype):
+    from repro_torch.kernels import rwkv6_scan_bwd as krb
+    args = rwkv_bwd_inputs(dev, 100 + t + d, n, h, t, d, dtype, with_state)
+    got = krb.rwkv6_scan_bwd(*args)
+    check_rwkv_bwd(got, ref.rwkv6_scan_bwd_ref(*args), dtype, with_state)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_range", [(-10.0, 4.0), (-10.0, -10.0),
+                                     (4.0, 4.0)])
+@pytest.mark.parametrize("t,d", [(45, 64), (37, 80)])
+def test_rwkv6_scan_bwd_kernel_extreme_decay(dev, t, d, w_range, dtype):
+    """w = -10 (dec = 1 - 4.5e-5) to w = 4 (a log-decay of -54.6 a token):
+    finite, at the same tolerances."""
+    from repro_torch.kernels import rwkv6_scan_bwd as krb
+    args = rwkv_bwd_inputs(dev, 110 + t, 2, 3, t, d, dtype, True, w_range)
+    check_rwkv_bwd(krb.rwkv6_scan_bwd(*args),
+                   ref.rwkv6_scan_bwd_ref(*args), dtype, True,
+                   dw_vanishes=w_range == (4.0, 4.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_bwd_kernel_bit_for_bit_and_batch_invariant(dev, dtype):
+    """Two calls give the same bits (no atomics), and each sequence alone
+    gives the bits it has in the batch except du, which sums over the
+    sequences."""
+    from repro_torch.kernels import rwkv6_scan_bwd as krb
+    for d in (64, 80):
+        args = rwkv_bwd_inputs(dev, 120 + d, 3, 4, 45, d, dtype, True)
+        first, again = krb.rwkv6_scan_bwd(*args), krb.rwkv6_scan_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        one = krb.rwkv6_scan_bwd(*[a if a.dim() == 2 else a[1:2]
+                                   for a in args])
+        for i in (0, 1, 2, 3, 5):
+            assert torch.equal(one[i], first[i][1:2]), i
+
+
+@pytest.mark.parametrize("which", ["dout", "dstate"])
+@pytest.mark.parametrize("d", [64, 80])
+def test_rwkv6_scan_bwd_kernel_with_one_cotangent_none(dev, d, which):
+    """A cotangent None is zero, on the kernel as on the plain version;
+    through ``RWKV6Scan`` an unused final state gives None."""
+    from repro_torch.kernels import rwkv6_scan_bwd as krb
+    args = rwkv_bwd_inputs(dev, 130 + d, 2, 3, 37, d, torch.float32, True)
+    i = 6 if which == "dout" else 7
+    none = list(args)
+    none[i] = None
+    zeros = list(args)
+    zeros[i] = torch.zeros_like(args[i])
+    got = krb.rwkv6_scan_bwd(*none)
+    check_rwkv_bwd(got, ref.rwkv6_scan_bwd_ref(*none), torch.float32, True)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, krb.rwkv6_scan_bwd(*zeros)))
+
+
+def test_rwkv6_scan_backward_launches_the_kernel_once(dev, monkeypatch):
+    """On CUDA tensors ``RWKV6Scan``'s backward launches ``rwkv6_scan_bwd``
+    once, the forward kernel not again, and never runs a plain backward;
+    on CPU tensors it takes ``ref.rwkv6_scan_bwd_ref`` and counts no
+    launch."""
+    _no_plain_rwkv_backward_on_card(monkeypatch)
+    args = rwkv_bwd_inputs(dev, 140, 2, 3, 37, 64, torch.bfloat16, True)
+    for device in ("cuda", "cpu"):
+        leaves = [a.to(device).clone().requires_grad_(True)
+                  for a in args[:6]]
+        out, final = ops.rwkv6_scan(*leaves)
+        before = ops.launch_counts()
+        got = torch.autograd.grad((out, final), leaves,
+                                  (args[6].to(device), args[7].to(device)))
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        want = {k: 0 for k in after}
+        if device == "cuda":
+            want["rwkv6_scan_bwd"] = 1
+            cuda = got
+        assert launched == want, device
+    for g, c in zip(got, cuda):
+        assert max_err(c.float().cpu(), g.float()) <= \
+            2e-2 * float(g.float().abs().max())
+
+
+def test_rwkv6_scan_bwd_refuses(dev):
+    """d 129 (the cotangent lives in registers up to 128), a bf16 w, a
+    CPU state on a CUDA call: each raises before any launch."""
+    from repro_torch.kernels import rwkv6_scan_bwd as krb
+    before = ops.launch_counts()["rwkv6_scan_bwd"]
+    big = rwkv_bwd_inputs(dev, 150, 1, 1, 5, 129, torch.float32, True)
+    with pytest.raises(ValueError):
+        krb.rwkv6_scan_bwd(*big)
+    args = rwkv_bwd_inputs(dev, 151, 1, 2, 5, 16, torch.float32, True)
+    with pytest.raises(TypeError):
+        krb.rwkv6_scan_bwd(*args[:3], args[3].bfloat16(), *args[4:])
+    with pytest.raises(ValueError):
+        krb.rwkv6_scan_bwd(*args[:5], args[5].cpu(), *args[6:])
+    assert ops.launch_counts()["rwkv6_scan_bwd"] == before
 
 
 def test_trainer_on_card_matches_cpu(dev, tmp_path):

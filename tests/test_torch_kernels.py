@@ -239,6 +239,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(name):
         "decode_attention": lambda: ops.decode_attention(
             q[:, 0, :2], q[:, :, :3], q[:, :, :3], torch.tensor([3])),
         "rwkv6_scan": lambda: ops.rwkv6_scan(q, q, q, q, q[0, :, 0]),
+        "rwkv6_scan_bwd": lambda: torch.autograd.grad(
+            ops.rwkv6_scan(qg, q, q, q, q[0, :, 0])[0].sum(), qg),
     }
     calls[name]()
     assert ops.launch_counts() == {k: 0 for k in ops.KERNEL_MODULES}
