@@ -31,7 +31,11 @@ wall seconds (any failure exits non-zero):
                 place): max error and tolerance, median
                 ms (CUDA events; for the LM shapes the kernels' device
                 time under ``torch.profiler``; for the decode attention
-                also with a cold L2, ``cold_ms``, beside SDPA's), the
+                also with a cold L2, ``cold_ms``, beside SDPA's, and a
+                ``decode_case`` line a case: kernel, cold, SDPA and bound
+                ms, the bound's share, the grid, the cluster, the CTAs an
+                SM holds, ``cudaOccupancyMaxActiveClusters`` and whether
+                p v runs on the tensor cores), the
                 plain version's ms, a
                 library call's ms where one exists, FLOPs, bytes and the
                 bound (at the peak of what the kernel runs on: for fp32
@@ -478,10 +482,21 @@ DESIGN = {
     "group_norm_silu": "coalesced GN statistics pass (gn_stats.cu), then a "
                        "float4 apply with four loads in flight a thread "
                        "(CUDA-core fp32; streaming stores above 32 MB)",
-    "decode_attention": "one launch: a CTA cluster per (sequence, kv head), "
-                        "per-warp cp.async rings, bf16 on mma.sync (q k^T; "
-                        "at d 128 p v with p split exactly into 3 bf16), "
-                        "DSMEM merge; a partial form (fp32 rows and their "
+    "decode_attention": "one launch: a CTA cluster per (sequence, kv head) "
+                        "splitting its rows; in each CTA a producer thread "
+                        "loads a stage's rows by TMA (a box a 128-byte "
+                        "column box, 128-byte swizzle) into a ring sized "
+                        "for two CTAs an SM (four at rep 1), and consumer "
+                        "warps (4; 8 for the CUDA-core p v of grouped "
+                        "heads) keep fp32 online softmaxes in base 2 over "
+                        "their rows of each stage; bf16 on mma.sync (q k^T; "
+                        "p v at rep > 1 and d % 16 == 0 up to 128, p split "
+                        "exactly into 3 bf16 parts packed into two products "
+                        "a tile), rows past the length -inf in the scores "
+                        "and zero in the V fragments; the warps merged in "
+                        "the CTA, each CTA's part sent by st.async onto the "
+                        "owning CTAs' barriers and merged there in a fixed "
+                        "order; a partial form (fp32 rows and their "
                         "log-sum-exp) for slots split over ranks",
     "rwkv6_scan": "prefill (t > DECODE_MAX_T): chunked and state-resident, "
                   "a block per (sequence, head, 64 value columns), 16-token "
@@ -1195,8 +1210,8 @@ def lm_attention_cases(get_config):
     decode step, 9 calls each per pass, bf16.  mixtral-8x7b (32 q over 8
     kv heads of 128, window 4096) and qwen2-vl-72b (64 over 8; 256 embeds
     and 1792 tokens) and kimi-k2-1t-a32b (64 over 8 of 112: the bf16
-    flash tile's zero-padded lanes, and the decode's CUDA-core p v path at
-    rep 8) at the depth of their phases: the causal prefill and the decode
+    flash tile's zero-padded lanes, and the decode's tensor-core p v at d
+    112) at the depth of their phases: the causal prefill and the decode
     step, bf16.  whisper-large-v3 (20 heads of 64 over 20): the
     encoder's non-causal 1500 x 1500, the decoder's causal 384 x 384 and
     its cross-attention, non-causal 384 queries over 1500 keys (32 calls
@@ -1393,6 +1408,8 @@ def lm_attention_checks(torch, log, state, totals, max_err):
                 t = state["cold"].setdefault(kernel, {})
                 t[key] = t.get(key, 0.0) + sum(per_pass.values()) * (
                     cold[key] or 0.0)
+            decode_case_line(log, arch, dt, shape, q, k, row, cold,
+                             with_bound(dict(row), byte_peak))
         emit(log, "kernel", name=kernel, design=DESIGN[kernel], arch=arch,
              dtype=dt, shape=shape, **extra, **cold, **per_seq,
              calls=per_pass, max_abs_err=err, tol=tol,
@@ -1414,6 +1431,25 @@ def lm_attention_checks(torch, log, state, totals, max_err):
         add_to_totals(totals, kernel, per_pass, row)
         del q, k, v, got, want
         torch.cuda.empty_cache()
+
+
+def decode_case_line(log, arch, dt, shape, q, k, row, cold, bound):
+    """One line a ``decode_attention`` case: the kernel's device ms, cold
+    (L2) ms, SDPA's, the bound and the kernel's share of it, and the
+    launch the call gets (``decode_attention.config``: grid, cluster,
+    CTAs an SM holds, ``cudaOccupancyMaxActiveClusters``, tensor-core p
+    v; a checkout whose wrapper has no ``config`` reports none)."""
+    from repro_torch.kernels import decode_attention as da
+    config = da.config(q, k) if hasattr(da, "config") else None
+    emit(log, "decode_case", arch=arch, dtype=dt, hq=shape["hq"],
+         hkv=shape["hkv"], d=shape["d"], lengths=shape["lengths"],
+         ms=row["ms"], cold_ms=cold.get("cold_ms"),
+         library_ms=row["library_ms"],
+         library_cold_ms=cold.get("library_cold_ms"),
+         over_library=(row["ms"] / row["library_ms"]
+                       if row["library_ms"] else None),
+         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+         bound_share=bound["bound_ms"] / row["ms"], launch=config)
 
 
 def flash_block_errors(torch, F, label, got, want, rel, rows=128):

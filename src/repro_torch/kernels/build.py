@@ -69,7 +69,8 @@ SIGNATURES = {
 #: a source's further entry points, bound as its first one is
 MORE_SIGNATURES = {
     "decode_attention": [("decode_attention_partial_launch",
-                          [P, P, P, P, P, P, I, I, I, I, I, F, I, P])],
+                          [P, P, P, P, P, P, I, I, I, I, I, F, I, P]),
+                         ("decode_attention_config", [I, I, I, I, I, I, P])],
     "gn_silu_conv": [("wgmma_tf32_probe_launch", [P, P, P, P])],
     "flash_attention": [("flash_wide_probe_launch", [P, P, P, P, P, P, P]),
                         ("flash_attention_route", [P, P, P, P, I, I]),

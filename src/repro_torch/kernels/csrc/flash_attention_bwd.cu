@@ -70,6 +70,7 @@
 
 #include "attn_common.cuh"
 #include "hopper_mma.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -1054,44 +1055,10 @@ int launch_sum(const float* dkv, void* dk, void* dv, long long n_el, int parts, 
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (nothing links
-// libcuda); null where the entry point is not found
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                     : nullptr;
-  }();
-  return fn;
-}
-
 // a 3-D map of a contiguous bf16 [heads, rows, D] tensor, boxes of 64
-// columns x 64 rows x 1 head in the 128-byte swizzle; elements outside the
-// tensor load as zeros
+// columns x 64 rows x 1 head (tma_map.cuh)
 int make_map(CUtensorMap* map, const void* base, int D, int rows, int heads) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {64, bf::BOX_ROWS, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return tma_map::make_3d(map, base, 2, D, rows, heads, 64, bf::BOX_ROWS);
 }
 
 template <int DP>

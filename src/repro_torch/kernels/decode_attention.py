@@ -6,15 +6,20 @@ On CUDA: ``csrc/decode_attention.cu``, one kernel launch per call
 (replacing the Pallas kernel ``_dec_kernel`` of the JAX package's
 ``kernels/decode_attention.py``).  The call is bound by the bytes of the
 cache rows below each sequence's length.  Each (sequence, kv head) is a
-cluster of CTAs that split its rows; each warp streams its rows through
-its own ``cp.async`` ring in shared memory and keeps an fp32 online
-softmax; bf16 ``q k^T`` runs on ``mma.sync``, and so does ``p v`` at head
-dim 128 with grouped heads (``p`` split exactly into three bf16 parts;
-other shapes on the CUDA cores); the cluster merges its warps' parts in
-a fixed order through distributed shared memory.  No scratch in global
+cluster of CTAs that split its rows; in each CTA a producer thread loads
+the rows by TMA (tensor maps encoded per call) into a ring of stages,
+sized so that two CTAs share an SM, and consumer warps keep fp32 online
+softmaxes (base 2) over their rows of each stage; bf16 ``q k^T`` runs on
+``mma.sync``, and so does ``p v`` for grouped heads at every head dim
+that is a multiple of 16 up to 128 (``p`` split exactly into three bf16
+parts; other shapes on the CUDA cores); the warps merge inside the CTA,
+then each CTA sends its part by ``st.async`` to the CTAs that own the
+output slices, which merge them in a fixed order.  No scratch in global
 memory, no atomics: a sequence's bits depend only on its own length and
-data.  fp32 or bf16 inputs, output in ``q.dtype``.  On the CPU: the plain
-version, ``ref.decode_attention_ref``.
+data.  fp32 or bf16 inputs, output in ``q.dtype``.  A sequence of length
+0 gives 0 (ROADMAP C 2).  On the CPU: the plain version,
+``ref.decode_attention_ref``.  :func:`config` reports the launch
+configuration a call gets.
 
 :func:`decode_attention_partial` is the same launch with the merged row
 written in fp32 and its log-sum-exp beside it (plain version
@@ -25,7 +30,8 @@ code, not a kernel) joins into the whole.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +43,11 @@ launches = 0
 
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 256
+
+#: the fields of :func:`config`, in the C launcher's order
+CONFIG_FIELDS = ("grid_x", "grid_y", "grid_z", "cluster", "threads",
+                 "smem_bytes", "ctas_per_sm", "max_active_clusters",
+                 "tensor_core_pv", "stages", "stage_rows")
 
 
 def _check(q, k_cache, v_cache, lengths, scale, what):
@@ -119,6 +130,26 @@ def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
         build.stream_of(q)), "decode_attention_partial")
     launches += 1
     return out, lse
+
+
+def config(q: torch.Tensor, k_cache: torch.Tensor) -> Dict[str, int]:
+    """The launch configuration that :func:`decode_attention` gives these
+    operands, launching nothing: its grid (x the cluster's CTAs, y the kv
+    heads times the passes of 8 q heads, z the sequences), the cluster,
+    threads and shared bytes of a CTA, the CTAs an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the clusters the
+    card holds at once (``cudaOccupancyMaxActiveClusters``), whether ``p
+    v`` runs on the tensor cores (1) or the CUDA cores (0), the ring's
+    stages and the rows of a stage.  Needs the card."""
+    if q.device.type != "cuda":
+        raise ValueError("decode_attention.config: the launch configuration "
+                         "is the card's; q is on the CPU")
+    n, hq, d = q.shape
+    info = (ctypes.c_int * len(CONFIG_FIELDS))()
+    build.check(build.lib("decode_attention").decode_attention_config(
+        n, hq, k_cache.shape[1], k_cache.shape[2], d, DTYPES[q.dtype], info),
+        "decode_attention_config")
+    return dict(zip(CONFIG_FIELDS, info))
 
 
 def merge_partials(o: torch.Tensor, lse: torch.Tensor,

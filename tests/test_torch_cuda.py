@@ -306,6 +306,141 @@ def test_decode_attention_independent_of_batch_and_cache_length(dev):
             assert torch.equal(ops.decode_attention(qd, kl, vl, lens), batch)
 
 
+# the serving shapes at 8 kv heads (32 clusters of 8 at batch 4):
+# kimi-k2-1t-a32b's d 112 and qwen2-vl-72b's d 128, 64 q heads each
+EIGHT_KV = [(4, 64, 8, 2112, 112, (2049, 2080, 1500, 7)),
+            (4, 64, 8, 2112, 128, (2049, 2080, 1500, 7))]
+
+
+def garbage_past_lengths(kc, vc, lengths):
+    """The caches with every slot at or past each length set to NaN, +inf
+    or -inf in turn (a slot never written may hold anything), and the
+    same caches with zeros there."""
+    s = kc.shape[2]
+    past = (torch.arange(s, device=kc.device)[None, :]
+            >= torch.tensor(lengths, device=kc.device)[:, None])
+    past = past[:, None, :, None].expand_as(kc)
+    junk = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                        device=kc.device)
+    fill = junk[torch.arange(kc.numel(), device=kc.device).view(kc.shape)
+                % 3].to(kc.dtype)
+    return ([torch.where(past, fill, t) for t in (kc, vc)],
+            [torch.where(past, torch.zeros_like(t), t) for t in (kc, vc)])
+
+
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hq,hkv,s,d,lengths", [
+    (4, 28, 4, 2112, 128, (2049, 2080, 1500, 7)),    # Qwen2-7B
+    (4, 64, 8, 2112, 112, (2049, 2080, 1500, 7)),    # kimi-k2
+    # kimi-k2's head shape at a length of 0, 1, a CTA's span + 1 and S
+    (4, 64, 8, 2112, 112, (0, 1, 273, 2112))])
+def test_decode_attention_ignores_nan_and_inf_past_each_length(
+        dev, n, hq, hkv, s, d, lengths, dtype, partial):
+    """Slots at or past each length full of NaN and +-inf (the TMA boxes
+    load up to 15 of them a CTA, and the tensor-core p v multiplies its
+    rows by p = 0): the output is finite, the same bits as with zeros
+    there, and within the plain version's tolerances per sequence (on the
+    zeroed caches: the plain version multiplies p = 0 by what the slots
+    hold); a length of 0 gives o = 0 (and lse = -inf)."""
+    q, kc, vc = (a.to(dtype) for a in randn(
+        dev, 41, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d)))
+    (kg, vg), (kz, vz) = garbage_past_lengths(kc, vc, lengths)
+    lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    if partial:
+        got, got_lse = ops.decode_attention_partial(q, kg, vg, lens)
+        clean, clean_lse = ops.decode_attention_partial(q, kz, vz, lens)
+        want, want_lse = ref.decode_attention_partial_ref(q, kz, vz, lens)
+        assert torch.equal(got_lse, clean_lse)
+        tol = 2e-5 if dtype == torch.float32 else 1e-4
+    else:
+        got = ops.decode_attention(q, kg, vg, lens)
+        clean = ops.decode_attention(q, kz, vz, lens)
+        want = ref.decode_attention_ref(q, kz, vz, lens)
+        tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, clean)
+    for i, n_keys in enumerate(lengths):
+        if n_keys == 0:
+            assert torch.all(got[i] == 0)
+            if partial:
+                assert torch.all(torch.isneginf(got_lse[i]))
+            continue
+        assert max_err(got[i], want[i]) <= tol * float(
+            want[i].abs().max().float()), (i, n_keys)
+        if partial:
+            assert max_err(got_lse[i], want_lse[i]) <= 1e-5 * max(
+                1.0, float(want_lse[i].abs().max())), (i, n_keys)
+
+
+@pytest.mark.parametrize("n,hq,hkv,s,d,lengths", EIGHT_KV)
+def test_decode_attention_independent_of_batch_at_eight_kv_heads(
+        dev, n, hq, hkv, s, d, lengths):
+    """The bits of each sequence at the 32-cluster serving shapes: alone,
+    in the batch, and in a longer cache, fp32 and bf16."""
+    q, kc, vc = randn(dev, 42, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d))
+    lens = torch.tensor(lengths, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = q.to(dtype), kc.to(dtype), vc.to(dtype)
+        batch = ops.decode_attention(qd, kd, vd, lens)
+        for i in range(n):
+            one = ops.decode_attention(qd[i:i + 1], kd[i:i + 1], vd[i:i + 1],
+                                       lens[i:i + 1])
+            assert torch.equal(batch[i:i + 1], one), (dtype, i)
+        longer = torch.zeros((n, hkv, s + 300, d), device=dev, dtype=dtype)
+        kl, vl = longer.clone(), longer.clone()
+        kl[:, :, :s], vl[:, :, :s] = kd, vd
+        assert torch.equal(ops.decode_attention(qd, kl, vl, lens), batch)
+
+
+@pytest.mark.parametrize("n,hq,hkv,s,d,lengths", EIGHT_KV)
+def test_decode_attention_one_device_kernel_at_eight_kv_heads(
+        dev, n, hq, hkv, s, d, lengths):
+    """One kernel on the device per call, at the 32-cluster shapes."""
+    q, kc, vc = (a.to(torch.bfloat16) for a in randn(
+        dev, 43, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d)))
+    lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    assert device_nodes_of(
+        lambda: ops.decode_attention(q, kc, vc, lens)) == [0]
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,s,d", [
+    (torch.bfloat16, 28, 4, 2112, 128),     # Qwen2-7B
+    (torch.float32, 28, 4, 2112, 128),
+    (torch.bfloat16, 32, 32, 2112, 80),     # zamba2-2.7b
+    (torch.bfloat16, 32, 8, 2112, 128),     # mixtral-8x7b
+    (torch.bfloat16, 64, 8, 2112, 128),     # qwen2-vl-72b
+    (torch.bfloat16, 64, 8, 2112, 112),     # kimi-k2
+    (torch.bfloat16, 20, 20, 448, 64),      # whisper-large-v3 self
+    (torch.bfloat16, 20, 20, 1500, 64),     # and cross
+    (torch.float32, 20, 20, 1500, 64)])
+def test_decode_attention_config_at_serving_shapes(dev, dtype, hq, hkv, s, d):
+    """Every serving shape: bf16 at rep > 1 two CTAs an SM (32 clusters of
+    8 in one wave where the card holds them) with four consumer warps, rep
+    1 four CTAs an SM, at least three stages in the ring; fp32 at rep > 1
+    eight consumer warps (CUDA-core p v of 8 heads); p v on the tensor
+    cores exactly for bf16 at rep > 1 with d % 16 == 0; the grid a cluster
+    per (sequence, kv head)."""
+    from repro_torch.kernels import decode_attention as da
+    q = torch.zeros((4, hq, d), device=dev, dtype=dtype)
+    kc = torch.zeros((4, hkv, s, d), device=dev, dtype=dtype)
+    c = da.config(q, kc)
+    rep = hq // hkv
+    if rep == 1:
+        assert c["ctas_per_sm"] >= 4 and c["stages"] >= 3, c
+    elif dtype == torch.bfloat16:
+        assert c["ctas_per_sm"] >= 2 and c["stages"] >= 3, c
+        assert c["threads"] == 32 * 5, c
+    else:
+        assert c["threads"] == 32 * 9 and c["stages"] >= 2, c
+    assert c["tensor_core_pv"] == int(
+        dtype == torch.bfloat16 and rep > 1 and d % 16 == 0), c
+    assert (c["grid_x"], c["grid_y"], c["grid_z"]) == (
+        c["cluster"], hkv, 4), c
+    assert c["max_active_clusters"] > 0, c
+
+
 def test_attention_kernels_count_one_launch_per_call(dev):
     q, kc = randn(dev, 19, (2, 4, 32), (2, 2, 50, 32))
     ops.reset_launch_counts()

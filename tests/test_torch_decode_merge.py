@@ -10,7 +10,9 @@ the reference's kernel gives a row of length 0 the mean of v, the port
 0): ragged lengths, so that some ranges hold no key, a row of length 0
 in every range (it gives 0), R in {1, 2, 3, 8}, grouped heads and one
 head a kv head.  fp32 at 2e-5, the
-tolerance of ``tests/test_torch_kernels.py``.
+tolerance of ``tests/test_torch_kernels.py``.  A row of length 0 is shown
+in each package by ``test_length_0_in_each_package`` (C 2's decode half,
+settled: the port keeps 0).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jdecode
 from repro_torch.kernels import ops, ref
 
@@ -112,3 +115,38 @@ def test_merge_weights_empty_parts_zero():
                                rtol=1e-7)
     assert torch.equal(got, ops.merge_partials(o.clone(), lse.clone(),
                                                torch.float32))
+
+
+def test_length_0_in_each_package():
+    """ROADMAP C 2, the decode half: a batch with one sequence of length 0
+    and finite garbage (uniform in +-50) in every slot at or past each
+    length.  The JAX package's Pallas kernel in interpret mode gives that
+    row the mean of v over all S slots (every score is ``NEG_INF = -1e30``,
+    so every p is 1), its plain version NaN (a softmax over -inf alone),
+    the port 0: ``decode_attention_ref`` 0, ``decode_attention_partial_ref``
+    o = 0 and lse = -inf, which ``merge_partials`` needs from an empty slot
+    range.  The rows with keys agree in all of them within 2e-5 (fp32)."""
+    n, hq, hkv, s, d = 3, 8, 2, 48, 16
+    lengths = (17, 0, 48)
+    q, kc, vc = arrs(7, (n, hq, d), (n, hkv, s, d), (n, hkv, s, d))
+    r = np.random.default_rng(8)
+    for i, n_keys in enumerate(lengths):
+        for c in (kc, vc):
+            c[i, :, n_keys:] = r.uniform(-50, 50, c[i, :, n_keys:].shape)
+    lens = np.array(lengths, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, kc, vc, lens)]
+    pallas = np.asarray(jdecode(*jargs, interpret=True))
+    mean_v = np.repeat(vc[1].mean(axis=1), hq // hkv, axis=0)   # [hq, d]
+    np.testing.assert_allclose(pallas[1], mean_v, atol=1e-4, rtol=1e-5)
+    jax_plain = np.asarray(jref.decode_attention_ref(*jargs))
+    assert np.isnan(jax_plain[1]).all()
+    targs = [torch.from_numpy(a) for a in (q, kc, vc, lens)]
+    port = ref.decode_attention_ref(*targs)
+    o, lse = ref.decode_attention_partial_ref(*targs)
+    assert not port[1].abs().max() and not o[1].abs().max()
+    assert torch.isneginf(lse[1]).all()
+    keyed = [0, 2]
+    for name, want in (("pallas", pallas), ("jax plain", jax_plain)):
+        for got in (port, o):
+            np.testing.assert_allclose(got[keyed].numpy(), want[keyed],
+                                       atol=2e-5, rtol=2e-5, err_msg=name)
